@@ -1,8 +1,8 @@
 """Plain PyTorch version of single-token GQA decode attention over a KV cache.
 
-Port of :func:`repro.kernels.decode_attention.ref.decode_ref`.  The
-``decode_attention`` kernel itself belongs to the next slice; this slice
-needs only the plain version, which the paged plain version defers to.
+Port of :func:`repro.kernels.decode_attention.ref.decode_ref`: the plain
+version of the ``decode_attention`` op (:mod:`.ops`), which the paged
+plain version defers to as well.
 
 One deliberate difference: a row with ``lengths == 0`` attends nothing and
 returns zeros, as both Pallas kernels do (they finalize

@@ -65,7 +65,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
             b, hq, hkv, s, t, d, strides, int(causal), _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check("flash_attention", code)
-    flash_attention_cuda.launches += 1
+    registry.count_launch(flash_attention_cuda)
     return out
 
 

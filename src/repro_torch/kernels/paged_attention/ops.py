@@ -72,7 +72,7 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
             b, hq, hkv, d, ps, tabs.shape[1], _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check("paged_decode_attention", code)
-    paged_decode_attention_cuda.launches += 1
+    registry.count_launch(paged_decode_attention_cuda)
     return out
 
 

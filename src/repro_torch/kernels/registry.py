@@ -12,20 +12,24 @@ kernel cannot run or rejects the shape.  Here dispatch is keyed by the
 * mixed devices → ``ValueError``.
 
 Each kernel wrapper carries an integer ``launches`` attribute that it
-raises by one per kernel launch (never on the plain path);
-:func:`launch_counts` / :func:`reset_launches` read and clear them, so a
-run can show that it went through the kernels.
+raises by one per kernel launch, through :func:`count_launch` (never on
+the plain path); :func:`launch_counts` / :func:`reset_launches` read and
+clear them, so a run can show that it went through the kernels.  All
+three hold one lock: the scheduler's speculation thread and the main
+thread launch kernels at the same time, and a bare ``+= 1`` can lose an
+update.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 __all__ = ["KernelOp", "OpSample", "register", "get", "names", "dispatch",
-           "launch_counts", "reset_launches"]
+           "count_launch", "launch_counts", "reset_launches"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +64,7 @@ class KernelOp:
 
 
 _OPS: dict[str, KernelOp] = {}
+_LAUNCH_LOCK = threading.Lock()
 
 
 def register(name: str, *, ref: Callable, kernel: Callable,
@@ -112,12 +117,21 @@ def dispatch(name: str, args: tuple, *, common: Optional[dict] = None):
     return op.kernel(*args, **ck)
 
 
+def count_launch(kernel: Callable) -> None:
+    """Add one to ``kernel.launches``; every wrapper calls this right
+    after its launch succeeds."""
+    with _LAUNCH_LOCK:
+        kernel.launches += 1
+
+
 def launch_counts() -> dict[str, int]:
     """``{op name: kernel launches since the last reset}``."""
-    return {n: op.kernel.launches for n, op in sorted(_OPS.items())}
+    with _LAUNCH_LOCK:
+        return {n: op.kernel.launches for n, op in sorted(_OPS.items())}
 
 
 def reset_launches() -> None:
     """Set every registered kernel's launch count to 0."""
-    for op in _OPS.values():
-        op.kernel.launches = 0
+    with _LAUNCH_LOCK:
+        for op in _OPS.values():
+            op.kernel.launches = 0

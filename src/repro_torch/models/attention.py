@@ -1,12 +1,19 @@
 """Grouped-query attention with RoPE and the stacked KV cache.
 
 Port of :mod:`repro.models.attention` (``_project_qkv`` ``:52``, ``_rope``,
-``attention`` ``:94``, ``init_kv_cache`` ``:176``).  The reference computes
-prefill attention in plain jnp; here causal self-attention goes through
-the ``flash_attention`` op, i.e. the hand-written CUDA kernel on the card
-and its plain version on the CPU.  The model keeps q/k/v as
-(B, S, H, hd); they reach the op as (B, H, S, hd) views, which the kernel
-takes by strides, so no transpose is copied.
+``attention`` ``:94``, ``init_kv_cache`` ``:176``, ``decode_attention``
+``:186``).  The reference computes attention in plain jnp; here causal
+self-attention goes through the ``flash_attention`` op and one-token
+decode through the ``decode_attention`` op, i.e. the hand-written CUDA
+kernels on the card and their plain versions on the CPU.  The model keeps
+q/k/v as (B, S, H, hd); they reach the flash op as (B, H, S, hd) views,
+which the kernel takes by strides, so no transpose is copied.
+
+``decode_attention`` writes the new token's K/V into the cache **in
+place** (the reference returns new arrays from ``.at[].set``).  The
+reference masks ``idx <= min(length, S_max - 1)``, which includes the
+token just written; the op attends ``[0, lengths)``, so it is called with
+``min(length, S_max - 1) + 1``.
 
 The causal mask is on token indices, which equals the reference's
 position mask for the prefill positions ``arange(S)`` the serving path
@@ -17,18 +24,22 @@ cross-attention (``kv_x``) run the plain version on the CPU and raise
 Shapes:
   x          (B, S, d_model)
   q          (B, S, H, hd)      k/v (B, S, Hkv, hd)
-  cache k/v  (L, B, S_max, Hkv, hd)
+  cache k/v  (L, B, S_max, Hkv, hd); one layer's slice (B, S_max, Hkv, hd)
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
+from repro_torch.kernels.decode_attention.ops import decode_op
 from repro_torch.kernels.flash_attention.ops import attention_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init
 
-__all__ = ["attn_params", "attention", "init_kv_cache"]
+__all__ = ["attn_params", "attention", "decode_attention", "init_kv_cache"]
 
 
 def attn_params(gen: torch.Generator, cfg: ModelConfig, device,
@@ -98,6 +109,55 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if return_kv:
         return y, (k, v)
     return y
+
+
+def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     lengths: torch.Tensor, *, window: Optional[int] = None):
+    """One-token decode with KV-cache append.
+
+    ``x`` (B, 1, d_model); ``cache_k``/``cache_v`` (B, S_max, Hkv, hd),
+    this layer's slice, written in place; ``lengths`` (B,) int32, the
+    current context length per lane.  The new K/V goes to slot
+    ``min(lengths, S_max - 1)`` (a lane at capacity keeps rewriting its
+    last row), or ``lengths % S_max`` with ``window`` (hymba's ring
+    buffer, plain version on the CPU only).  Returns
+    ``(y, cache_k, cache_v)``.
+    """
+    b = x.shape[0]
+    s_max = cache_k.shape[1]
+    q, k_new, v_new = _project_qkv(p, cfg, x)
+    if cfg.rope != "none":
+        q, k_new = _rope(cfg, q, k_new, lengths[:, None])  # true positions
+    if window and x.is_cuda:
+        raise NotImplementedError(
+            "the ring-buffer (windowed) decode has no CUDA kernel in the port yet")
+    slot = (lengths % s_max if window else torch.clamp(lengths, max=s_max - 1)).long()
+    rows = torch.arange(b, device=x.device)
+    cache_k.index_put_((rows, slot), k_new[:, 0].to(cache_k.dtype))
+    cache_v.index_put_((rows, slot), v_new[:, 0].to(cache_v.dtype))
+    if window:
+        out = _ring_decode_ref(q[:, 0], cache_k, cache_v, lengths, slot, window)
+    else:
+        out = decode_op(q[:, 0], cache_k, cache_v, (slot + 1).to(torch.int32))
+    y = _out_proj(p, cfg, out.reshape(b, 1, cfg.n_heads, cfg.hd))
+    return y, cache_k, cache_v
+
+
+def _ring_decode_ref(q, cache_k, cache_v, lengths, slot, window: int):
+    """Plain decode attention over a ring buffer: the valid slots are the
+    last ``min(length + 1, window)`` written, counted back from ``slot``."""
+    b, hq, d = q.shape
+    s_max, hkv = cache_k.shape[1], cache_k.shape[2]
+    idx = torch.arange(s_max, device=q.device)
+    age = (slot[:, None] - idx[None, :]) % s_max
+    valid = age < torch.clamp(lengths + 1, max=window)[:, None]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, cache_k.float()) / math.sqrt(d)
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", probs, cache_v.float())
+    return out.reshape(b, hq, d).to(q.dtype)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device,

@@ -1,8 +1,9 @@
 """Architecture registry for the port (dense family only so far).
 
 Port of :mod:`repro.models.registry`: ``get_arch(name)`` returns an
-:class:`Arch` bundling the config with its init and cache functions (the
-serving engine calls ``transformer.prefill`` itself, as in the reference).
+:class:`Arch` bundling the config with its init, cache and one-token decode
+functions (the serving engine calls ``transformer.prefill`` itself, as in
+the reference).
 The dry-run ``input_specs`` and the other families come with later slices.
 """
 from __future__ import annotations
@@ -25,6 +26,9 @@ class Arch:
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
         return _tf.init_cache(self.cfg, batch, max_len, device)
+
+    def decode_step(self, params: dict, token, cache: dict, lengths):
+        return _tf.decode_step(self.cfg, params, token, cache, lengths)
 
 
 def get_arch(name: str) -> Arch:

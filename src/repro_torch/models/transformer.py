@@ -1,7 +1,8 @@
 """Decoder-only LM, dense path: parameters, embedding, prefill, head.
 
 Port of the dense path of :mod:`repro.models.transformer` (``_embed``,
-``_head``, ``_stack_names``, ``_layer_stacks``, ``prefill`` ``:309``,
+``_head``, ``_stack_names``, ``_layer_stacks``, ``_block_decode``
+``:138``, ``prefill`` ``:309``, ``decode_step`` ``:358``,
 ``init_cache``).  Layer parameters keep the reference's stacked leading
 layer axis and keys, so a JAX params pytree converts leaf for leaf
 (:mod:`repro_torch.models.convert`); the reference's ``lax.scan`` over
@@ -12,7 +13,11 @@ slices and raise ``NotImplementedError``.
 Entry points:
   init_params(cfg, seed, device)              → params dict
   prefill(cfg, params, tokens, max_len=...)   → (logits, cache)
+  decode_step(cfg, params, token, cache, lengths) → (logits, cache)
   init_cache(cfg, batch, max_len, device)     → stacked KV cache
+
+``decode_step`` writes the cache in place and returns the dict it got
+(the reference returns a new pytree and relies on buffer donation).
 """
 from __future__ import annotations
 
@@ -21,12 +26,17 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import attention, attn_params, init_kv_cache
+from repro_torch.models.attention import (
+    attention,
+    attn_params,
+    decode_attention,
+    init_kv_cache,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, dense_init, embed_init
 from repro_torch.models.mlp import mlp, mlp_params
 
-__all__ = ["init_params", "prefill", "init_cache", "block_kind"]
+__all__ = ["init_params", "prefill", "decode_step", "init_cache", "block_kind"]
 
 
 def block_kind(cfg: ModelConfig, moe_stack: bool) -> str:
@@ -84,12 +94,22 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor
 
 
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits in float32.  On the card the bf16 product itself rounds to
-    bf16 before the cast (the reference keeps float32 accumulators)."""
+    """Logits in float32 from float32 accumulators, as the reference's
+    ``preferred_element_type=float32``: a bf16 product rounded to bf16
+    would break greedy ties over the 128k vocabulary differently.  On the
+    card ``torch.mm(..., out_dtype=float32)`` keeps the bf16 operands; on
+    the CPU (where that overload is not registered) the operands are
+    widened to float32 first, which is exact."""
     if cfg.tie_embeddings:
         raise NotImplementedError("tied embeddings are not ported yet")
     cd = cfg.cdtype
-    return torch.matmul(x.to(cd), params["lm_head"]["w"].to(cd)).float()
+    xs, w = x.to(cd), params["lm_head"]["w"].to(cd)
+    if cd == torch.float32:
+        return torch.matmul(xs, w)
+    if xs.is_cuda:
+        out = torch.mm(xs.reshape(-1, xs.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*xs.shape[:-1], w.shape[-1])
+    return torch.matmul(xs.float(), w.float())
 
 
 def _stack_names(cfg: ModelConfig):
@@ -160,3 +180,38 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     if return_all_logits:
         return _head(cfg, params, x), caches
     return _head(cfg, params, x[:, -1:])[:, 0], caches
+
+
+def _block_decode(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                  cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """One dense block's one-token decode; ``cache_k``/``cache_v`` are this
+    layer's (B, S_max, Hkv, hd) slices, written in place."""
+    if kind != "dense":
+        raise NotImplementedError(f"decode of {kind!r} blocks is not ported yet")
+    window = cfg.attn_window if cfg.attn_window > 0 else None
+    h = apply_norm(cfg.norm, p["ln1"], x)
+    a, _k, _v = decode_attention(p["attn"], cfg, h, cache_k, cache_v, lengths,
+                                 window=window)
+    x = x + a
+    return x + mlp(p["mlp"], cfg, apply_norm(cfg.norm, p["ln2"], x))
+
+
+def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
+                cache: dict, lengths: torch.Tensor):
+    """Batched one-token decode over the dense stacked cache.
+
+    ``token``/``lengths`` (B,) int32 on the device of ``params``;
+    ``cache`` is ``{stack: {"k", "v": (L, B, S_max, Hkv, hd)}}``.  Updates
+    ``cache`` in place and returns ``(logits (B, V) float32, cache)``.
+    """
+    _check_dense(cfg)
+    x = _embed(cfg, params, token[:, None])
+    for (name, kind, n), (stacked, _k2, _n2) in zip(
+            _stack_names(cfg), _layer_stacks(cfg, params)):
+        ck, cv = cache[name]["k"], cache[name]["v"]
+        for i in range(n):
+            x = _block_decode(layer_slice(stacked, i), cfg, kind, x, ck[i], cv[i],
+                              lengths)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    return _head(cfg, params, x)[:, 0], cache

@@ -1,34 +1,48 @@
-"""Inference engine surface: lanes, prefill dispatch/commit, counters.
+"""Inference engine: lanes, prefill dispatch/commit, dense decode, counters.
 
 Port of :mod:`repro.serving.engine`.  ``HostSpillPool``, ``KVPartition``,
 ``StagedPrefill`` and ``_bucket`` are copies of the reference's
-pure-Python classes.  :class:`InferenceEngine` carries the parts the paged
-engine (:mod:`repro_torch.serving.paged_kv`) inherits:
+pure-Python classes (``StagedPrefill`` gains one field, ``ready``).
+:class:`InferenceEngine` is the dense engine (reference ``:413-679``,
+``:689-754``), and carries the parts the paged engine
+(:mod:`repro_torch.serving.paged_kv`) inherits:
 
 * ``prefill_dispatch`` — one right-padded prompt batch, bucketed to powers
   of two and pinned per template, through ``transformer.prefill`` (whose
-  attention is the flash op);
+  attention is the flash op); with ``chunk=`` an oversized prompt
+  prefills its first chunk and stages the rest, which ``prefill_resume``
+  folds in one chunk at a time through ``_extend`` (the dense one-token
+  decode step, whose attention is the ``decode_attention`` op);
 * ``_prefill`` — the first token is the argmax of the logits at
   ``plens - 1``, so pad positions never matter;
-* ``commit_prefill``, ``admit``, ``retire`` and the ``dispatches`` /
-  ``decode_steps`` / ``prefill_calls`` / ``kv_bytes_moved`` counters.
+* ``commit_prefill``, ``admit``, ``retire``, ``spill``/``try_restore``
+  and the ``dispatches`` / ``decode_steps`` / ``prefill_calls`` /
+  ``kv_bytes_moved`` counters, raised at the reference's call sites.
 
-Dispatch on the card is asynchronous as in JAX: ``prefill_dispatch``
-enqueues the work and returns; ``commit_prefill`` reads the first tokens
-back, which waits for it.  Lane state (``lengths``, ``last_token``,
-``active``) lives on the host as numpy arrays and is uploaded once per
-decode tick; the reference keeps ``lengths``/``last_token`` as device
-arrays and reads them back lane by lane instead.
+The dense ``decode_tick`` runs ``transformer.decode_step`` over every
+lane of the stacked cache ``(L, n_lanes, max_len, Hkv, hd)``, updated in
+place.  Lane state (``lengths``, ``last_token``, ``active``) lives on the
+host as numpy arrays and is uploaded once per tick; the reference keeps
+``lengths``/``last_token`` as device arrays.
 
-Not ported yet (the next slice, with the ``decode_attention`` kernel):
-the dense decode step (``decode_tick``/``_insert_staged`` of the dense
-engine raise ``NotImplementedError``), chunked prefill
-(``prefill_dispatch(chunk=...)``, ``prefill_resume``) and host spill /
-restore.
+**Streams.**  Dispatch on the card is asynchronous as in JAX, and the
+scheduler's speculation thread dispatches prefills while the main thread
+runs a decode tick.  Work issued by ``prefill_dispatch`` and
+``prefill_resume`` is enqueued on a stream the engine owns, so it can run
+beside the main stream's decode, and each :class:`StagedPrefill` records
+an event after it (``ready``).  Before the main stream touches a staged
+prefill (``commit_prefill``, the paged engine's fused chunk tick) it
+waits on that event, and every tensor of the staged object is marked
+with ``record_stream`` for the stream that uses it, so the caching
+allocator never hands its memory to other work while that stream may
+still read it.  Dropping a staged object (an aborted bet) needs nothing
+more.  On the CPU there are no streams and both helpers do nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import threading
 from collections import OrderedDict
 from typing import Callable, Mapping, Optional, Sequence
@@ -298,6 +312,10 @@ class StagedPrefill:
     # aggregate — ``cache``/``first`` stay ``None``; resume advances one
     # part-chunk per call, commit delegates to the parts in order.
     parts: list = dataclasses.field(default_factory=list)
+    # Port only: the CUDA event recorded after the last work enqueued on
+    # this staged prefill (``None`` on the CPU).  The stream that touches
+    # it next waits on it first (:meth:`InferenceEngine._adopt`).
+    ready: object = None
 
     @property
     def complete(self) -> bool:
@@ -311,13 +329,13 @@ class StagedPrefill:
 
 @dataclasses.dataclass
 class InferenceEngine:
-    """Lane-based engine surface shared with the paged engine.
+    """Dense lane-cache engine; the paged engine builds on it.
 
     ``device`` defaults to ``"cuda"`` and must be where ``params`` live;
     without CUDA the caller passes ``device="cpu"``.  ``kv_shares``
-    reserves decode lanes per template (:class:`KVPartition`).
-    ``kv_spill`` is accepted for the reference's signature; the paged
-    engine refuses it until spill/restore is ported.
+    reserves decode lanes per template (:class:`KVPartition`);
+    ``kv_spill`` stages retired lanes' KV in host memory for
+    :meth:`try_restore`.
     """
 
     arch: Arch
@@ -343,21 +361,56 @@ class InferenceEngine:
                                      spill=self.kv_spill)
         self.decode_steps = 0
         self.prefill_calls = 0
-        # KV bytes copied into the engine's cache (commit splices).
+        # KV bytes copied into or out of the engine's cache (commit
+        # splices, spill and restore).  The dense engine moves whole lanes
+        # (max_len rows whether valid or not).
         self.kv_bytes_moved = 0
         # Model-step device programs launched (decode ticks, prefill
-        # batches), counted at the same call sites as the reference's jit
-        # dispatches so its exactly-one-per-tick gates carry over.
+        # batches, chunk extends, fused ticks), counted at the same call
+        # sites as the reference's jit dispatches so its exactly-one-per-
+        # tick gates carry over.  Lock-guarded: the speculation thread
+        # dispatches too.
         self.dispatches = 0
         self._dispatch_lock = threading.Lock()
         # template -> pinned (batch, prompt) prefill bucket (monotone max).
         self.template_shapes: dict[str, tuple[int, int]] = {}
+        # The stream prefill_dispatch / prefill_resume enqueue on (module
+        # docstring); None on the CPU.
+        self._stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(device=self.device)
+            # Weights may still be being written on the caller's stream.
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
     def _count_dispatch(self, n: int = 1) -> None:
         """Record ``n`` model-step dispatches (thread-safe)."""
         with self._dispatch_lock:
             self.dispatches += n
 
+    # --------------------------------------------------------------- streams
+    def _side(self):
+        """Context that enqueues on the engine's own stream (no-op on CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _mark(self, staged: StagedPrefill) -> None:
+        """Record, on the current stream, that ``staged``'s work is queued."""
+        if self._stream is not None:
+            staged.ready = torch.cuda.Event()
+            staged.ready.record()
+
+    def _adopt(self, staged: StagedPrefill) -> None:
+        """Order the current stream after ``staged``'s queued work and mark
+        its tensors as used on this stream (module docstring)."""
+        if self._stream is None or staged.ready is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(staged.ready)
+        for t in _tensors((staged.first, staged.cache, staged.lengths_dev)):
+            t.record_stream(cur)
+
+    # ------------------------------------------------------------ model steps
     def _prefill(self, tokens: torch.Tensor, plens: torch.Tensor):
         """Prefill a right-padded batch → (first token per row, KV cache
         padded to ``max_len``).  The first token is the argmax of the
@@ -367,6 +420,20 @@ class InferenceEngine:
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         last = logits[rows, plens.long() - 1]
         return last.argmax(dim=-1).to(torch.int32), cache
+
+    def _extend(self, cache: dict, toks: np.ndarray, lengths: torch.Tensor):
+        """Feed ``toks`` (B, C) — C further prompt tokens per row — through
+        the decode path one position at a time, extending ``cache`` in
+        place from ``lengths``: exactly the computation prefill performs
+        for those positions, split in time (the reference's ``lax.scan``).
+        Returns (logits of the last position, cache, advanced lengths)."""
+        tok = torch.as_tensor(toks, device=self.device)
+        logits = None
+        for j in range(tok.shape[1]):
+            logits, cache = self.arch.decode_step(self.params, tok[:, j], cache,
+                                                  lengths)
+            lengths = lengths + 1
+        return logits, cache, lengths
 
     # ------------------------------------------------------------- admission
     def admit(self, requests: Sequence, template: Optional[str] = None
@@ -389,11 +456,29 @@ class InferenceEngine:
         thread and drop the result.  The batch is padded to a power of two
         and its prompt axis to the power-of-two bucket of its longest
         (truncated) prompt, capped at ``max_prompt_len``; prompts are
-        right-padded and causal masking hides the pad keys."""
-        if chunk is not None:
-            raise NotImplementedError(
-                "chunked prefill runs the dense decode step, which comes "
-                "with the decode_attention slice")
+        right-padded and causal masking hides the pad keys.
+
+        ``chunk`` enables resumable chunked prefill: a prompt longer than
+        ``chunk`` (truncated to ``max_len - 1``) prefills its first chunk
+        now and stages the rest as ``pending`` chunks for
+        :meth:`prefill_resume`; a batch holding such prompts becomes one
+        single-request part per prompt under an aggregate parent.  Prompts
+        that fit one chunk take the ordinary path."""
+        if chunk is not None and chunk >= 1:
+            cprompts = [np.asarray(r.prompt[-(self.max_len - 1):], np.int32)
+                        for r in requests]
+            if len(requests) == 1:
+                if len(cprompts[0]) > chunk:
+                    return self._chunked_dispatch(
+                        requests[0], cprompts[0], template, chunk)
+            elif any(len(p) > chunk for p in cprompts):
+                parts = [self._chunked_dispatch(r, p, template, chunk)
+                         for r, p in zip(requests, cprompts)]
+                return StagedPrefill(
+                    template, list(requests), None, None,
+                    np.concatenate([pt.plens for pt in parts]),
+                    (len(requests), int(max(len(p) for p in cprompts))),
+                    parts=parts)
         bsz = _bucket(len(requests))
         prompts = [r.prompt[-self.max_prompt_len:] for r in requests]
         plen = min(self.max_prompt_len, _bucket(max(len(p) for p in prompts)))
@@ -407,27 +492,91 @@ class InferenceEngine:
         for i, p in enumerate(prompts):
             toks[i, : len(p)] = p  # right-pad; causal mask hides pad keys
             plens[i] = len(p)
-        first, cache = self._prefill(torch.as_tensor(toks, device=self.device),
-                                     torch.as_tensor(plens, device=self.device))
+        with self._side():
+            first, cache = self._prefill(torch.as_tensor(toks, device=self.device),
+                                         torch.as_tensor(plens, device=self.device))
+            staged = StagedPrefill(template, list(requests), first, cache,
+                                   plens, (bsz, plen))
+            self._mark(staged)
         self._count_dispatch()
-        return StagedPrefill(template, list(requests), first, cache,
-                             plens, (bsz, plen))
+        return staged
+
+    def _chunked_dispatch(self, r, prompt: np.ndarray,
+                          template: Optional[str], chunk: int) -> StagedPrefill:
+        """Prefill the first chunk of one prompt and stage the rest.
+
+        The staged cache is batch-1 and padded to ``max_len``; later chunks
+        extend it in place through the decode path, so the committed KV
+        matches a one-shot prefill of the whole prompt.  The per-template
+        shape pin is not consulted (chunk shapes are their own family)."""
+        S = len(prompt)
+        c0 = min(chunk, S)
+        dev = self.device
+        with self._side():
+            first, cache = self._prefill(
+                torch.as_tensor(prompt[None, :c0], device=dev),
+                torch.as_tensor([c0], dtype=torch.int32, device=dev))
+            pending = [prompt[None, i: i + chunk] for i in range(c0, S, chunk)]
+            staged = StagedPrefill(
+                template, [r], None if pending else first, cache,
+                np.asarray([S], np.int32), (1, S), pending=pending,
+                lengths_dev=torch.as_tensor([c0], dtype=torch.int32, device=dev))
+            self._mark(staged)
+        self._count_dispatch()
+        return staged
+
+    def prefill_resume(self, staged: StagedPrefill) -> bool:
+        """Fold the next pending chunk into a chunked staged prefill (one
+        dispatch: :meth:`_extend` over the chunk's positions); the final
+        chunk also yields the first generated token.  Returns
+        completeness.  Mutates only the staged object, so it is safe on
+        the speculation thread.  A batched-chunk parent advances ONE chunk
+        of its first incomplete part per call."""
+        if staged.complete:
+            return True
+        if staged.parts:
+            for part in staged.parts:
+                if not part.complete:
+                    self.prefill_resume(part)
+                    break
+            return staged.complete
+        toks = staged.pending.pop(0)
+        with self._side():
+            self._adopt(staged)
+            logits, staged.cache, staged.lengths_dev = self._extend(
+                staged.cache, toks, staged.lengths_dev)
+            if not staged.pending:
+                staged.first = logits.argmax(dim=-1).to(torch.int32)
+            self._mark(staged)
+        self._count_dispatch()
+        return staged.complete
 
     def commit_prefill(self, staged: StagedPrefill,
                        n: Optional[int] = None) -> tuple[int, int]:
         """Materialize a staged prefill into decode lanes.
 
-        Commits the first ``n`` requests (default: all), waiting for the
-        device results, allocating each a lane from its template's pools
-        and splicing its KV into the engine's cache.  Returns the padded
+        Commits the first ``n`` requests (default: all) — a batched-chunk
+        parent delegates to its parts in order — waiting for the device
+        results, allocating each a lane from its template's pools and
+        splicing its KV into the engine's cache.  Returns the padded
         ``(batch, prompt)`` bucket dispatched."""
         assert staged.complete, \
             "commit_prefill() of a chunked staged prefill with pending chunks"
+        if staged.parts:
+            take = len(staged.requests) if n is None else n
+            for part in staged.parts:
+                k = min(len(part.requests), take)
+                if k <= 0:
+                    break
+                self.commit_prefill(part, k)
+                take -= k
+            return staged.shape
         reqs = staged.requests if n is None else staged.requests[:n]
         assert len(reqs) <= self.n_free_for(staged.template), \
             "commit_prefill() beyond this template's free lanes"
         if not reqs:
             return staged.shape
+        self._adopt(staged)
         first = staged.first.cpu().numpy()  # waits for the dispatched prefill
         lanes = [self.partition.alloc(staged.template) for _ in reqs]
         self._insert_staged(staged, lanes)
@@ -441,22 +590,88 @@ class InferenceEngine:
         return staged.shape
 
     def _insert_staged(self, staged: StagedPrefill, lanes: list[int]) -> None:
-        """Splice the staged batch's KV into ``lanes`` (the paged engine's
-        override is the ported path)."""
-        raise NotImplementedError(
-            "the dense lane cache comes with the decode_attention slice")
+        """Splice the staged batch's cache into ``lanes`` (whole lanes,
+        every ``max_len`` row, accounted in :attr:`kv_bytes_moved`) — the
+        KV-motion hook the paged engine overrides."""
+        idx = torch.as_tensor(lanes, device=self.device)
+        for name, stack in self.cache.items():
+            for key, dst in stack.items():
+                src = staged.cache[name][key]
+                dst[:, idx] = src[:, : len(lanes)].to(dst.dtype)
+                self.kv_bytes_moved += (src.element_size() * src.shape[0] * len(lanes)
+                                        * math.prod(src.shape[2:]))
 
     # ----------------------------------------------------------------- tick
     def decode_tick(self) -> dict[int, int]:
-        """One batched decode step over all lanes → ``{lane: token}``."""
-        raise NotImplementedError(
-            "dense decode comes with the decode_attention slice; use "
-            "PagedInferenceEngine")
+        """One batched decode step over all lanes → ``{lane: token}``.
+        Every lane decodes (inactive lanes' rows are rewritten by the next
+        commit); lengths stop at ``max_len - 1``."""
+        if not self.active.any():
+            return {}
+        dev = self.device
+        logits, self.cache = self.arch.decode_step(
+            self.params, torch.as_tensor(self.last_token, device=dev), self.cache,
+            torch.as_tensor(self.lengths, device=dev))
+        nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        self._count_dispatch()
+        self.lengths = np.where(self.active,
+                                np.minimum(self.lengths + 1, self.max_len - 1),
+                                self.lengths).astype(np.int32)
+        self.last_token = nxt
+        self.decode_steps += 1
+        return {int(lane): int(nxt[lane]) for lane in np.nonzero(self.active)[0]}
 
     def retire(self, lane: int) -> None:
         """Free a lane; it returns to its home pool."""
         self.active[lane] = False
         self.partition.release(lane)
+
+    # ---------------------------------------------------------------- spill
+    def spill(self, lane: int, key, template: Optional[str] = None) -> bool:
+        """Retire ``lane``, staging its KV rows and decode cursor in the
+        host spill pool under ``key`` first.  Returns whether the KV was
+        staged (``False``: no pool, or the template is fenced out of it,
+        checked before paying the device→host copy)."""
+        pool = self.partition.spill
+        if pool is None or not pool.accepts(template):
+            self.retire(lane)
+            return False
+        rows = {name: {k: a[:, lane].cpu() for k, a in stack.items()}
+                for name, stack in self.cache.items()}
+        entry = {"rows": rows, "length": int(self.lengths[lane]),
+                 "last": int(self.last_token[lane])}
+        self.kv_bytes_moved += sum(t.element_size() * t.numel()
+                                   for t in _tensors(rows))
+        staged = pool.put(key, template, entry)
+        self.retire(lane)
+        return staged
+
+    def has_spill(self, key) -> bool:
+        """Whether ``key`` has staged KV in the spill pool."""
+        pool = self.partition.spill
+        return pool is not None and key in pool
+
+    def try_restore(self, key, template: Optional[str] = None) -> Optional[int]:
+        """Restore ``key``'s spilled KV into a fresh lane and resume its
+        decode cursor; returns the lane, or ``None`` on a pool miss or
+        when ``template`` has no admissible free lane."""
+        pool = self.partition.spill
+        if pool is None or key not in pool or self.n_free_for(template) <= 0:
+            return None
+        entry = pool.take(key)
+        if entry is None:
+            return None
+        lane = self.partition.alloc(template)
+        rows = entry["rows"]
+        self.kv_bytes_moved += sum(t.element_size() * t.numel()
+                                   for t in _tensors(rows))
+        for name, stack in self.cache.items():
+            for k, dst in stack.items():
+                dst[:, lane] = rows[name][k].to(self.device, dst.dtype)
+        self.lengths[lane] = entry["length"]
+        self.last_token[lane] = entry["last"]
+        self.active[lane] = True
+        return lane
 
     @property
     def kv(self):
@@ -481,3 +696,15 @@ class InferenceEngine:
     def free_lanes(self) -> list[int]:
         """Sorted snapshot of every free lane."""
         return self.partition.free_lanes
+
+
+def _tensors(tree):
+    """Every tensor in a nest of dicts, tuples and ``None``s."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)

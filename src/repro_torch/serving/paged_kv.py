@@ -18,11 +18,20 @@ Unlike the reference, which rebuilds the page arrays functionally each
 step, the port updates them **in place** (``index_put_`` for the decode
 scatter and the commit splice, ``copy_`` for a copy-on-write fork).
 
-Not ported yet (the next slice): prefix sharing (``prefix_share=True``),
-oversubscribed pools (``n_pages`` below ``n_lanes * max_len /
-page_size``), host spill/restore (``kv_spill``), the fused chunk tick
-(``stage_chunk``) and the dense-compute mode for architectures paged
-decode cannot cover.  Each raises ``NotImplementedError``.
+The fused chunk tick (reference ``_fused``, ``stage_chunk``): the
+scheduler may hand the next chunk of a chunked staged prefill to
+:meth:`PagedInferenceEngine.stage_chunk`; the next decode tick then runs
+the chunk's decode-path loop over its batch-1 dense cache (the inherited
+``_extend``, whose attention is the ``decode_attention`` kernel) and the
+paged decode batch, and counts both as **one** dispatch, as the reference
+counts its one fused program.  The chunk side runs on the main stream
+after waiting for the staged prefill's event.
+
+Not ported yet: prefix sharing (``prefix_share=True``), oversubscribed
+pools (``n_pages`` below ``n_lanes * max_len / page_size``), host
+spill/restore (``kv_spill``) and the dense-compute mode for
+architectures paged decode cannot cover.  Each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -426,6 +435,8 @@ class PagedInferenceEngine(InferenceEngine):
         self.lane_temps = np.zeros((self.n_lanes,), np.float32)
         self.lane_seeds = np.zeros((self.n_lanes,), np.int32)
         self.prefill_flops_total = 0
+        self.fused_folds = 0      # prefill chunks folded into decode ticks
+        self._fused_chunk: Optional[StagedPrefill] = None
         self._flops_per_token = 2 * sum(
             int(a.numel()) for a in _leaves(self.params))
         # Replace the dense per-lane store with shared page arrays
@@ -486,22 +497,49 @@ class PagedInferenceEngine(InferenceEngine):
                     self.kv_bytes_moved += (src.element_size() * src.numel())
 
     def stage_chunk(self, staged: StagedPrefill) -> bool:
-        """The fused chunk tick (a prefill chunk folded into the decode
-        dispatch) needs chunked prefill, which is not ported yet."""
-        raise NotImplementedError("chunked prefill is not ported yet")
+        """Adopt ``staged``'s next pending chunk into this tick's decode
+        dispatch (fused megabatch: one dispatch per tick boundary instead
+        of decode + resume).  Returns ``False`` when fusion does not apply
+        (a chunk already staged, nothing pending, or no active decode batch
+        to fuse with); the caller then advances the chunk on its own."""
+        if self._fused_chunk is not None:
+            return False
+        part = staged
+        if staged.parts:
+            part = next((p for p in staged.parts if not p.complete), None)
+        if part is None or part.complete or not part.pending:
+            return False
+        if not self.active.any():
+            return False
+        self._fused_chunk = part
+        return True
 
     # ----------------------------------------------------------------- tick
     def decode_tick(self) -> dict[int, int]:
-        """One paged decode step over every lane: grow block tables, fence
-        copy-on-write pages, upload the tables and lane state, run
-        :func:`paged_decode_step` and sample → ``{lane: token}``."""
+        """One paged decode step over every lane, fused with any staged
+        prefill chunk: grow block tables, fence copy-on-write pages, fold
+        the chunk through the decode path, upload the tables and lane
+        state, run :func:`paged_decode_step` and sample → ``{lane: token}``.
+        With no active lane a staged chunk is resumed on its own."""
+        part, self._fused_chunk = self._fused_chunk, None
         if not self.active.any():
+            if part is not None:  # nothing to fuse with: plain resume
+                self.prefill_resume(part)
             return {}
         for lane in np.nonzero(self.active)[0]:
             lane = int(lane)
             length = int(self.lengths[lane])
             self._ensure_pages(lane, length // self.page_size + 1)
             self._cow_guard(lane, length)
+        if part is not None:  # the chunk side of the fused dispatch
+            toks = part.pending.pop(0)
+            self._adopt(part)
+            clogits, part.cache, part.lengths_dev = self._extend(
+                part.cache, toks, part.lengths_dev)
+            if not part.pending:
+                part.first = clogits.argmax(dim=-1).to(torch.int32)
+            self._mark(part)
+            self.fused_folds += 1
         dev = self.device
         tables = self._device_tables()
         lengths = torch.as_tensor(self.lengths, device=dev)

@@ -19,6 +19,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import registry
+from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+from repro_torch.kernels.decode_attention.ref import decode_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention_cuda
@@ -85,6 +87,71 @@ def test_flash_kernel_matches_plain(gen, dtype, causal, shape):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [77, 130, 512])
+@pytest.mark.parametrize("shape", [(1, 32, 8, 128), (8, 32, 8, 128), (3, 4, 2, 64),
+                                   (2, 16, 1, 16)])
+def test_decode_kernel_matches_plain(gen, dtype, t, shape):
+    """Any T (no block size that must divide it), GQA groups of 4, 2 and
+    16, lengths 0 (zeros, never NaN), 1, T and ragged values between."""
+    b, hq, hkv, d = shape
+    lengths = ([0, 1, t] + [int(x) for x in np.linspace(2, t - 1, max(b - 3, 0))])[:b]
+    if b == 1:
+        lengths = [t - 5]
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, t, hkv, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    before = decode_attention_cuda.launches
+    out = decode_attention_cuda(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape and bool(torch.isfinite(out).all())
+    if 0 in lengths:
+        assert not out[lengths.index(0)].any()
+    tol = TOLS[dtype]
+    torch.testing.assert_close(out.float(), decode_ref(q, k, v, lens).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_decode_kernel_refuses_operands_outside_supports(gen):
+    """Strided caches, a group of 32 query heads, mixed dtypes and float
+    lengths raise ValueError on the card; nothing is launched."""
+    q = torch.zeros((2, 8, 64), device="cuda")
+    k = torch.zeros((2, 40, 2, 64), device="cuda")
+    lens = torch.ones(2, dtype=torch.int32, device="cuda")
+    registry.reset_launches()
+    bad = [
+        (q, k.transpose(1, 2).contiguous().transpose(1, 2), k, lens),  # strided cache
+        (torch.zeros((2, 64, 64), device="cuda"), k, k, lens),         # G = 32
+        (q.bfloat16(), k, k, lens),                                     # mixed dtypes
+        (q, k, k, lens.float()),                                        # float lengths
+        (torch.zeros((2, 8, 512), device="cuda"),
+         torch.zeros((2, 40, 2, 512), device="cuda"),
+         torch.zeros((2, 40, 2, 512), device="cuda"), lens),           # D > 256
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            registry.dispatch("decode_attention", args)
+    assert registry.launch_counts() == {n: 0 for n in registry.names()}
+
+
+def test_head_keeps_float32_accumulators(gen):
+    """bf16 logits on the card are the float32 product of the bf16
+    operands (``torch.mm`` with ``out_dtype``), not a bf16-rounded one."""
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_arch
+
+    cfg = get_arch("llama3-8b").cfg
+    x = torch.randn((2, 3, 512), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((512, 1000), generator=gen, device="cuda").bfloat16()
+    cfg = dataclasses.replace(cfg, d_model=512, vocab_size=1000)
+    got = transformer._head(cfg, {"lm_head": {"w": w}}, x)
+    assert got.dtype == torch.float32
+    want = torch.matmul(x.double(), w.double()).float()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
 def test_cuda_operands_never_fall_back(gen):
     """An unsupported operand on the card raises; it does not run the plain
     version."""
@@ -104,11 +171,15 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
-def test_reduced_model_served_on_card_matches_cpu(gen):
+@pytest.mark.parametrize("kind", ["paged", "dense", "async"])
+def test_reduced_model_served_on_card_matches_cpu(gen, kind):
     """Reduced llama3-8b in float32: greedy streams and dispatches through
-    the kernels on the card equal the plain versions on the CPU."""
+    the kernels on the card equal the plain versions on the CPU, on the
+    synchronous paged path, the dense engine and the paged engine under
+    ``overlap=True`` with chunked prefill (prompts up to 30 tokens)."""
     from repro_torch.core.strategies import GrowingUpperThreshold
     from repro_torch.models.registry import get_arch
+    from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
@@ -119,18 +190,32 @@ def test_reduced_model_served_on_card_matches_cpu(gen):
     out = {}
     for device in ("cuda", "cpu"):
         params = _to(cpu_params, device)
-        eng = PagedInferenceEngine(arch, params, n_lanes=3, max_prompt_len=16, max_len=32,
-                                   page_size=8, device=device)
-        sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2))
+        if kind == "dense":
+            eng = InferenceEngine(arch, params, n_lanes=3, max_prompt_len=16, max_len=48,
+                                  device=device)
+        else:
+            eng = PagedInferenceEngine(arch, params, n_lanes=3, max_prompt_len=16,
+                                       max_len=48, page_size=8, device=device)
+        skw = dict(overlap=True, chunk_tokens=6) if kind == "async" else {}
+        sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2),
+                                            **skw)
         rng = np.random.default_rng(1)
-        reqs = [Request(rid=i, prompt=rng.integers(1, 256, size=int(n)).astype(np.int32),
-                        max_new_tokens=24) for i, n in enumerate(rng.integers(3, 17, size=5))]
+        lens = [int(n) for n in rng.integers(3, 17, size=5)] + [23, 30]
+        reqs = [Request(rid=i, prompt=rng.integers(1, 256, size=n).astype(np.int32),
+                        max_new_tokens=12, template="long" if n > 16 else "short")
+                for i, n in enumerate(lens)]
         registry.reset_launches()
         for r in reqs:
             sched.submit(r)
         sched.producer_done()
         sched.run_until_drained()
-        out[device] = ([r.generated for r in reqs], eng.dispatches, registry.launch_counts())
+        out[device] = ({r.rid: r.generated for r in reqs}, eng.dispatches,
+                       registry.launch_counts())
     assert out["cuda"][:2] == out["cpu"][:2]
-    assert out["cuda"][2]["paged_decode_attention"] > 0 and out["cuda"][2]["flash_attention"] > 0
+    launched = out["cuda"][2]
+    assert launched["flash_attention"] > 0
+    if kind in ("dense", "async"):
+        assert launched["decode_attention"] > 0
+    if kind != "dense":
+        assert launched["paged_decode_attention"] > 0
     assert out["cpu"][2] == {n: 0 for n in registry.names()}

@@ -5,7 +5,8 @@ device-keyed dispatch policy.
 Inputs are drawn with numpy and handed to both packages.  Tolerances:
 float32 plain versions against float32 jnp/Pallas, 2e-5 absolute and
 relative, because the two sides sum the softmax and the PV product in
-another order (observed differences are about 1e-6).
+another order (observed differences are about 1e-6); the dense decode op,
+1e-5 (the same sums over fewer keys; also about 1e-6 observed).
 """
 from __future__ import annotations
 
@@ -15,15 +16,20 @@ import pytest
 import torch
 
 from repro.kernels import registry as jreg
+from repro.kernels.decode_attention.kernel import decode_attention_kernel
+from repro.kernels.decode_attention.ref import decode_ref as j_decode_ref
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.kernels.paged_attention.ref import paged_decode_ref as j_paged_ref
 from repro_torch.kernels import registry
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ref import decode_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import paged_decode_ref
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def _t(a):
@@ -98,6 +104,58 @@ def test_paged_bf16_plain_matches_jnp_ref():
                                rtol=1e-2, atol=1e-2)
 
 
+# ------------------------------------------------------------ dense decode
+
+def _pallas_decode(q, k, v, lengths):
+    """The Pallas kernel under interpret mode, as the reference's own
+    kernel tests run it (bk = 32 divides every T below)."""
+    return np.asarray(decode_attention_kernel(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        bk=32, interpret=True))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_decode_sample_matches_jnp_ref_and_pallas(seed):
+    """The op's registered sample (the reference's ``_sample`` shapes: q
+    (2, 4, 64), k/v (2, 128, 2, 64), lengths 1..128): plain version ==
+    jnp ref == Pallas kernel under interpret."""
+    s = registry.get("decode_attention").sample(np.random.default_rng(seed))
+    assert [a.shape for a in s.args] == [(2, 4, 64), (2, 128, 2, 64), (2, 128, 2, 64), (2,)]
+    got = decode_ops.decode_op(*map(_t, s.args)).numpy()
+    jargs = tuple(jnp.asarray(a) for a in s.args)
+    np.testing.assert_allclose(got, np.asarray(j_decode_ref(*jargs)), **DECODE_TOL)
+    np.testing.assert_allclose(got, _pallas_decode(*s.args), **DECODE_TOL)
+
+
+@pytest.mark.parametrize("t", [32, 128])
+def test_decode_ragged_lengths_match_jnp_ref_and_pallas(t):
+    """Lengths 1 and T and ragged values between, GQA 8:2; length-0 rows
+    are zeros, compared with Pallas only (the jnp ref returns mean(V))."""
+    rng = np.random.default_rng(t)
+    b = 5
+    q = rng.standard_normal((b, 8, 32), dtype=np.float32)
+    k = rng.standard_normal((b, t, 2, 32), dtype=np.float32)
+    v = rng.standard_normal((b, t, 2, 32), dtype=np.float32)
+    lengths = np.array([0, 1, t, 7, t - 3], np.int32)
+    got = decode_ops.decode_op(_t(q), _t(k), _t(v), _t(lengths)).numpy()
+    assert np.isfinite(got).all() and not got[0].any()
+    pallas = _pallas_decode(q, k, v, lengths)
+    assert not pallas[0].any()
+    np.testing.assert_allclose(got, pallas, **DECODE_TOL)
+    want = np.asarray(j_decode_ref(*(jnp.asarray(a) for a in (q, k, v, lengths))))
+    np.testing.assert_allclose(got[1:], want[1:], **DECODE_TOL)
+
+
+def test_decode_split_sizes_fill_the_card():
+    """Keys per block of the CUDA kernel at the main path's shapes: the
+    dense engine's 8 lanes and the batch-1 chunk side both get a few
+    hundred blocks, and never more than 128 keys a block."""
+    assert decode_ops._split(8, 8, 512) == 64     # 512 blocks
+    assert decode_ops._split(1, 8, 512) == 32     # 128 blocks
+    assert decode_ops._split(64, 8, 4096) == 128
+    assert decode_ops._split(1, 1, 7) == 32
+
+
 # ------------------------------------------------------------------- flash
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -152,16 +210,46 @@ def test_flash_right_padding_is_invisible_to_real_rows():
 
 # ---------------------------------------------------------------- dispatch
 
+OPS = ["decode_attention", "flash_attention", "paged_decode_attention"]
+
+
 def test_registry_names_and_samples():
-    assert registry.names() == ["flash_attention", "paged_decode_attention"]
+    assert registry.names() == OPS
     for name in registry.names():
         op = registry.get(name)
         assert isinstance(op.kernel.launches, int)
     with pytest.raises(KeyError, match="registered"):
-        registry.get("decode_attention")
+        registry.get("batched_gather")
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "paged_decode_attention"])
+def test_launch_counter_is_thread_safe():
+    """Two threads raising one kernel's counter 10 000 times each, with
+    the interpreter switching threads every microsecond, count 20 000:
+    the speculation thread and the main thread launch at the same time."""
+    import sys
+    import threading
+
+    kernel = decode_ops.decode_attention_cuda
+    registry.reset_launches()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [registry.count_launch(kernel) for _ in range(10_000)])
+            for _ in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert registry.launch_counts()["decode_attention"] == 20_000
+    registry.reset_launches()
+    assert registry.launch_counts() == {n: 0 for n in OPS}
+
+
+@pytest.mark.parametrize("name", OPS)
 def test_cpu_operands_take_the_plain_version(name):
     """A CPU tensor runs the plain version and never counts a launch."""
     op = registry.get(name)
@@ -173,7 +261,7 @@ def test_cpu_operands_take_the_plain_version(name):
     assert registry.launch_counts() == {n: 0 for n in registry.names()}
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "paged_decode_attention"])
+@pytest.mark.parametrize("name", OPS)
 def test_kernel_wrapper_refuses_cpu_tensors(name):
     """The CUDA wrapper never falls back: given CPU tensors it raises."""
     op = registry.get(name)
@@ -215,3 +303,17 @@ def test_supports_gates():
     # Operands on another device than q: the kernel would read host memory.
     assert not paged_ops._supports(pq, pk, pk, tabs.to("meta"), lens)
     assert not flash_ops._supports(q, k.to("meta"), k)
+    # Dense decode: both main-path shapes, any T; not a strided cache, a
+    # group above 16, a head dim above 256 or float lengths.
+    dk = torch.zeros(8, 512, 8, 128, dtype=torch.bfloat16)
+    assert decode_ops._supports(pq, dk, dk, lens)
+    assert decode_ops._supports(pq[:1], dk[:1], dk[:1], lens[:1])
+    assert decode_ops._supports(pq.to(f), dk[:, :77].to(f), dk[:, :77].to(f), lens)
+    strided = dk.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not decode_ops._supports(pq, strided, strided, lens)
+    assert not decode_ops._supports(torch.zeros(8, 32, 128), torch.zeros(8, 9, 1, 128),
+                                    torch.zeros(8, 9, 1, 128), lens)
+    assert not decode_ops._supports(torch.zeros(8, 8, 512), torch.zeros(8, 9, 2, 512),
+                                    torch.zeros(8, 9, 2, 512), lens)
+    assert not decode_ops._supports(pq, dk, dk, lens.float())
+    assert not decode_ops._supports(pq, dk, dk, lens.to("meta"))

@@ -4,7 +4,8 @@ Reduced llama3-8b in float32, weights drawn once by the JAX package and
 carried across with ``params_from_numpy``.  Tolerance for logits and KV:
 1e-4 absolute and relative, because the two frameworks sum the matrix
 products and softmaxes in another order (observed differences are about
-1e-6 on O(1) values).
+1e-6 on O(1) values); the dense decode step's cache, 1e-5 (it holds
+projections only, no softmax).
 """
 from __future__ import annotations
 
@@ -263,3 +264,92 @@ def test_sample_tokens_greedy_matches_jnp_argmax(seed):
                            jnp.zeros(6, jnp.int32), jnp.arange(6, dtype=jnp.int32))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -------------------------------------------------------------------- head
+
+def test_head_bf16_keeps_float32_accumulators(setup):
+    """At bf16 the logits are the float32 accumulation of the bf16
+    operands, as the reference's ``preferred_element_type=float32``: a
+    bf16-rounded product is off by up to a bf16 ulp of the logit (about
+    0.03 here), far outside 1e-4."""
+    jarch, _jp, arch, _tp, _tree = setup
+    cfg = dataclasses.replace(arch.cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
+    jcfg = dataclasses.replace(jarch.cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 3, cfg.d_model), dtype=np.float32)
+    w = rng.standard_normal((cfg.d_model, cfg.vocab_size), dtype=np.float32)
+    tx, tw = torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()
+    got = t_tf._head(cfg, {"lm_head": {"w": tw}}, tx)
+    want = j_tf._head(jcfg, {"lm_head": {"w": jnp.asarray(tw.float().numpy())}},
+                      jnp.asarray(tx.float().numpy()))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-4)
+
+
+# ------------------------------------------------------------ dense decode
+
+def _dense_inputs(cfg, seed: int, s_max: int = 12):
+    """Four lanes over a random cache: mid-cache, at capacity (s_max - 1),
+    past it (the slot clamp min(length, s_max - 1)) and at length 0."""
+    rng = np.random.default_rng(seed)
+    shape = (cfg.n_layers, 4, s_max, cfg.n_kv_heads, cfg.hd)
+    cache = {"layers": {"k": rng.standard_normal(shape, dtype=np.float32),
+                        "v": rng.standard_normal(shape, dtype=np.float32)}}
+    lengths = np.array([5, s_max - 1, s_max + 3, 0], np.int32)
+    token = rng.integers(0, cfg.vocab_size, size=4).astype(np.int32)
+    return token, cache, lengths
+
+
+@pytest.mark.parametrize("window", [0, 4])
+def test_decode_attention_matches_reference(setup, window):
+    """One layer's one-token decode: output and both cache slices against
+    the reference's, through the op (window 0) and the plain ring buffer
+    (window 4, CPU only)."""
+    jarch, jparams, arch, tparams, _tree = setup
+    jcfg = dataclasses.replace(jarch.cfg, attn_window=window)
+    cfg = dataclasses.replace(arch.cfg, attn_window=window)
+    _tok, cache, lengths = _dense_inputs(cfg, seed=5)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((4, 1, cfg.d_model), dtype=np.float32)
+    ck, cv = (cache["layers"][k][1] for k in ("k", "v"))
+    jp = jax.tree_util.tree_map(lambda a: a[1], jparams["layers"]["attn"])
+    tp = {k: v[1] for k, v in tparams["layers"]["attn"].items()}
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    y, k_out, v_out = t_attention.decode_attention(
+        tp, cfg, torch.from_numpy(x), tk, tv, torch.from_numpy(lengths),
+        window=window or None)
+    assert k_out is tk and v_out is tv  # written in place
+    jy, jk, jv = j_attention.decode_attention(
+        jp, jcfg, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv),
+        jnp.asarray(lengths), window=window or None)
+    np.testing.assert_allclose(y.numpy(), _np(jy), **TOL)
+    np.testing.assert_allclose(tk.numpy(), _np(jk), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tv.numpy(), _np(jv), rtol=1e-5, atol=1e-5)
+
+
+def test_decode_step_matches_reference(setup):
+    """The whole one-token step over the stacked cache: logits within
+    1e-4, caches within 1e-5, and exactly one row written per lane and
+    layer, at the reference's slot min(length, s_max - 1)."""
+    jarch, jparams, arch, tparams, _tree = setup
+    token, cache, lengths = _dense_inputs(arch.cfg, seed=7)
+    before = {k: a.copy() for k, a in cache["layers"].items()}
+    tcache = {"layers": {k: torch.from_numpy(a.copy()) for k, a in before.items()}}
+    logits, out = arch.decode_step(tparams, torch.from_numpy(token), tcache,
+                                   torch.from_numpy(lengths))
+    assert out is tcache and logits.dtype == torch.float32
+    jlogits, jout = jarch.decode_step(jparams, jnp.asarray(token),
+                                      jax.tree_util.tree_map(jnp.asarray, cache),
+                                      jnp.asarray(lengths))
+    np.testing.assert_allclose(logits.numpy(), _np(jlogits), **TOL)
+    s_max = before["k"].shape[2]
+    slots = np.minimum(lengths, s_max - 1)
+    for key in ("k", "v"):
+        got, want = out["layers"][key].numpy(), _np(jout["layers"][key])
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        changed = np.argwhere((got != before[key]).any(axis=(3, 4)))
+        assert {(int(l_), int(b), int(t)) for l_, b, t in changed} == {
+            (l_, b, int(slots[b])) for l_ in range(arch.cfg.n_layers) for b in range(4)}
+        jchanged = np.argwhere((want != before[key]).any(axis=(3, 4)))
+        np.testing.assert_array_equal(changed, jchanged)

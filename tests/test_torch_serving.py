@@ -186,17 +186,6 @@ def test_unported_modes_raise(setup, kw, match):
                              page_size=8, device="cpu", **kw)
 
 
-def test_chunked_prefill_raises(setup):
-    _jarch, _jp, arch, tparams = setup
-    eng = PagedInferenceEngine(arch, tparams, n_lanes=2, max_prompt_len=16, max_len=32,
-                               page_size=8, device="cpu")
-    r = Request(rid=0, prompt=np.arange(1, 12, dtype=np.int32))
-    with pytest.raises(NotImplementedError):
-        eng.prefill_dispatch([r], chunk=4)
-    with pytest.raises(NotImplementedError):
-        eng.stage_chunk(eng.prefill_dispatch([r]))
-
-
 # ------------------------------------------------------- temperature > 0
 
 def test_sampling_draw_depends_on_seed_and_position_only():
