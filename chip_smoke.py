@@ -562,25 +562,17 @@ def _report_logits(label, kern, plain):
     import torch
     if not bool(torch.isfinite(kern).all()):
         fail(f"{label}: non-finite logits")
-    row_diff = (kern - plain).abs().amax(-1)
-    diff = float(row_diff.max())
+    diff = float((kern - plain).abs().max())
     scale = float(plain.abs().max())
-    pick = kern.argmax(-1)
-    agree = int((pick == plain.argmax(-1)).sum())
+    agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
+    log(f"[check] {label}: logits {tuple(kern.shape)}, max abs diff {diff!r} "
+        f"(max |logit| {scale!r}), argmax agreement {agree}/{kern.shape[0]}")
     # bf16 through 32 layers: the two attention paths round differently,
     # and random weights give near-flat logits whose top entries lie
-    # closer together than that rounding, so the two argmaxes may differ.
-    # Each row's kernel-path token must then be a near-tie on the plain
-    # path: within twice the row's own logit difference of the maximum.
-    # A broken kernel moves every logit and fails both checks.
-    rows = torch.arange(kern.shape[0], device=kern.device)
-    gap = plain.amax(-1) - plain[rows, pick]
-    near = int((gap <= 2 * row_diff).sum())
-    log(f"[check] {label}: logits {tuple(kern.shape)}, max abs diff {diff!r} "
-        f"(max |logit| {scale!r}), argmax agreement {agree}/{kern.shape[0]}, "
-        f"kernel token a near-tie on the plain path {near}/{kern.shape[0]} "
-        f"(largest gap {float(gap.max())!r})")
-    if near < kern.shape[0] or diff > 0.25 * scale:
+    # closer together than that rounding, so exact agreement is not
+    # expected.  On the H100 the difference reads about 0.017 x max |logit|;
+    # a broken kernel moves every row well past the 0.05 gate.
+    if agree < kern.shape[0] - 2 or diff > 0.05 * scale:
         fail(f"{label}: kernel path and plain path disagree")
 
 

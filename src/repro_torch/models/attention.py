@@ -17,9 +17,10 @@ token just written; the op attends ``[0, lengths)``, so it is called with
 
 The causal mask is on token indices, which equals the reference's
 position mask for the prefill positions ``arange(S)`` the serving path
-uses.  Sliding windows (``cfg.attn_window``), ``cfg.attn_chunk`` and
-cross-attention (``kv_x``) run the plain version on the CPU and raise
-``NotImplementedError`` on the card for now.
+uses.  In prefill, sliding windows (``cfg.attn_window``),
+``cfg.attn_chunk`` and cross-attention (``kv_x``) run the plain version on
+the CPU and raise ``NotImplementedError`` on the card for now; the
+windowed (ring-buffer) decode raises on every device.
 
 Shapes:
   x          (B, S, d_model)
@@ -28,7 +29,6 @@ Shapes:
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -120,44 +120,24 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     this layer's slice, written in place; ``lengths`` (B,) int32, the
     current context length per lane.  The new K/V goes to slot
     ``min(lengths, S_max - 1)`` (a lane at capacity keeps rewriting its
-    last row), or ``lengths % S_max`` with ``window`` (hymba's ring
-    buffer, plain version on the CPU only).  Returns
-    ``(y, cache_k, cache_v)``.
+    last row).  ``window`` (hymba's ring buffer) is not ported yet and
+    raises.  Returns ``(y, cache_k, cache_v)``.
     """
+    if window:
+        raise NotImplementedError(
+            "the ring-buffer (windowed) decode is not ported yet")
     b = x.shape[0]
     s_max = cache_k.shape[1]
     q, k_new, v_new = _project_qkv(p, cfg, x)
     if cfg.rope != "none":
         q, k_new = _rope(cfg, q, k_new, lengths[:, None])  # true positions
-    if window and x.is_cuda:
-        raise NotImplementedError(
-            "the ring-buffer (windowed) decode has no CUDA kernel in the port yet")
-    slot = (lengths % s_max if window else torch.clamp(lengths, max=s_max - 1)).long()
+    slot = torch.clamp(lengths, max=s_max - 1).long()
     rows = torch.arange(b, device=x.device)
     cache_k.index_put_((rows, slot), k_new[:, 0].to(cache_k.dtype))
     cache_v.index_put_((rows, slot), v_new[:, 0].to(cache_v.dtype))
-    if window:
-        out = _ring_decode_ref(q[:, 0], cache_k, cache_v, lengths, slot, window)
-    else:
-        out = decode_op(q[:, 0], cache_k, cache_v, (slot + 1).to(torch.int32))
+    out = decode_op(q[:, 0], cache_k, cache_v, (slot + 1).to(torch.int32))
     y = _out_proj(p, cfg, out.reshape(b, 1, cfg.n_heads, cfg.hd))
     return y, cache_k, cache_v
-
-
-def _ring_decode_ref(q, cache_k, cache_v, lengths, slot, window: int):
-    """Plain decode attention over a ring buffer: the valid slots are the
-    last ``min(length + 1, window)`` written, counted back from ``slot``."""
-    b, hq, d = q.shape
-    s_max, hkv = cache_k.shape[1], cache_k.shape[2]
-    idx = torch.arange(s_max, device=q.device)
-    age = (slot[:, None] - idx[None, :]) % s_max
-    valid = age < torch.clamp(lengths + 1, max=window)[:, None]
-    qg = q.reshape(b, hkv, hq // hkv, d).float()
-    scores = torch.einsum("bkgd,btkd->bkgt", qg, cache_k.float()) / math.sqrt(d)
-    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", probs, cache_v.float())
-    return out.reshape(b, hq, d).to(q.dtype)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device,
