@@ -10,10 +10,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    ``src/repro_torch/csrc`` with ``nvcc`` (one process per source, in
    parallel) and time it;
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the main path's shapes in bf16 and at a small ragged float32 shape, with
-   the tolerance stated; its time, the plain version's, one library call's
-   as a yardstick (never called by the port) and the least time the card
-   could take (``bound_ms``);
+   the main path's shapes in bf16 and at a small ragged float32 shape (the
+   ``ssd_scan`` kernel: mamba2-1.3b's prefill shape in float32 and the
+   reference's sweep shapes in float32 and bf16), with the tolerance
+   stated; its time, the plain version's, one library call's as a
+   yardstick where one exists (never called by the port) and the least
+   time the card could take (``bound_ms``);
 4. serving paths — llama3-8b at full width (32 layers, bf16, weights
    drawn from seed 0 on the card) served through
    ``ContinuousBatchingScheduler``, 32 new tokens a request, three paths,
@@ -30,17 +32,29 @@ Phases, each ending in ``torch.cuda.synchronize()``:
       fed through the decode path x 32, and no speculation crash;
    c. dense — ``InferenceEngine`` with the main path's requests:
       ``decode_attention`` = decode steps x 32;
-5. checks — first prefill and first decode tick of the full-width model,
-   kernel path against the plain path on the same weights and batch;
-6. profile — ``torch.profiler`` over one full-width prefill dispatch, a
-   few decode ticks and one fused tick (a 64-token prompt chunk folded
-   into the decode): host wall time, device busy time and the kernels
-   that take the most of it;
+   then mamba2-1.3b at full width (48 layers, bf16, weights drawn from
+   seed 0 on the card) through ``InferenceEngine(n_lanes=8,
+   max_prompt_len=2048, max_len=2080)``:
+   d. ssm — the synchronous path, 16 requests of 300-2000 tokens:
+      ``ssd_scan`` = prefill dispatches x 48, no other kernel;
+   e. ssm-async — ``overlap=True, chunk_tokens=1024``, 14 prompts of
+      300-1000 tokens and 2 of 1056-1152 (their tails fed through the
+      recurrent decode): ``ssd_scan`` = prefill dispatches x 48, no
+      speculation crash;
+5. checks — first prefill and first decode tick of the full-width
+   llama3-8b, and the first full-width mamba2 prefill, kernel path
+   against the plain path on the same weights and batch;
+6. profile — ``torch.profiler`` over one full-width llama3-8b prefill
+   dispatch, a few decode ticks and one fused tick (a 64-token prompt
+   chunk folded into the decode), then one mamba2 prefill dispatch and a
+   few of its decode ticks: host wall time, device busy time, the kernels
+   that take the most of it, and ``ssd_scan``'s share of the prefill;
 7. reduced check — the reduced llama3-8b in float32 served on the card
    with the kernels against the same model served on the CPU with the
    plain versions, on the synchronous paged path, the dense engine and
-   the overlap + chunk paged path (per-request greedy streams and the
-   engine's counters must be equal).
+   the overlap + chunk paged path; the reduced mamba2 the same way on the
+   dense engine, synchronous and overlap + chunk (per-request greedy
+   streams and the engine's counters must be equal).
 
 Any failure exits non-zero.  The last lines are the card's name and power
 limit, the kernels' JSON line, and ``{"ok": true, "device": {...}}``.
@@ -59,9 +73,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core peak.
+# NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
+# the float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -134,9 +150,9 @@ class Timer:
         return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def _bound(nbytes: float, flops: float):
+def _bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -309,7 +325,60 @@ def phase_kernels(timer):
                  decode_ref(*small), 1e-4, 1e-4)
     rows["decode_attention"] = timed["dense engine"]
     torch.cuda.synchronize()
+    rows["ssd_scan"] = _ssd_scan_kernel(timer, gen)
     return rows
+
+
+def _scan_case(gen, shape, dtype):
+    import torch
+    b, c, h = shape[:3]
+    states = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    decay = torch.sigmoid(torch.randn((b, c, h), generator=gen, device="cuda"))
+    return states, decay
+
+
+def _ssd_scan_kernel(timer, gen):
+    """The ``ssd_scan`` kernel against its plain version.  Tolerances:
+    float32 1e-6 (a few ulps: both sides do the same multiply and add in
+    float32 per chunk, the kernel without FMA contraction, so it should
+    read 0); bf16 ``prev`` 2^-7 relative (one bf16 ulp of its rounding:
+    the kernel rounds the float32 carry to bf16, the plain version keeps
+    it in float32) and ``final`` as float32."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    def check(label, states, decay, prev_tol):
+        prev, final = ssd_scan_cuda(states, decay)
+        torch.cuda.synchronize()
+        rprev, rfinal = ssd_scan_ref(states, decay)
+        if prev.dtype != states.dtype or final.dtype != torch.float32:
+            fail(f"ssd_scan {label}: output dtypes {prev.dtype}, {final.dtype}")
+        err = _compare(f"ssd_scan {label} prev", prev, rprev, *prev_tol)
+        return max(err, _compare(f"ssd_scan {label} final", final, rfinal, 1e-6, 1e-6))
+
+    # mamba2-1.3b's prefill: 8 prompts of 2048 tokens, chunks of 256.
+    shape = (8, 8, 64, 64, 128)
+    states, decay = _scan_case(gen, shape, torch.float32)
+    err = check(f"f32 mamba2 prefill B,C,H,P,N={shape}", states, decay, (1e-6, 1e-6))
+    for small in ((2, 8, 4, 16, 32), (1, 16, 2, 8, 8), (3, 4, 5, 32, 16), (1, 32, 1, 64, 64)):
+        for dtype, tol in ((torch.float32, (1e-6, 1e-6)), (torch.bfloat16, (2.0 ** -7, 1e-6))):
+            check(f"{str(dtype)[6:]} sweep B,C,H,P,N={small}",
+                  *_scan_case(gen, small, dtype), tol)
+    check("f32 one chunk B,C,H,P,N=(8, 1, 64, 64, 128)",
+          *_scan_case(gen, (8, 1, 64, 64, 128), torch.float32), (1e-6, 1e-6))
+    # States read once, prev and final written once (decay is 16 KB); two
+    # float32 flops per element per chunk.
+    nbytes = 4 * (2 * states.numel() + decay.numel() + states.numel() // shape[1])
+    bound, by = _bound(nbytes, 2 * states.numel(), F32_FLOPS_PER_S)
+    row = dict(route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+               replaces="src/repro/kernels/ssd_scan/kernel.py:51", max_abs_err=err,
+               ms=timer.ms(lambda: ssd_scan_cuda(states, decay)),
+               plain_ms=timer.ms(lambda: ssd_scan_ref(states, decay)),
+               bound_ms=bound, bound_by=by, library_ms=None)
+    log(f"[kernels] ssd_scan (no single PyTorch call computes it: library_ms null): {row}")
+    torch.cuda.synchronize()
+    return row
 
 
 # ----------------------------------------------------------------- phase 4
@@ -406,7 +475,7 @@ def phase_main_path(arch, params, device="cuda"):
     # prefill dispatches the flash kernel; nothing runs the dense decode.
     _expect("main", launches, {"paged_decode_attention": eng.decode_steps * L,
                                "flash_attention": prefills * L,
-                               "decode_attention": 0})
+                               "decode_attention": 0, "ssd_scan": 0})
     _sync(device)
     return launches
 
@@ -469,7 +538,7 @@ def phase_async(arch, params, device="cuda", chunk: int = 256):
         fail("async: dispatches != prefills + extends + ticks - fused folds")
     _expect("async", launches, {"paged_decode_attention": eng.decode_steps * L,
                                 "flash_attention": n_prefill[0] * L,
-                                "decode_attention": fed[0] * L})
+                                "decode_attention": fed[0] * L, "ssd_scan": 0})
     _sync(device)
     return launches, wall
 
@@ -491,9 +560,101 @@ def phase_dense(arch, params, device="cuda"):
                              device)
     _expect("dense", launches, {"decode_attention": eng.decode_steps * L,
                                 "flash_attention": (eng.dispatches - eng.decode_steps) * L,
-                                "paged_decode_attention": 0})
+                                "paged_decode_attention": 0, "ssd_scan": 0})
     _sync(device)
     return launches
+
+
+def _ssm_requests(Request, vocab: int, max_new: int = 32):
+    """16 prompts of 300-2000 tokens from ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(300, 2001, size=16)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, size=int(m)).astype(np.int32),
+                    max_new_tokens=max_new) for i, m in enumerate(lens)]
+
+
+def _ssm_async_requests(Request, vocab: int, max_new: int = 32):
+    """14 prompts of 300-1000 tokens (template "chat") and 2 of 1056-1152
+    (template "long", longer than the 1024-token chunk), interleaved, from
+    ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(300, 1001, size=14)]
+    for at, n in zip((3, 9), rng.integers(1056, 1153, size=2)):
+        lens.insert(at, -int(n))
+    return [Request(rid=i, prompt=rng.integers(0, vocab, size=abs(m)).astype(np.int32),
+                    max_new_tokens=max_new, template="long" if m < 0 else "chat")
+            for i, m in enumerate(lens)]
+
+
+def _ssm_engine(arch, params, device="cuda"):
+    from repro_torch.serving.engine import InferenceEngine
+    return InferenceEngine(arch, params, n_lanes=8, max_prompt_len=2048, max_len=2080,
+                           device=device)
+
+
+def phase_ssm(arch, params, device="cuda"):
+    """mamba2 on the synchronous path: every prefill dispatch runs the
+    ``ssd_scan`` kernel once per layer, nothing else launches a kernel of
+    the port (decode is the recurrent update, plain PyTorch)."""
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    L = arch.cfg.n_layers
+    eng = _ssm_engine(arch, params, device)
+    sched = ContinuousBatchingScheduler(
+        eng, strategy=GrowingUpperThreshold(initial_upper=2))
+    shapes = []  # the padded (batch, prompt) bucket of each prefill
+    n_prefill = _count_calls(eng, "_prefill",
+                             lambda toks, _p: shapes.append(tuple(toks.shape)) or 1)
+    launches, wall = _drive("ssm", eng, sched, _ssm_requests(Request, arch.cfg.vocab_size),
+                            device)
+    if eng.decode_steps == 0 or n_prefill[0] == 0:
+        fail("ssm: the path ran no decode step or no prefill")
+    if eng.dispatches != n_prefill[0] + eng.decode_steps:
+        fail("ssm: dispatches != prefills + decode ticks")
+    log(f"[ssm] prefill dispatches {n_prefill[0]}, padded buckets {shapes}")
+    _expect("ssm", launches, {"ssd_scan": n_prefill[0] * L, "flash_attention": 0,
+                              "decode_attention": 0, "paged_decode_attention": 0})
+    _sync(device)
+    return launches, wall
+
+
+def phase_ssm_async(arch, params, device="cuda", chunk: int = 1024):
+    """mamba2 on the asynchronous path: ``overlap=True`` and
+    ``chunk_tokens``; the long prompts prefill their first chunk (one
+    ``ssd_scan`` launch a layer) and feed the rest through the recurrent
+    decode, one host-issued ``decode_step`` a token."""
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    L = arch.cfg.n_layers
+    eng = _ssm_engine(arch, params, device)
+    sched = ContinuousBatchingScheduler(
+        eng, strategy=GrowingUpperThreshold(initial_upper=2), overlap=True,
+        chunk_tokens=chunk)
+    n_prefill = _count_calls(eng, "_prefill")
+    n_extend = _count_calls(eng, "_extend")
+    fed = _count_calls(eng, "_extend", lambda _c, toks, _l: int(toks.shape[1]))
+    reqs = _ssm_async_requests(Request, arch.cfg.vocab_size)
+    launches, wall = _drive("ssm-async", eng, sched, reqs, device)
+    st = sched.stats
+    whole = sum(max(0, len(r.prompt) - chunk) for r in reqs)
+    log(f"[ssm-async] spec_dispatched {st.spec_dispatched}, spec_committed "
+        f"{st.spec_committed}, spec_aborted {st.spec_aborted}, spec_chunks "
+        f"{st.spec_chunks}, spec_crashes {st.spec_crashes}; prefill dispatches "
+        f"{n_prefill[0]}, chunk extends {n_extend[0]}, tokens through the decode "
+        f"path {fed[0]} (the long prompts past their first chunk: {whole})")
+    if st.spec_crashes != 0 or st.spec_chunks < 2 or fed[0] != whole:
+        fail("ssm-async: need spec_crashes == 0, spec_chunks >= 2 and every "
+             "long prompt's tail fed through the decode path")
+    if eng.dispatches != n_prefill[0] + n_extend[0] + eng.decode_steps:
+        fail("ssm-async: dispatches != prefills + extends + decode ticks")
+    _expect("ssm-async", launches, {"ssd_scan": n_prefill[0] * L, "flash_attention": 0,
+                                    "decode_attention": 0, "paged_decode_attention": 0})
+    _sync(device)
+    return launches, wall
 
 
 # ----------------------------------------------------------------- phase 5
@@ -558,6 +719,51 @@ def phase_logits_check(arch, params, device="cuda"):
     _sync(device)
 
 
+def phase_ssm_logits_check(arch, params, device="cuda"):
+    """The first full-width mamba2 prefill (8 prompts right-padded to 8 x
+    2048, as the engine pads them): logits at ``plens - 1`` through the
+    ``ssd_scan`` kernel against the plain scan, same weights and batch.
+    Both scans are the same float32 multiply and add per chunk, so the two
+    paths should agree exactly; the gate allows 1e-3 x max |logit| and an
+    argmax that differs only where the plain path's top two logits lie
+    within twice the difference of each other (a tie)."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.request import Request
+
+    cfg = arch.cfg
+    reqs = _ssm_requests(Request, cfg.vocab_size)[:8]
+    plens = np.array([len(r.prompt) for r in reqs])
+    toks = torch.zeros((8, 2048), dtype=torch.int32, device=device)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r.prompt)] = torch.as_tensor(r.prompt, device=device)
+    rows = torch.arange(8, device=device)
+    last = torch.as_tensor(plens - 1, device=device).long()
+
+    def plain_scan(states, decay, initial_state=None):
+        return ssd_scan_ref(states, decay, initial_state)
+
+    with torch.no_grad():
+        kern = tf.prefill(cfg, params, toks, return_all_logits=True)[0][rows, last]
+        with mock.patch.object(ssm_mod, "ssd_scan_op", plain_scan):
+            plain = tf.prefill(cfg, params, toks, return_all_logits=True)[0][rows, last]
+    if not bool(torch.isfinite(kern).all()):
+        fail("mamba2 prefill: non-finite logits")
+    diff = float((kern - plain).abs().max())
+    scale = float(plain.abs().max())
+    top2 = plain.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= 2 * diff
+    agree = kern.argmax(-1) == plain.argmax(-1)
+    log(f"[check] first mamba2 prefill (ssd_scan kernel vs plain scan): logits "
+        f"{tuple(kern.shape)}, prompt lengths {plens.tolist()}, max abs diff {diff!r} "
+        f"(max |logit| {scale!r}), argmax agreement {int(agree.sum())}/8")
+    if diff > 1e-3 * scale or not bool((agree | tie).all()):
+        fail("mamba2 prefill: kernel path and plain path disagree")
+    _sync(device)
+
+
 def _report_logits(label, kern, plain):
     import torch
     if not bool(torch.isfinite(kern).all()):
@@ -576,6 +782,36 @@ def _report_logits(label, kern, plain):
         fail(f"{label}: kernel path and plain path disagree")
 
 
+def _window(label, fn, n):
+    """``torch.profiler`` over ``n`` calls of ``fn``: logs the host wall
+    time per call, the device busy time and share, and the kernels that
+    take the most of it.  Returns ``[(kernel name, ms per call, launches
+    per call)]`` (empty when the profiler recorded no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy = sum(ms for _k, ms, _c in rows)
+    if busy == 0:
+        log(f"[profile] {label}: {wall!r} ms wall; device time not measured "
+            "(the profiler recorded no device activity)")
+        return []
+    log(f"[profile] {label}: {wall!r} ms wall, {busy!r} ms device busy "
+        f"({busy / wall!r} busy share), {sum(c for *_r, c in rows)} kernels")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"[profile]   {ms!r} ms  x{count}  {key[:90]}")
+    return rows
+
+
 def phase_profile(arch, params, ticks: int = 8):
     """Where a decode tick's time goes at full width: host wall time per
     tick against the device time ``torch.profiler`` records (busy share),
@@ -583,41 +819,18 @@ def phase_profile(arch, params, ticks: int = 8):
     prefill dispatch of 8 prompts.  Runs after the main path, so its
     launches are not in the main path's counts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
 
     eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256,
                                max_len=512, page_size=16)
     reqs = _requests(Request, arch.cfg.vocab_size, n=8)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-
-    def window(label, fn, n):
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / n * 1e3
-        rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
-                for e in prof.key_averages()
-                if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-        busy = sum(ms for _k, ms, _c in rows)
-        if busy == 0:
-            log(f"[profile] {label}: {wall!r} ms wall; device time not measured "
-                "(the profiler recorded no device activity)")
-            return
-        log(f"[profile] {label}: {wall!r} ms wall, {busy!r} ms device busy "
-            f"({busy / wall!r} busy share), {sum(c for *_r, c in rows)} kernels")
-        for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
-            log(f"[profile]   {ms!r} ms  x{count}  {key[:90]}")
 
     with torch.no_grad():
         # The dispatch runs on the engine's own stream; the window ends in
         # torch.cuda.synchronize(), which waits for it.
-        window("prefill dispatch of 8 prompts (bucket 8 x 256)",
-               lambda: eng.prefill_dispatch(reqs), 1)
+        _window("prefill dispatch of 8 prompts (bucket 8 x 256)",
+                lambda: eng.prefill_dispatch(reqs), 1)
         eng.commit_prefill(eng.prefill_dispatch(reqs))
         for _ in range(2):
             eng.decode_tick()  # warm
@@ -628,7 +841,7 @@ def phase_profile(arch, params, ticks: int = 8):
         torch.cuda.synchronize()
         log(f"[profile] decode tick, 8 lanes, no profiler: "
             f"{(time.perf_counter() - t0) / ticks * 1e3!r} ms wall (mean of {ticks})")
-        window(f"decode tick, 8 lanes (mean of {ticks})", eng.decode_tick, ticks)
+        _window(f"decode tick, 8 lanes (mean of {ticks})", eng.decode_tick, ticks)
         # One fused tick of the asynchronous path: the 8 lanes' paged decode
         # plus a 64-token prompt chunk fed through the dense decode path.
         prompt = np.random.default_rng(2).integers(
@@ -637,15 +850,48 @@ def phase_profile(arch, params, ticks: int = 8):
         torch.cuda.synchronize()
         if not eng.stage_chunk(staged):
             fail("profile: the fused tick declined the chunk")
-        window("fused tick, 8 lanes + a 64-token chunk", eng.decode_tick, 1)
+        _window("fused tick, 8 lanes + a 64-token chunk", eng.decode_tick, 1)
+    torch.cuda.synchronize()
+
+
+def phase_ssm_profile(arch, params, ticks: int = 4):
+    """One full-width mamba2 prefill dispatch of 8 prompts (bucket 8 x
+    2048) and a few decode ticks under the profiler, with ``ssd_scan``'s
+    share of the prefill's device time."""
+    import torch
+    from repro_torch.serving.request import Request
+
+    eng = _ssm_engine(arch, params)
+    reqs = _ssm_requests(Request, arch.cfg.vocab_size)[:8]
+    with torch.no_grad():
+        rows = _window("mamba2 prefill dispatch of 8 prompts (bucket 8 x 2048)",
+                       lambda: eng.prefill_dispatch(reqs), 1)
+        if rows:
+            scan = [(ms, c) for k, ms, c in rows if "ssd_scan" in k]
+            busy = sum(ms for _k, ms, _c in rows)
+            log(f"[profile]   ssd_scan: {sum(ms for ms, _c in scan)!r} ms over "
+                f"{sum(c for _ms, c in scan)} launches, "
+                f"{sum(ms for ms, _c in scan) / busy!r} of the prefill's device time")
+        eng.commit_prefill(eng.prefill_dispatch(reqs))
+        for _ in range(2):
+            eng.decode_tick()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.decode_tick()
+        torch.cuda.synchronize()
+        log(f"[profile] mamba2 decode tick, 8 lanes, no profiler: "
+            f"{(time.perf_counter() - t0) / ticks * 1e3!r} ms wall (mean of {ticks})")
+        _window(f"mamba2 decode tick, 8 lanes (mean of {ticks})", eng.decode_tick, ticks)
     torch.cuda.synchronize()
 
 
 def _reduced_run(kind, arch, params, device):
     """One reduced-model serving run: ``kind`` is "paged" (phase 4's
-    synchronous path), "dense" (the dense engine) or "async" (paged,
+    synchronous path), "dense" (the dense engine), "async" (paged,
     ``overlap=True``, ``chunk_tokens=8``, with prompts up to 30 tokens in
-    their own template).  Returns (per-request streams, counters)."""
+    their own template) or "dense-async" (the dense engine under the same
+    overlap + chunk traffic).  Returns (per-request streams, counters)."""
     from repro_torch.core.strategies import GrowingUpperThreshold
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.paged_kv import PagedInferenceEngine
@@ -655,13 +901,13 @@ def _reduced_run(kind, arch, params, device):
     rng = np.random.default_rng(1)
     lens = [int(n) for n in rng.integers(3, 17, size=6)]
     skw = {}
-    if kind == "dense":
+    if kind.startswith("dense"):
         eng = InferenceEngine(arch, params, n_lanes=4, max_prompt_len=16, max_len=48,
                               device=device)
     else:
         eng = PagedInferenceEngine(arch, params, n_lanes=4, max_prompt_len=16,
                                    max_len=48, page_size=8, device=device)
-    if kind == "async":
+    if kind.endswith("async"):
         lens += [21, 30]
         skw = dict(overlap=True, chunk_tokens=8)
     reqs = [Request(rid=i, prompt=rng.integers(1, 256, size=n).astype(np.int32),
@@ -681,41 +927,46 @@ def _reduced_run(kind, arch, params, device):
     return {r.rid: r.generated for r in reqs}, counters
 
 
-def phase_reduced_check():
-    """Reduced llama3-8b in float32: served on the card through the kernels
+def phase_reduced_check(name: str = "llama3-8b", kinds=("paged", "dense", "async")):
+    """A reduced model in float32: served on the card through the kernels
     and on the CPU through the plain versions, same weights and traffic,
-    on the paged synchronous path, the dense engine and the paged
-    overlap + chunk path.  Per-request greedy streams and the engine's
-    counters must be equal (float32 sums in another order differ by
-    about 1e-6, far below the logit gaps argmax decides on; with one
-    speculation bet in flight the scheduler joins it at every boundary,
-    so overlap admits in a fixed order)."""
+    on each path of ``kinds`` (llama3-8b: the paged synchronous path, the
+    dense engine and the paged overlap + chunk path; mamba2: the dense
+    engine, synchronous and overlap + chunk).  Per-request greedy streams
+    and the engine's counters must be equal (float32 sums in another
+    order differ by about 1e-6, far below the logit gaps argmax decides
+    on; with one speculation bet in flight the scheduler joins it at every
+    boundary, so overlap admits in a fixed order)."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.models.registry import get_arch
 
-    arch = get_arch("llama3-8b")
+    arch = get_arch(name)
     arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
     cpu_params = arch.init(seed=0, device="cpu")
     card_params = _to(cpu_params, "cuda")
-    for kind in ("paged", "dense", "async"):
+    for kind in kinds:
         registry.reset_launches()
         card = _reduced_run(kind, arch, card_params, "cuda")
         torch.cuda.synchronize()
         launched = registry.launch_counts()
         cpu = _reduced_run(kind, arch, cpu_params, "cpu")
         same = card == cpu
-        log(f"[check] reduced llama3-8b f32 {kind}, card (kernels) vs CPU (plain): "
+        log(f"[check] reduced {name} f32 {kind}, card (kernels) vs CPU (plain): "
             f"greedy streams and counters {'equal' if same else 'DIFFER'} "
             f"({sum(len(g) for g in card[0].values())} tokens, {card[1]}; "
             f"card launches {launched})")
         if not same:
             log(f"[check]   card {card}")
             log(f"[check]   cpu  {cpu}")
-            fail(f"reduced model, {kind}: kernel path differs from the plain path")
+            fail(f"reduced {name}, {kind}: kernel path differs from the plain path")
         if kind == "async" and not (card[1]["fused_folds"] and card[1]["spec_chunks"] >= 2
                                     and launched["decode_attention"] > 0):
             fail("reduced model, async: no fused chunk tick or no decode_attention launch")
+        if kind == "dense-async" and card[1]["spec_chunks"] < 2:
+            fail(f"reduced {name}, dense-async: fewer than two chunks on the spec thread")
+        if arch.cfg.family == "ssm" and launched["ssd_scan"] == 0:
+            fail(f"reduced {name}, {kind}: the ssd_scan kernel never launched")
     torch.cuda.synchronize()
 
 
@@ -739,6 +990,7 @@ def main() -> None:
 
     phase_build()
     timer = Timer()
+    log(f"[kernels] on {smi}")
     rows = phase_kernels(timer)
     del timer
     torch.cuda.empty_cache()
@@ -758,11 +1010,31 @@ def main() -> None:
     phase_profile(arch, params)
     del params
     torch.cuda.empty_cache()
-    phase_reduced_check()
 
-    # Launches on the three paths, each counted from 0 in its own run.
+    arch = get_arch("mamba2-1.3b")
+    t0 = time.perf_counter()
+    params = arch.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(int(a.numel()) for a in _leaves(params))
+    log(f"[ssm] on {smi}: mamba2-1.3b full width: {arch.cfg.n_layers} layers, d_model "
+        f"{arch.cfg.d_model}, {n_params} parameters (bf16; A_log, D, dt_bias float32), "
+        f"drawn from seed 0 in {time.perf_counter() - t0!r} s")
+    paths["ssm"], ssm_wall = phase_ssm(arch, params)
+    log(f"[ssm-async] on {smi}")
+    paths["ssm-async"], ssm_async_wall = phase_ssm_async(arch, params)
+    log(f"[check] on {smi}")
+    phase_ssm_logits_check(arch, params)
+    log(f"[profile] on {smi}")
+    phase_ssm_profile(arch, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_reduced_check()
+    phase_reduced_check("mamba2-1.3b", ("dense", "dense-async"))
+
+    # Launches on the five paths, each counted from 0 in its own run.
     launches = {n: sum(p[n] for p in paths.values()) for n in rows}
-    log(f"[paths] launches by path {paths}; async wall {async_wall!r} s")
+    log(f"[paths] launches by path {paths}; async wall {async_wall!r} s, ssm wall "
+        f"{ssm_wall!r} s, ssm-async wall {ssm_async_wall!r} s")
     kernels = [dict(name=n, launches=launches[n], **rows[n]) for n in sorted(rows)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,4 +1,4 @@
-"""Architecture registry for the port (dense family only so far).
+"""Architecture registry for the port (dense and SSM families so far).
 
 Port of :mod:`repro.models.registry`: ``get_arch(name)`` returns an
 :class:`Arch` bundling the config with its init, cache and one-token decode
@@ -33,9 +33,10 @@ class Arch:
 
 def get_arch(name: str) -> Arch:
     """The :class:`Arch` of a ported configuration (``repro_torch.configs``);
-    configurations outside the dense family raise ``NotImplementedError``."""
+    configurations outside the dense and SSM families raise
+    ``NotImplementedError``."""
     mod_name = name.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
-    if mod.CONFIG.family != "dense":
-        raise NotImplementedError(f"{name}: only the dense family is ported")
+    if mod.CONFIG.family not in ("dense", "ssm"):
+        raise NotImplementedError(f"{name}: only the dense and SSM families are ported")
     return Arch(cfg=mod.CONFIG)

@@ -1,20 +1,23 @@
-"""Decoder-only LM, dense path: parameters, embedding, prefill, head.
+"""Decoder-only LM, dense and SSM paths: parameters, embedding, prefill, head.
 
-Port of the dense path of :mod:`repro.models.transformer` (``_embed``,
-``_head``, ``_stack_names``, ``_layer_stacks``, ``_block_decode``
-``:138``, ``prefill`` ``:309``, ``decode_step`` ``:358``,
-``init_cache``).  Layer parameters keep the reference's stacked leading
-layer axis and keys, so a JAX params pytree converts leaf for leaf
-(:mod:`repro_torch.models.convert`); the reference's ``lax.scan`` over
-layers is a Python loop over that axis.  MoE, SSM and hybrid stacks,
-embeddings routed through ``async_query`` and tied heads belong to later
+Port of the dense and SSM paths of :mod:`repro.models.transformer`
+(``_embed``, ``_head``, ``_stack_names``, ``_layer_stacks``,
+``_block_params`` ``:66``, ``_block_decode`` ``:138``, ``prefill``
+``:309``, ``decode_step`` ``:358``, ``init_cache``).  Layer parameters
+keep the reference's stacked leading layer axis and keys, so a JAX params
+pytree converts leaf for leaf (:mod:`repro_torch.models.convert`); the
+reference's ``lax.scan`` over layers is a Python loop over that axis.  An
+SSM block is ``ln1`` and the mamba2 mixer (:mod:`repro_torch.models.ssm`);
+its cache is ``{"ssm", "conv"}`` per stack.  Tied embeddings use the
+embedding table as the head.  MoE and hybrid stacks, embeddings routed
+through ``async_query`` and norms other than RMSNorm belong to later
 slices and raise ``NotImplementedError``.
 
 Entry points:
   init_params(cfg, seed, device)              → params dict
   prefill(cfg, params, tokens, max_len=...)   → (logits, cache)
   decode_step(cfg, params, token, cache, lengths) → (logits, cache)
-  init_cache(cfg, batch, max_len, device)     → stacked KV cache
+  init_cache(cfg, batch, max_len, device)     → stacked KV or SSM cache
 
 ``decode_step`` writes the cache in place and returns the dict it got
 (the reference returns a new pytree and relies on buffer donation).
@@ -35,6 +38,12 @@ from repro_torch.models.attention import (
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, dense_init, embed_init
 from repro_torch.models.mlp import mlp, mlp_params
+from repro_torch.models.ssm import (
+    init_ssm_state,
+    ssm_decode_step,
+    ssm_forward,
+    ssm_params,
+)
 
 __all__ = ["init_params", "prefill", "decode_step", "init_cache", "block_kind"]
 
@@ -49,14 +58,17 @@ def block_kind(cfg: ModelConfig, moe_stack: bool) -> str:
     return "dense"
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if any(kind != "dense" for _n, kind, _c in _stack_names(cfg)):
+def _check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    MoE and hybrid stacks, norms other than RMSNorm, the async_query
+    embedding.  Dense and SSM stacks and tied embeddings pass."""
+    if any(kind not in ("dense", "ssm") for _n, kind, _c in _stack_names(cfg)):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported so far")
-    if cfg.norm != "rmsnorm" or cfg.tie_embeddings or cfg.query_embedding:
+            f"{cfg.name}: only the dense and SSM families are ported so far")
+    if cfg.norm != "rmsnorm" or cfg.query_embedding:
         raise NotImplementedError(
-            f"{cfg.name}: norm {cfg.norm!r}, tied embeddings and the "
-            "async_query embedding are not ported yet")
+            f"{cfg.name}: norm {cfg.norm!r} and the async_query embedding "
+            "are not ported yet")
 
 
 def _norm_params(cfg: ModelConfig, device, lead: tuple = ()) -> dict:
@@ -64,27 +76,34 @@ def _norm_params(cfg: ModelConfig, device, lead: tuple = ()) -> dict:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Random dense-decoder weights drawn from ``torch.Generator(seed)`` on
-    ``device`` (same shapes, keys and scales as the reference's
-    ``init_params``; different numbers, since the generators differ)."""
-    _check_dense(cfg)
+    """Random weights drawn from ``torch.Generator(seed)`` on ``device``
+    (same shapes, keys, scales and dtypes as the reference's
+    ``init_params``; different numbers, since the generators differ).  An
+    SSM block holds ``ln1`` and ``ssm`` only; a tied config has no
+    ``lm_head``."""
+    _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     lead = (cfg.n_layers,)
-    return {
-        "embed": {"table": embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                      cfg.pdtype, dev)},
-        "layers": {
+    # Draw order: embedding, layers, head.
+    params = {"embed": {"table": embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                            cfg.pdtype, dev)}}
+    if block_kind(cfg, True) == "ssm":
+        params["layers"] = {"ln1": _norm_params(cfg, dev, lead),
+                            "ssm": ssm_params(gen, cfg, dev, lead)}
+    else:
+        params["layers"] = {
             "ln1": _norm_params(cfg, dev, lead),
             "attn": attn_params(gen, cfg, dev, lead),
             "ln2": _norm_params(cfg, dev, lead),
             "mlp": mlp_params(gen, cfg, dev, lead),
-        },
-        "final_norm": _norm_params(cfg, dev),
-        "lm_head": {"w": dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                    cfg.pdtype, dev)},
-    }
+        }
+    params["final_norm"] = _norm_params(cfg, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                             cfg.pdtype, dev)}
+    return params
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -99,11 +118,12 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     would break greedy ties over the 128k vocabulary differently.  On the
     card ``torch.mm(..., out_dtype=float32)`` keeps the bf16 operands; on
     the CPU (where that overload is not registered) the operands are
-    widened to float32 first, which is exact."""
-    if cfg.tie_embeddings:
-        raise NotImplementedError("tied embeddings are not ported yet")
+    widened to float32 first, which is exact.  A tied config's head is the
+    embedding table, transposed (a view)."""
     cd = cfg.cdtype
-    xs, w = x.to(cd), params["lm_head"]["w"].to(cd)
+    w = (params["embed"]["table"].T if cfg.tie_embeddings
+         else params["lm_head"]["w"])
+    xs, w = x.to(cd), w.to(cd)
     if cd == torch.float32:
         return torch.matmul(xs, w)
     if xs.is_cuda:
@@ -138,11 +158,18 @@ def layer_slice(stacked: dict, i: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> dict:
-    """Stacked decode cache for every stack, keyed by stack name."""
-    _check_dense(cfg)
+    """Stacked decode cache for every stack, keyed by stack name: ``{"k",
+    "v"}`` for a dense stack, ``{"ssm", "conv"}`` for an SSM stack (which
+    does not grow with ``max_len``)."""
+    _check_ported(cfg)
     dev = resolve_device(device)
-    return {name: init_kv_cache(cfg, batch, max_len, dev, n_layers=n)
-            for name, _kind, n in _stack_names(cfg)}
+    caches = {}
+    for name, kind, n in _stack_names(cfg):
+        if kind == "ssm":
+            caches[name] = init_ssm_state(cfg, batch, n_layers=n, device=dev)
+        else:
+            caches[name] = init_kv_cache(cfg, batch, max_len, dev, n_layers=n)
+    return caches
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -150,19 +177,27 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     """Full-sequence prefill of ``tokens`` (B, S) → (logits, cache).
 
     Logits are (B, V) at the last position, or (B, S, V) with
-    ``return_all_logits`` for right-padded serving batches; the cache is
-    ``{stack: {"k", "v": (L, B, S or max_len, Hkv, hd)}}``.  Right-padded
-    prompts are safe: causal masking keeps pad keys invisible to real
-    queries.  Runs on the device ``tokens`` and ``params`` live on.
+    ``return_all_logits`` for right-padded serving batches.  The cache is
+    ``{stack: {"k", "v": (L, B, S or max_len, Hkv, hd)}}`` for a dense
+    stack and ``{stack: {"ssm": (L, B, H, P, N) float32, "conv": (L, B,
+    K-1, Ch)}}`` for an SSM stack, nothing padded to ``max_len``.
+    Right-padded prompts are safe for attention (causal masking keeps pad
+    keys invisible to real queries) but not for a recurrence: an SSM
+    stack's state and conv tail run over the pad positions too, as in the
+    reference (``repro.models.ssm.ssm_forward``).  Runs on the device
+    ``tokens`` and ``params`` live on.
     """
-    _check_dense(cfg)
+    _check_ported(cfg)
     x = _embed(cfg, params, tokens)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     pad = (max_len - S) if max_len is not None and max_len > S else 0
     caches = {}
-    for (name, _kind, n), (stacked, _k2, _n2) in zip(
+    for (name, kind, n), (stacked, _k2, _n2) in zip(
             _stack_names(cfg), _layer_stacks(cfg, params)):
+        if kind == "ssm":
+            x, caches[name] = _prefill_ssm_stack(cfg, stacked, n, x)
+            continue
         shape = (n, B, S + pad, cfg.n_kv_heads, cfg.hd)
         ck = torch.zeros(shape, dtype=cfg.cdtype, device=x.device)
         cv = torch.zeros(shape, dtype=cfg.cdtype, device=x.device)
@@ -182,16 +217,35 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return _head(cfg, params, x[:, -1:])[:, 0], caches
 
 
+def _prefill_ssm_stack(cfg: ModelConfig, stacked: dict, n: int, x: torch.Tensor):
+    """Run ``n`` SSM blocks over x (B, S, d) → (x, {"ssm", "conv"})."""
+    cache = init_ssm_state(cfg, x.shape[0], n_layers=n, device=x.device)
+    for i in range(n):
+        lp = layer_slice(stacked, i)
+        y, state = ssm_forward(lp["ssm"], cfg, apply_norm(cfg.norm, lp["ln1"], x),
+                               return_state=True)
+        cache["ssm"][i] = state["ssm"]
+        cache["conv"][i] = state["conv"]
+        x = x + y
+    return x, cache
+
+
 def _block_decode(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                  cache_k: torch.Tensor, cache_v: torch.Tensor,
-                  lengths: torch.Tensor) -> torch.Tensor:
-    """One dense block's one-token decode; ``cache_k``/``cache_v`` are this
-    layer's (B, S_max, Hkv, hd) slices, written in place."""
+                  cache: dict, lengths: torch.Tensor) -> torch.Tensor:
+    """One block's one-token decode.  ``cache`` holds this layer's slices
+    (views into the stacked cache), written in place: ``k``/``v`` (B,
+    S_max, Hkv, hd) for a dense block, ``ssm`` (B, H, P, N) and ``conv``
+    (B, K-1, Ch) for an SSM block."""
+    h = apply_norm(cfg.norm, p["ln1"], x)
+    if kind == "ssm":
+        y, state, conv = ssm_decode_step(p["ssm"], cfg, h, cache["ssm"], cache["conv"])
+        cache["ssm"].copy_(state)
+        cache["conv"].copy_(conv)
+        return x + y
     if kind != "dense":
         raise NotImplementedError(f"decode of {kind!r} blocks is not ported yet")
     window = cfg.attn_window if cfg.attn_window > 0 else None
-    h = apply_norm(cfg.norm, p["ln1"], x)
-    a, _k, _v = decode_attention(p["attn"], cfg, h, cache_k, cache_v, lengths,
+    a, _k, _v = decode_attention(p["attn"], cfg, h, cache["k"], cache["v"], lengths,
                                  window=window)
     x = x + a
     return x + mlp(p["mlp"], cfg, apply_norm(cfg.norm, p["ln2"], x))
@@ -199,19 +253,20 @@ def _block_decode(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 cache: dict, lengths: torch.Tensor):
-    """Batched one-token decode over the dense stacked cache.
+    """Batched one-token decode over the stacked cache.
 
     ``token``/``lengths`` (B,) int32 on the device of ``params``;
-    ``cache`` is ``{stack: {"k", "v": (L, B, S_max, Hkv, hd)}}``.  Updates
-    ``cache`` in place and returns ``(logits (B, V) float32, cache)``.
+    ``cache`` is :func:`init_cache`'s or :func:`prefill`'s layout
+    (``lengths`` is read by dense stacks only).  Updates ``cache`` in place
+    and returns ``(logits (B, V) float32, cache)``.
     """
-    _check_dense(cfg)
+    _check_ported(cfg)
     x = _embed(cfg, params, token[:, None])
     for (name, kind, n), (stacked, _k2, _n2) in zip(
             _stack_names(cfg), _layer_stacks(cfg, params)):
-        ck, cv = cache[name]["k"], cache[name]["v"]
+        stack = cache[name]
         for i in range(n):
-            x = _block_decode(layer_slice(stacked, i), cfg, kind, x, ck[i], cv[i],
-                              lengths)
+            x = _block_decode(layer_slice(stacked, i), cfg, kind, x,
+                              {k: a[i] for k, a in stack.items()}, lengths)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     return _head(cfg, params, x)[:, 0], cache

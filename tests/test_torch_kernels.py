@@ -210,7 +210,7 @@ def test_flash_right_padding_is_invisible_to_real_rows():
 
 # ---------------------------------------------------------------- dispatch
 
-OPS = ["decode_attention", "flash_attention", "paged_decode_attention"]
+OPS = ["decode_attention", "flash_attention", "paged_decode_attention", "ssd_scan"]
 
 
 def test_registry_names_and_samples():
