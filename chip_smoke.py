@@ -6,16 +6,17 @@
 Phases, each ending in ``torch.cuda.synchronize()``:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
-2. build — compile every CUDA kernel of the serving path from
-   ``src/repro_torch/csrc`` with ``nvcc`` (one process per source, in
-   parallel) and time it;
+2. build — compile the five CUDA kernels from ``src/repro_torch/csrc``
+   with ``nvcc`` (one process per source, in parallel) and time it;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes in bf16 and at a small ragged float32 shape (the
    ``ssd_scan`` kernel: mamba2-1.3b's prefill shape in float32 and the
-   reference's sweep shapes in float32 and bf16), with the tolerance
-   stated; its time, the plain version's, one library call's as a
-   yardstick where one exists (never called by the port) and the least
-   time the card could take (``bound_ms``);
+   reference's sweep shapes in float32 and bf16; ``batched_gather``: the
+   llama3-8b table and one training step's 4096 ids, N = 1 and ragged
+   shapes, bit for bit), with the tolerance stated; its time, the plain
+   version's, one library call's as a yardstick where one exists (never
+   called by the port) and the least time the card could take
+   (``bound_ms``);
 4. serving paths — llama3-8b at full width (32 layers, bf16, weights
    drawn from seed 0 on the card) served through
    ``ContinuousBatchingScheduler``, 32 new tokens a request, three paths,
@@ -54,7 +55,22 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    plain versions, on the synchronous paged path, the dense engine and
    the overlap + chunk paged path; the reduced mamba2 the same way on the
    dense engine, synchronous and overlap + chunk (per-request greedy
-   streams and the engine's counters must be equal).
+   streams and the engine's counters must be equal);
+8. train — the trainer at full width, after the serving phases: llama3-8b
+   (bf16, depth cut to 4 of 32 layers, ``query_embedding=True``,
+   ``remat=False``) through ``make_train_step(..., TrainStepConfig(
+   microbatches=4, fission=True))``, 3 steps of 8 x 512 tokens from
+   ``SyntheticLMStream`` through ``PrefetchLoader``, one more under the
+   profiler, then one step with ``fission=False`` from the same weights:
+   ``batched_gather`` = 1 launch per fissioned step and 4 per unfissioned
+   step, ``flash_attention`` = 4 microbatches x 4 layers per step, finite
+   losses, the first step's loss equal with and without fission; trace
+   time, wall, tokens/s, loss, launches per step and peak memory printed;
+9. train check — reduced llama3-8b in float32 trained 2 steps on the card
+   and on the CPU, fissioned and not: losses, parameters and launch counts;
+10. fission — the twin of ``benchmarks/bench_fission.py::device_fission``:
+    2048 single-row queries on a 10000 x 256 float32 table, plain ``scan``
+    (2048 launches) against ``fission_scan`` (1), both walls printed.
 
 Any failure exits non-zero.  The last lines are the card's name and power
 limit, the kernels' JSON line, and ``{"ok": true, "device": {...}}``.
@@ -62,6 +78,7 @@ limit, the kernels' JSON line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -126,7 +143,12 @@ def phase_build():
 class Timer:
     """Median device time of one call, from CUDA events around each call,
     with the 50 MB L2 flushed before each so the call finds its operands
-    in device memory, as it does on the serving path."""
+    in device memory, as it does on the serving path.  A spin kernel of
+    about 1 ms (``torch.cuda._sleep``) runs before each start event, so
+    the device is still busy while the host issues the call: the events
+    time the device work, not the host's enqueue latency."""
+
+    SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock
 
     def __init__(self):
         import torch
@@ -140,6 +162,7 @@ class Timer:
         events = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -206,7 +229,7 @@ def phase_kernels(timer):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import decode_ref
-    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import attention_op, flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention_cuda
     from repro_torch.kernels.paged_attention.ref import paged_decode_ref
@@ -263,6 +286,22 @@ def phase_kernels(timer):
                      f"D={sd} causal={causal}",
                      flash_attention_cuda(sq, sk, sv, causal=causal),
                      attention_ref(sq, sk, sv, causal=causal), 1e-4, 1e-4)
+    # The op the model calls (the custom op around the kernel): its first
+    # call pays torch.library's one-time set-up, which would otherwise land
+    # in the first serving path's first prefill.
+    t0 = time.perf_counter()
+    op_out = attention_op(fq, fk, fv, causal=True)
+    torch.cuda.synchronize()
+    log(f"[kernels] flash_attention custom op, first call: "
+        f"{time.perf_counter() - t0!r} s (one-time torch.library set-up)")
+    if not torch.equal(op_out, out):
+        fail("flash_attention: the custom op differs from the kernel it wraps")
+    # The trainer's shape (phase 8): one microbatch of 2 x 512 tokens.
+    tq, tk, tv = _flash_case(gen, 2, hq, hkv, 512, d, torch.bfloat16)
+    _compare(f"flash_attention bf16 (trainer) B=2 Hq={hq} Hkv={hkv} S=512 D={d} causal, "
+             "custom op", attention_op(tq, tk, tv, causal=True),
+             attention_ref(tq, tk, tv, causal=True), 1e-2, 1e-2)
+    del tq, tk, tv
     nbytes = 2 * (fq.numel() * 2 + fk.numel() + fv.numel())  # q, k, v in; out
     flops = 4 * b * hq * d * (s * (s + 1) // 2)                # causal QK and PV
     bound, by = _bound(nbytes, flops)
@@ -326,6 +365,7 @@ def phase_kernels(timer):
     rows["decode_attention"] = timed["dense engine"]
     torch.cuda.synchronize()
     rows["ssd_scan"] = _ssd_scan_kernel(timer, gen)
+    rows["batched_gather"] = _batched_gather_kernel(timer, gen)
     return rows
 
 
@@ -377,6 +417,84 @@ def _ssd_scan_kernel(timer, gen):
                plain_ms=timer.ms(lambda: ssd_scan_ref(states, decay)),
                bound_ms=bound, bound_by=by, library_ms=None)
     log(f"[kernels] ssd_scan (no single PyTorch call computes it: library_ms null): {row}")
+    torch.cuda.synchronize()
+    return row
+
+
+def _batched_gather_kernel(timer, gen):
+    """The ``batched_gather`` kernel against its plain version, bit for bit
+    (tolerance 0: both copy the rows' bytes), at the training shape (the
+    llama3-8b table, 128256 x 4096 bf16, and the 4096 ids of one
+    ``SyntheticLMStream`` step, 8 x 512 tokens), at N = 1 (the
+    unfissioned per-microbatch form is N = 1024; N = 1 is the fission
+    phase's per-iteration query), at 16 steps' ids (N = 65536, an output
+    the L2 cannot hold) and at ragged shapes that take the scalar path.
+    The plain version is one library call (``index_select``) and a
+    reshape, so plain_ms and library_ms time the same function."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.kernels.batched_gather.ops import batched_gather_cuda
+    from repro_torch.kernels.batched_gather.ref import gather_ref
+
+    def check(label, table, ids):
+        got = batched_gather_cuda(table, ids)
+        torch.cuda.synchronize()
+        want = gather_ref(table, ids)
+        same = (got.shape == want.shape and got.dtype == want.dtype
+                and torch.equal(got, want))
+        err = float((got.float() - want.float()).abs().max()) if same else float("nan")
+        log(f"[kernels] batched_gather {label}: max_abs_err {err!r} (tolerance 0: "
+            f"bit-exact) {'ok' if same else 'MISMATCH'}")
+        if not same:
+            fail(f"batched_gather {label}: kernel differs from its plain version")
+        return err
+
+    V, D = 128256, 4096
+    table = torch.randn((V, D), generator=gen, device="cuda").to(torch.bfloat16)
+    toks = SyntheticLMStream(V, seq_len=512, batch=8, seed=0).batch_at(0)["tokens"]
+    ids = torch.as_tensor(toks.reshape(-1), device="cuda")
+    err = check(f"bf16 V={V} D={D} N={ids.numel()} (training step)", table, ids)
+    check("bf16 N=1", table, ids[:1])
+    check("bf16 int64 ids (8, 512)", table, ids.long().reshape(8, 512))
+    for (v, d, n, dtype) in ((1000, 8, 7, torch.float32), (1000, 64, 4095, torch.float32),
+                             (977, 7, 33, torch.bfloat16), (64, 3, 1, torch.float32)):
+        small = torch.randn((v, d), generator=gen, device="cuda").to(dtype)
+        sid = torch.randint(0, v, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        check(f"{str(dtype)[6:]} ragged V={v} D={d} N={n}", small, sid)
+
+    def timed(idx):
+        # The stream's ids are Zipf-distributed (348 distinct among one
+        # step's 4096): a row is read from device memory once and from L2
+        # after, so the bound counts each distinct row read once, every
+        # output row written once, and the ids.
+        n, distinct = idx.numel(), int(torch.unique(idx).numel())
+        bound, by = _bound((distinct + n) * D * 2 + 4 * n, 0)
+        return dict(ms=timer.ms(lambda: batched_gather_cuda(table, idx)),
+                    plain_ms=timer.ms(lambda: gather_ref(table, idx)),
+                    bound_ms=bound, bound_by=by,
+                    library_ms=timer.ms(lambda: torch.index_select(table, 0, idx)))
+
+    one = timed(ids[:1])
+    log(f"[kernels] batched_gather N=1 (one query per iteration): {one}")
+    row = dict(route="cuda", source="src/repro_torch/csrc/batched_gather.cu",
+               replaces="src/repro/kernels/batched_gather/kernel.py:72", max_abs_err=err,
+               **timed(ids))
+    log(f"[kernels] batched_gather N={ids.numel()} (library_ms: index_select, which is "
+        f"also the plain version): {row}")
+    log(f"[kernels] batched_gather N={ids.numel()}: {int(torch.unique(ids).numel())} "
+        f"distinct rows; ms / bound {row['ms'] / row['bound_ms']!r}")
+    # The step's 33.6 MB output fits in the 50 MB L2, whose write-back may
+    # outlast the end event; 16 steps' ids write 537 MB, which it cannot hold.
+    many = torch.as_tensor(np.concatenate([
+        SyntheticLMStream(V, seq_len=512, batch=8, seed=0).batch_at(k)["tokens"].reshape(-1)
+        for k in range(16)]), device="cuda")
+    check(f"bf16 N={many.numel()} (16 steps' ids)", table, many)
+    big = timed(many)
+    log(f"[kernels] batched_gather N={many.numel()} (output beyond L2, "
+        f"{int(torch.unique(many).numel())} distinct rows): {big}; "
+        f"ms / bound {big['ms'] / big['bound_ms']!r}")
+    del many
+    del table
     torch.cuda.synchronize()
     return row
 
@@ -970,6 +1088,198 @@ def phase_reduced_check(name: str = "llama3-8b", kinds=("paged", "dense", "async
     torch.cuda.synchronize()
 
 
+# ----------------------------------------------------------------- phase 8
+TRAIN_LAYERS = 4  # of llama3-8b's 32: what the step's state leaves room for
+
+
+def _train_run(arch, params, fission: bool, steps: int, mb: int, batch: int, seq: int,
+               profile: bool = False):
+    """``steps`` train steps of ``arch`` from ``params`` (written in place:
+    the step donates them), ``AdamWConfig(lr=1e-3)``, ``microbatches=mb``,
+    on ``SyntheticLMStream(vocab, seq, batch, seed=0)`` through
+    ``PrefetchLoader``, on the device of ``params``.  Returns (losses,
+    per-step walls, per-step launch counts, per-step fission trace seconds,
+    peak device memory, final params).  ``profile``: one more step after
+    those, under ``torch.profiler`` (``_window``), outside every count."""
+    import torch
+    from repro_torch.core import fission as fission_mod
+    from repro_torch.data.pipeline import PrefetchLoader, SyntheticLMStream
+    from repro_torch.kernels import registry
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    traced, real_trace = [], fission_mod.trace_body
+
+    def timed_trace(*args, **kwargs):  # this script's instrumentation only
+        t0 = time.perf_counter()
+        out = real_trace(*args, **kwargs)
+        traced.append(time.perf_counter() - t0)
+        return out
+
+    device = next(_leaves(params)).device.type
+    init_state, step = make_train_step(arch, AdamWConfig(lr=1e-3),
+                                       TrainStepConfig(microbatches=mb, fission=fission))
+    state = init_state(params)
+    loader = iter(PrefetchLoader(SyntheticLMStream(arch.cfg.vocab_size, seq_len=seq,
+                                                   batch=batch, seed=0),
+                                 n_prefetch=2, max_steps=steps + int(profile)))
+    losses, walls, launches, traces = [], [], [], []
+    _sync(device)
+    if device == "cuda":
+        log(f"[train] device memory allocated before the first step (weights and "
+            f"AdamW moments): {torch.cuda.memory_allocated() / 2**30!r} GiB")
+        torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(fission_mod, "trace_body", timed_trace):
+        for _, b in zip(range(steps), loader):
+            registry.reset_launches()
+            del traced[:]
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, b)
+            losses.append(float(metrics["loss"]))
+            _sync(device)
+            walls.append(time.perf_counter() - t0)
+            launches.append(registry.launch_counts())
+            traces.append(sum(traced))
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    if profile:
+        b = next(loader)
+        _window(f"one more train step, fission={fission}",
+                lambda: step(params, state, b), 1)
+    return losses, walls, launches, traces, peak, params
+
+
+def _train_gates(label, launches, fission: bool, mb: int, layers: int) -> None:
+    """Per step: ``batched_gather`` once when fissioned, once per microbatch
+    otherwise; ``flash_attention`` once per layer per microbatch (its
+    backward runs the plain version); no serving kernel."""
+    for i, got in enumerate(launches):
+        _expect(f"{label} step {i}", got, {
+            "batched_gather": 1 if fission else mb, "flash_attention": mb * layers,
+            "paged_decode_attention": 0, "decode_attention": 0, "ssd_scan": 0})
+
+
+def phase_train(smi, steps: int = 3, mb: int = 4, batch: int = 8, seq: int = 512):
+    """The trainer at full width: llama3-8b (d_model 4096, 32 q / 8 kv
+    heads, hd 128, d_ff 14336, vocab 128256, bf16), depth cut to
+    ``TRAIN_LAYERS`` of 32, ``query_embedding=True``, ``remat=False``,
+    through ``make_train_step(..., TrainStepConfig(microbatches=4,
+    fission=True))``: ``steps`` steps and one more under the profiler, then
+    one unfissioned step from the same weights (seed 0).  Gates: launches per step (``_train_gates``),
+    finite losses, and the first step's loss equal with and without
+    fission to 1e-5 relative (the forward is the same ops on the same
+    rows; only the gradients differ, since the embedding's scatter-add
+    uses atomics, so later steps are not compared)."""
+    import torch
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch("llama3-8b")
+    full = arch.cfg.n_layers
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, n_layers=TRAIN_LAYERS, query_embedding=True, remat=False))
+    tokens = batch * seq
+    out = {}
+    for label, fission, n in (("train", True, steps), ("train-plain", False, 1)):
+        losses, walls, launches, traces, peak, params = _train_run(
+            arch, arch.init(seed=0, device="cuda"), fission, n, mb, batch, seq,
+            profile=fission)
+        n_params = sum(int(a.numel()) for a in _leaves(params))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{label}] on {smi}: llama3-8b full width, depth cut to {TRAIN_LAYERS} of "
+            f"{full} layers ({n_params} parameters, bf16, seed 0), query_embedding, "
+            f"fission={fission}, {mb} microbatches of {batch // mb} x {seq} tokens")
+        for i in range(n):
+            log(f"[{label}] step {i}: loss {losses[i]!r}, wall {walls[i]!r} s "
+                f"(fission trace {traces[i]!r} s), {tokens / walls[i]!r} tokens/s, "
+                f"launches {launches[i]}")
+        log(f"[{label}] peak device memory {peak / 2**30!r} GiB")
+        if not all(np.isfinite(losses)):
+            fail(f"{label}: a loss is not finite: {losses}")
+        _train_gates(label, launches, fission, mb, TRAIN_LAYERS)
+        out[label] = (losses, launches)
+    first_f, first_p = out["train"][0][0], out["train-plain"][0][0]
+    log(f"[train] first-step loss with fission {first_f!r}, without {first_p!r}, "
+        f"difference {abs(first_f - first_p)!r} (gate 1e-5 relative)")
+    if abs(first_f - first_p) > 1e-5 * abs(first_p):
+        fail("train: the first step's loss differs with and without fission")
+    torch.cuda.synchronize()
+    return {label: {k: sum(c[k] for c in launches) for k in launches[0]}
+            for label, (_losses, launches) in out.items()}
+
+
+def phase_train_reduced(name: str = "llama3-8b", steps: int = 2, mb: int = 4):
+    """Reduced llama3-8b in float32 with ``query_embedding``: ``steps``
+    train steps on the card (kernels) and on the CPU (plain versions),
+    fissioned and not, same weights and batches.  Losses and parameters
+    must agree to 1e-4 (float32 sums in another order, about 1e-6 per op)
+    and the card's launches must be ``_train_gates``' counts."""
+    import torch
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch(name)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg.reduced(), query_embedding=True))
+    params = arch.init(seed=0, device="cpu")
+    for fission in (False, True):
+        card = _train_run(arch, _to(params, "cuda"), fission, steps, mb, 8, 16)
+        cpu = _train_run(arch, _clone(params), fission, steps, mb, 8, 16)
+        dloss = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
+        dparam = max(float((a.cpu() - b).abs().max())
+                     for a, b in zip(_leaves(card[5]), _leaves(cpu[5])))
+        log(f"[check] reduced {name} f32 train, fission={fission}, card vs CPU: losses "
+            f"{card[0]} / {cpu[0]}, max difference {dloss!r}; parameters after {steps} "
+            f"steps max difference {dparam!r}; card launches {card[2]}")
+        if dloss > 1e-4 or dparam > 1e-4:
+            fail(f"reduced {name} train, fission={fission}: card differs from CPU")
+        _train_gates(f"reduced train fission={fission}", card[2], fission, mb,
+                     arch.cfg.n_layers)
+    torch.cuda.synchronize()
+
+
+def phase_fission(v: int = 10_000, d: int = 256, n: int = 2048, device: str = "cuda"):
+    """The port's twin of ``benchmarks/bench_fission.py::device_fission``
+    at its full size: a loop of ``n`` iterations, each gathering one row of
+    a (v, d) float32 table and adding its sum to the carry, run as the
+    plain ``scan`` (one ``batched_gather`` launch per iteration) and
+    through ``fission_scan`` (one launch).  Results must agree to 1e-4
+    relative, as in the benchmark."""
+    import torch
+    from repro_torch.core.fission import fission_scan, scan
+    from repro_torch.core.query import async_query, table_gather_spec
+    from repro_torch.kernels import registry
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    table = torch.randn((v, d), generator=gen, device=device)
+    ids = ((torch.arange(n, device=device) * 37) % v).to(torch.int32)
+
+    def body(c, i):
+        return c + async_query(table_gather_spec, table, i).sum(), None
+
+    res = {}
+    for label, fn in (("scan", scan), ("fission_scan", fission_scan), ("scan", scan),
+                      ("fission_scan", fission_scan)):
+        registry.reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        c, _ = fn(body, torch.zeros((), device=device), ids)
+        _sync(device)
+        res.setdefault(label, []).append(
+            (float(c), time.perf_counter() - t0, registry.launch_counts()["batched_gather"]))
+    log(f"[fission] table {v} x {d} f32, {n} iterations, (result, wall s, batched_gather "
+        f"launches) in turns: {res}")
+    for label, want in (("scan", n), ("fission_scan", 1)):
+        if any(k != want for _c, _w, k in res[label]):
+            fail(f"fission: {label} launched batched_gather {res[label]}, expected {want}")
+    a, b = res["scan"][0][0], res["fission_scan"][0][0]
+    if not abs(a - b) <= 1e-4 * abs(a):
+        fail(f"fission: scan {a!r} and fission_scan {b!r} differ beyond 1e-4 relative")
+    log(f"[fission] wall: scan {res['scan'][1][1]!r} s, fission_scan "
+        f"{res['fission_scan'][1][1]!r} s (second turn of each)")
+    _sync(device)
+
+
 def _sync(device) -> None:
     import torch
     if device == "cuda":
@@ -981,8 +1291,13 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
 # -------------------------------------------------------------------- main
 def main() -> None:
+    t_start = time.perf_counter()
     smi, name = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -1009,6 +1324,7 @@ def main() -> None:
     phase_logits_check(arch, params)
     phase_profile(arch, params)
     del params
+    gc.collect()  # engines and their threads can hold the weights in cycles
     torch.cuda.empty_cache()
 
     arch = get_arch("mamba2-1.3b")
@@ -1027,17 +1343,25 @@ def main() -> None:
     log(f"[profile] on {smi}")
     phase_ssm_profile(arch, params)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    paths.update(phase_train(smi))
     phase_reduced_check()
     phase_reduced_check("mamba2-1.3b", ("dense", "dense-async"))
+    log(f"[check] on {smi}")
+    phase_train_reduced()
+    log(f"[fission] on {smi}")
+    phase_fission()
 
-    # Launches on the five paths, each counted from 0 in its own run.
+    # Launches on the serving paths and the two training runs, each counted
+    # from 0 in its own run.
     launches = {n: sum(p[n] for p in paths.values()) for n in rows}
     log(f"[paths] launches by path {paths}; async wall {async_wall!r} s, ssm wall "
         f"{ssm_wall!r} s, ssm-async wall {ssm_async_wall!r} s")
     kernels = [dict(name=n, launches=launches[n], **rows[n]) for n in sorted(rows)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"[total] {time.perf_counter() - t_start!r} s, kernel builds included")
     log(smi)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

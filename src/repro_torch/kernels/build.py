@@ -32,7 +32,7 @@ __all__ = ["SOURCES", "build_all", "load", "check", "BUILD_DIR", "CSRC"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("paged_decode_attention", "flash_attention", "decode_attention",
-           "ssd_scan")
+           "ssd_scan", "batched_gather")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

@@ -1,11 +1,18 @@
 """Causal GQA attention: the plain version and the CUDA kernel behind one op.
 
-:func:`attention_op` is what the model's prefill calls.  Through the
-registry it runs :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`
-on CPU tensors and :func:`flash_attention_cuda` (the hand-written kernel in
+:func:`attention_op` (the custom op ``repro_torch::flash_attention``) is
+what the model's prefill and training forward call.  Through the registry
+it runs :func:`~repro_torch.kernels.flash_attention.ref.attention_ref` on
+CPU tensors and :func:`flash_attention_cuda` (the hand-written kernel in
 ``csrc/flash_attention.cu``, which replaces the Pallas ``flash_attention``)
 on CUDA tensors.  Operands may be strided views; only the D axis must be
-contiguous.
+contiguous.  The output is laid out like q on both devices.
+
+Being a custom op, it traces as one node (``register_fake``), so a traced
+loop body keeps the launch instead of freezing its output, and it has a
+gradient (``register_autograd``): the backward recomputes the plain
+version and differentiates it, on every device.  The JAX package has no
+backward kernel either; its gradient is XLA's autodiff of plain attention.
 """
 from __future__ import annotations
 
@@ -85,7 +92,40 @@ registry.register("flash_attention", ref=attention_ref,
                   sample=_sample)
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: int) -> torch.Tensor:
+    out = registry.dispatch("flash_attention", (q, k, v),
+                            common={"causal": causal, "window": window})
+    if out.stride() != q.stride():  # the plain version's is contiguous
+        out = torch.empty_like(q).copy_(out)
+    return out
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def _setup_grad(ctx, inputs, output) -> None:
+    q, k, v, causal, window = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal, ctx.window = causal, window
+
+
+def _grad(ctx, grad):
+    """Recompute the plain version and differentiate it."""
+    q, k, v = ctx.saved_tensors
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_ref(*leaves, causal=ctx.causal, window=ctx.window)
+        dq, dk, dv = torch.autograd.grad(out, leaves, grad)
+    return dq, dk, dv, None, None
+
+
+_flash_op.register_autograd(_grad, setup_context=_setup_grad)
+
+
 def attention_op(q, k, v, *, causal: bool = True, window: int = 0):
     """Batched multi-head (GQA) attention over full sequences."""
-    return registry.dispatch("flash_attention", (q, k, v),
-                             common={"causal": causal, "window": window})
+    return _flash_op(q, k, v, causal, window)

@@ -1,10 +1,13 @@
 """Architecture registry for the port (dense and SSM families so far).
 
 Port of :mod:`repro.models.registry`: ``get_arch(name)`` returns an
-:class:`Arch` bundling the config with its init, cache and one-token decode
-functions (the serving engine calls ``transformer.prefill`` itself, as in
-the reference).
-The dry-run ``input_specs`` and the other families come with later slices.
+:class:`Arch` bundling the config with its init, training forward, cache
+and one-token decode functions (the serving engine calls
+``transformer.prefill`` itself, as in the reference).  ``forward`` runs
+the dense family; SSM, MoE, encoder-decoder and frontend archs raise
+``NotImplementedError`` there (training mamba2 needs a gradient for
+``ssd_scan``).  The dry-run ``input_specs`` and the other families come
+with later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +26,18 @@ class Arch:
 
     def init(self, seed: int = 0, device="cuda") -> dict:
         return _tf.init_params(self.cfg, seed, device)
+
+    def forward(self, params: dict, batch: dict):
+        """Training forward → (logits, aux)."""
+        cfg = self.cfg
+        if (cfg.family != "dense" or cfg.is_moe or cfg.is_encoder_decoder
+                or cfg.frontend != "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: the training forward is ported for the dense family only")
+        return _tf.forward(cfg, params, batch["tokens"])
+
+    def labels_of(self, batch: dict):
+        return batch["labels"]
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
         return _tf.init_cache(self.cfg, batch, max_len, device)

@@ -1,20 +1,27 @@
-"""Decoder-only LM, dense and SSM paths: parameters, embedding, prefill, head.
+"""Decoder-only LM, dense and SSM paths: parameters, embedding, forward,
+prefill, head.
 
 Port of the dense and SSM paths of :mod:`repro.models.transformer`
 (``_embed``, ``_head``, ``_stack_names``, ``_layer_stacks``,
-``_block_params`` ``:66``, ``_block_decode`` ``:138``, ``prefill``
+``_block_params`` ``:66``, ``_block_forward`` ``:87``, ``_block_decode``
+``:138``, ``_run_stack`` ``:228``, ``forward`` ``:268``, ``prefill``
 ``:309``, ``decode_step`` ``:358``, ``init_cache``).  Layer parameters
 keep the reference's stacked leading layer axis and keys, so a JAX params
 pytree converts leaf for leaf (:mod:`repro_torch.models.convert`); the
 reference's ``lax.scan`` over layers is a Python loop over that axis.  An
 SSM block is ``ln1`` and the mamba2 mixer (:mod:`repro_torch.models.ssm`);
 its cache is ``{"ssm", "conv"}`` per stack.  Tied embeddings use the
-embedding table as the head.  MoE and hybrid stacks, embeddings routed
-through ``async_query`` and norms other than RMSNorm belong to later
-slices and raise ``NotImplementedError``.
+embedding table as the head.  With ``cfg.query_embedding`` the embedding
+lookup is the ``table_gather`` query (``async_query``), which a fissioned
+microbatch loop batches.  The training ``forward`` runs dense stacks only:
+an SSM stack raises ``NotImplementedError`` there (``ssd_scan`` has no
+gradient yet).  ``cfg.remat`` recomputes each block in the backward
+through ``torch.utils.checkpoint``.  MoE and hybrid stacks and norms other
+than RMSNorm belong to later slices and raise ``NotImplementedError``.
 
 Entry points:
   init_params(cfg, seed, device)              → params dict
+  forward(cfg, params, tokens, positions)     → (logits (B, S, V) f32, aux)
   prefill(cfg, params, tokens, max_len=...)   → (logits, cache)
   decode_step(cfg, params, token, cache, lengths) → (logits, cache)
   init_cache(cfg, batch, max_len, device)     → stacked KV or SSM cache
@@ -27,7 +34,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.query import async_query, table_gather_spec
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
     attention,
@@ -45,7 +54,7 @@ from repro_torch.models.ssm import (
     ssm_params,
 )
 
-__all__ = ["init_params", "prefill", "decode_step", "init_cache", "block_kind"]
+__all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache", "block_kind"]
 
 
 def block_kind(cfg: ModelConfig, moe_stack: bool) -> str:
@@ -60,15 +69,13 @@ def block_kind(cfg: ModelConfig, moe_stack: bool) -> str:
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet:
-    MoE and hybrid stacks, norms other than RMSNorm, the async_query
-    embedding.  Dense and SSM stacks and tied embeddings pass."""
+    MoE and hybrid stacks, norms other than RMSNorm.  Dense and SSM stacks,
+    tied embeddings and the async_query embedding pass."""
     if any(kind not in ("dense", "ssm") for _n, kind, _c in _stack_names(cfg)):
         raise NotImplementedError(
             f"{cfg.name}: only the dense and SSM families are ported so far")
-    if cfg.norm != "rmsnorm" or cfg.query_embedding:
-        raise NotImplementedError(
-            f"{cfg.name}: norm {cfg.norm!r} and the async_query embedding "
-            "are not ported yet")
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"{cfg.name}: norm {cfg.norm!r} is not ported yet")
 
 
 def _norm_params(cfg: ModelConfig, device, lead: tuple = ()) -> dict:
@@ -107,19 +114,46 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    table = params["embed"]["table"]
     if cfg.query_embedding:
-        raise NotImplementedError("the async_query embedding is not ported yet")
-    return params["embed"]["table"][tokens.long()].to(cfg.cdtype)
+        # the paper's "query": a per-step table lookup, batchable by fission
+        emb = async_query(table_gather_spec, table, tokens)
+    else:
+        emb = table[tokens.long()]
+    return emb.to(cfg.cdtype)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``x @ w`` of bf16 operands (x (M, d), w (d, V)) with float32
+    accumulators and a float32 result, on the card.  ``torch.mm(...,
+    out_dtype=float32)`` has no derivative, so the backward is written out:
+    it computes what the transpose of the reference's ``einsum(...,
+    preferred_element_type=float32)`` computes, float32 products of the
+    float32 cotangent with the operands widened to float32 (exact), each
+    rounded once to its operand's dtype (bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = torch.mm(g, w.float().t()).to(x.dtype) if ctx.needs_input_grad[0] else None
+        gw = torch.mm(x.float().t(), g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
 
 
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Logits in float32 from float32 accumulators, as the reference's
     ``preferred_element_type=float32``: a bf16 product rounded to bf16
     would break greedy ties over the 128k vocabulary differently.  On the
-    card ``torch.mm(..., out_dtype=float32)`` keeps the bf16 operands; on
-    the CPU (where that overload is not registered) the operands are
-    widened to float32 first, which is exact.  A tied config's head is the
-    embedding table, transposed (a view)."""
+    card ``torch.mm(..., out_dtype=float32)`` keeps the bf16 operands
+    (:class:`_MatmulF32`, which also gives its gradient); on the CPU (where
+    that overload is not registered) the operands are widened to float32
+    first, which is exact.  A tied config's head is the embedding table,
+    transposed (a view)."""
     cd = cfg.cdtype
     w = (params["embed"]["table"].T if cfg.tie_embeddings
          else params["lm_head"]["w"])
@@ -127,7 +161,7 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     if cd == torch.float32:
         return torch.matmul(xs, w)
     if xs.is_cuda:
-        out = torch.mm(xs.reshape(-1, xs.shape[-1]), w, out_dtype=torch.float32)
+        out = _MatmulF32.apply(xs.reshape(-1, xs.shape[-1]), w)
         return out.reshape(*xs.shape[:-1], w.shape[-1])
     return torch.matmul(xs.float(), w.float())
 
@@ -155,6 +189,49 @@ def layer_slice(stacked: dict, i: int) -> dict:
     """Layer ``i``'s parameters (views) out of a stacked parameter dict."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def _block_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """One dense block over the full sequence (training): attention through
+    the flash op, then the MLP, each with its residual."""
+    h = apply_norm(cfg.norm, p["ln1"], x)
+    x = x + attention(p["attn"], cfg, h, positions, causal=True)
+    return x + mlp(p["mlp"], cfg, apply_norm(cfg.norm, p["ln2"], x))
+
+
+def _run_stack(cfg: ModelConfig, stacked: dict, kind: str, n: int, x: torch.Tensor,
+               positions: torch.Tensor):
+    """The reference's ``_run_stack`` in ``"forward"`` mode: ``n`` blocks
+    over ``x`` → ``(x, aux)``.  A dense block has no auxiliary loss."""
+    if kind != "dense":
+        raise NotImplementedError(
+            f"training forward of {kind!r} blocks is not ported yet")
+    for i in range(n):
+        lp = layer_slice(stacked, i)
+        if cfg.remat:
+            x = checkpoint(_block_forward, lp, cfg, x, positions, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _block_forward(lp, cfg, x, positions)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None):
+    """Training forward: tokens (B, S) integer → (logits (B, S, V) float32,
+    aux loss).  ``positions`` defaults to ``arange(S)`` for every row."""
+    _check_ported(cfg)
+    x = _embed(cfg, params, tokens)
+    B, S = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for stacked, kind, n in _layer_stacks(cfg, params):
+        x, aux = _run_stack(cfg, stacked, kind, n, x, positions)
+        aux_total = aux_total + aux
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    return _head(cfg, params, x), aux_total
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> dict:

@@ -345,3 +345,256 @@ def test_reduced_mamba2_served_on_card_matches_cpu(gen, overlap):
     assert out["cuda"][:2] == out["cpu"][:2]
     assert out["cuda"][2]["ssd_scan"] > 0
     assert out["cpu"][2] == {n: 0 for n in registry.names()}
+
+
+# ----------------------------------------------------------- batched_gather
+
+V_FULL = 128256  # llama3-8b's vocabulary: row offsets beyond 2^31 elements
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 4096])
+@pytest.mark.parametrize("d", [8, 64, 4096])
+def test_batched_gather_kernel_matches_plain(gen, dtype, n, d):
+    """Bit-exact against the plain version on the full 128256-row table,
+    with the last row among the ids (its offset needs 64-bit arithmetic at
+    D = 4096)."""
+    from repro_torch.kernels.batched_gather.ops import batched_gather_cuda
+    from repro_torch.kernels.batched_gather.ref import gather_ref
+
+    table = torch.randn((V_FULL, d), generator=gen, device="cuda").to(dtype)
+    ids = torch.randint(0, V_FULL, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    ids[-1] = V_FULL - 1
+    got = batched_gather_cuda(table, ids)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (n, d)
+    assert torch.equal(got, gather_ref(table, ids))
+
+
+@pytest.mark.parametrize("shape", [(2, 3), (5,), ()])
+def test_batched_gather_kernel_takes_any_ids_shape(gen, shape):
+    """int64 ids of any shape, a row length (D = 7 bf16, 14 bytes) that
+    takes the scalar path: ids.shape + (D,), bit-exact."""
+    from repro_torch.kernels.batched_gather.ops import batched_gather_cuda
+    from repro_torch.kernels.batched_gather.ref import gather_ref
+
+    table = torch.randn((50, 7), generator=gen, device="cuda").bfloat16()
+    ids = torch.randint(0, 50, shape, generator=gen, device="cuda")
+    got = batched_gather_cuda(table, ids)
+    assert got.shape == shape + (7,)
+    assert torch.equal(got, gather_ref(table, ids))
+
+
+def test_batched_gather_refuses_operands_outside_supports(gen):
+    """float16 and 3-D tables, float or empty ids, a strided table, ids on
+    another device raise ValueError on the card; nothing is launched."""
+    table = torch.zeros((16, 8), device="cuda")
+    ids = torch.zeros(4, dtype=torch.int32, device="cuda")
+    registry.reset_launches()
+    bad = [
+        (table.half(), ids),
+        (torch.zeros((2, 16, 8), device="cuda"), ids),
+        (table, ids.float()),
+        (table, ids[:0]),
+        (torch.zeros((8, 16), device="cuda").t(), ids),
+        (table, ids.cpu()),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            registry.dispatch("batched_gather", args)
+    assert registry.launch_counts() == {n: 0 for n in registry.names()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("via", ["query", "op"])
+def test_batched_gather_gradient_matches_plain(gen, dtype, via):
+    """The gradient (float32 scatter-add, cast to the table's dtype) of the
+    ``table_gather`` query, as the model's embedding calls it, and of the
+    ``batched_gather`` op, as fission's batched execution calls it, on the
+    card against the same scatter-add on the CPU.  Repeated ids sum in
+    another order (atomics): float32 1e-5, bf16 2^-7 relative (one bf16
+    ulp after the float32 sum)."""
+    from repro_torch.core.query import async_query, table_gather_spec
+    from repro_torch.kernels.batched_gather.ops import gather_op
+    from repro_torch.kernels.batched_gather.ref import gather_ref
+
+    table = torch.randn((300, 64), generator=gen, device="cuda").to(dtype)
+    ids = torch.randint(0, 30, (4, 128), generator=gen, device="cuda", dtype=torch.int32)
+    up = torch.randn((4, 128, 64), generator=gen, device="cuda").to(dtype)
+    t = table.clone().requires_grad_()
+    rows = (async_query(table_gather_spec, t, ids) if via == "query"
+            else gather_op(t, ids))
+    (got,) = torch.autograd.grad(rows, t, up)
+    tc = table.cpu().float().requires_grad_()
+    (want,) = torch.autograd.grad(gather_ref(tc, ids.cpu()), tc, up.cpu().float())
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.cpu().float(), want.to(dtype).float(), rtol=tol, atol=tol)
+
+
+def test_batched_gather_counts_its_launches(gen):
+    """One launch per call on CUDA operands; the plain version on CPU
+    operands counts nothing."""
+    from repro_torch.kernels.batched_gather.ops import batched_gather_cuda, gather_op
+
+    table = torch.randn((40, 16), generator=gen, device="cuda")
+    ids = torch.arange(10, device="cuda")
+    registry.reset_launches()
+    gather_op(table, ids)
+    gather_op(table, ids.reshape(2, 5))
+    gather_op(table.cpu(), ids.cpu())
+    assert batched_gather_cuda.launches == 2
+    assert registry.launch_counts()["batched_gather"] == 2
+
+
+def test_fission_on_the_card_launches_the_gather_once(gen):
+    """A loop of 64 single-row queries: the plain scan launches the kernel
+    64 times, the fissioned one once, with the same result."""
+    from repro_torch.core.fission import fission_scan, scan
+    from repro_torch.core.query import async_query, table_gather_spec
+
+    table = torch.randn((1000, 32), generator=gen, device="cuda")
+    ids = ((torch.arange(64, device="cuda") * 37) % 1000).to(torch.int32)
+
+    def body(c, i):
+        return c + async_query(table_gather_spec, table, i).sum(), None
+
+    out = {}
+    for fn in (scan, fission_scan):
+        registry.reset_launches()
+        out[fn.__name__] = (fn(body, torch.zeros((), device="cuda"), ids)[0],
+                            registry.launch_counts()["batched_gather"])
+    assert out["scan"][1] == 64 and out["fission_scan"][1] == 1
+    torch.testing.assert_close(out["scan"][0], out["fission_scan"][0], rtol=1e-5, atol=1e-5)
+
+
+def test_grad_vmap_and_nesting_through_fission_on_the_card(gen):
+    """``fission_scan`` on CUDA operands under ``torch.autograd.grad``,
+    ``torch.vmap`` and an outer ``fission_scan``: the batched execution
+    (the ``batched_gather`` op) carries a gradient, a batching rule and a
+    fake, as the reference's Pallas op does, and matches the plain scan."""
+    from repro_torch.core.fission import FissionReport, fission_scan, scan
+    from repro_torch.core.query import async_query, table_gather_spec
+
+    table = torch.randn((128, 16), generator=gen, device="cuda")
+    ids = ((torch.arange(16, device="cuda") * 37) % 128).to(torch.int32)
+
+    def loss(t, scan_fn):
+        return scan_fn(lambda c, i: (c + (async_query(table_gather_spec, t, i) ** 2).sum(),
+                                     None), torch.zeros((), device="cuda"), ids)[0]
+
+    grads = []
+    for fn in (scan, fission_scan):
+        t = table.clone().requires_grad_()
+        grads.append(torch.autograd.grad(loss(t, fn), t)[0])
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-5)
+
+    def summed(scan_fn):
+        return lambda ii: scan_fn(lambda c, i: (c + async_query(table_gather_spec, table,
+                                                                 i).sum(), None),
+                                  torch.zeros((), device="cuda"), ii)[0]
+
+    stacked = torch.stack([ids, (ids + 1) % 128, (ids + 2) % 128])
+    torch.testing.assert_close(torch.vmap(summed(fission_scan))(stacked),
+                               torch.stack([summed(scan)(r) for r in stacked]),
+                               rtol=1e-5, atol=1e-5)
+
+    def outer(scan_fn):
+        def body(c, i):
+            s, _ = scan_fn(lambda c2, j: (c2 + async_query(table_gather_spec, table,
+                                                           j).sum(), None),
+                           torch.zeros((), device="cuda"), (i + torch.arange(
+                               4, device="cuda", dtype=torch.int32)) % 128)
+            return c + s + async_query(table_gather_spec, table, i)[0], None
+        return body
+
+    rep = FissionReport()
+    got = fission_scan(outer(fission_scan), torch.zeros((), device="cuda"), ids,
+                       report=rep)[0]
+    want = scan(outer(scan), torch.zeros((), device="cuda"), ids)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert rep.n_queries_batched == 1  # the outer query; the inner loop fissions alone
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_op_gradients_match_plain(gen, dtype):
+    """q, k and v gradients of the flash op (kernel forward, plain
+    recompute in the backward) against autograd of the plain version on
+    the same operands, in the model's strided layout."""
+    from repro_torch.kernels.flash_attention.ops import attention_op
+
+    q, k, v = (torch.randn((2, 96, h, 64), generator=gen, device="cuda").to(dtype)
+               .transpose(1, 2).requires_grad_() for h in (8, 2, 2))
+    up = torch.randn((2, 8, 96, 64), generator=gen, device="cuda").to(dtype)
+    registry.reset_launches()
+    got = torch.autograd.grad(attention_op(q, k, v, causal=True), (q, k, v), up)
+    assert registry.launch_counts()["flash_attention"] == 1
+    want = torch.autograd.grad(attention_ref(q, k, v, causal=True), (q, k, v), up)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+def test_head_gradient_on_the_card(gen):
+    """The bf16 head's gradient on the card (``_MatmulF32``) equals the CPU
+    branch's (float32 products of the widened operands, rounded once to
+    bf16), up to one bf16 ulp (2^-7 relative: float32 sums in another
+    order can round the other way)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_arch
+
+    cfg = dataclasses.replace(get_arch("llama3-8b").cfg, d_model=256, vocab_size=1000)
+    x = torch.randn((2, 3, 256), generator=gen, device="cuda").bfloat16()
+    w = (0.1 * torch.randn((256, 1000), generator=gen, device="cuda")).bfloat16()
+    up = torch.randn((2, 3, 1000), generator=gen, device="cuda")
+    grads = {}
+    for device in ("cuda", "cpu"):
+        xd, wd = (a.to(device).requires_grad_() for a in (x, w))
+        out = transformer._head(cfg, {"lm_head": {"w": wd}}, xd)
+        grads[device] = torch.autograd.grad(out, (xd, wd), up.to(device))
+    for g, want in zip(grads["cuda"], grads["cpu"]):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.cpu().float(), want.float(), rtol=2.0 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("fission", [False, True])
+def test_reduced_train_step_on_card_matches_cpu(gen, fission):
+    """Reduced llama3-8b, float32, ``query_embedding``, 4 microbatches, 2
+    steps: losses and parameters on the card (kernels) equal the CPU's
+    (plain versions) to 1e-4; ``batched_gather`` launches once per step
+    fissioned and 4 times unfissioned."""
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    arch = get_arch("llama3-8b")
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg.reduced(),
+                                                             query_embedding=True))
+    stream = SyntheticLMStream(arch.cfg.vocab_size, seq_len=16, batch=8, seed=0)
+    cpu_params = arch.init(seed=0, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = _to(cpu_params, device) if device == "cuda" else _clone(cpu_params)
+        init_state, step = make_train_step(arch, AdamWConfig(lr=1e-3),
+                                           TrainStepConfig(microbatches=4, fission=fission))
+        state = init_state(params)
+        losses, launches = [], []
+        for i in range(2):
+            registry.reset_launches()
+            params, state, m = step(params, state, stream.batch_at(i))
+            losses.append(float(m["loss"]))
+            launches.append(registry.launch_counts()["batched_gather"])
+        out[device] = (losses, params, launches)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(_leaves(out["cuda"][1]), _leaves(out["cpu"][1])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    assert out["cuda"][2] == [1 if fission else 4] * 2
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else [v])

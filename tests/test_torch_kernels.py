@@ -15,12 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from repro.kernels import registry as jreg
+from repro.kernels.batched_gather.ref import gather_ref as j_gather_ref
 from repro.kernels.decode_attention.kernel import decode_attention_kernel
 from repro.kernels.decode_attention.ref import decode_ref as j_decode_ref
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.kernels.paged_attention.ref import paged_decode_ref as j_paged_ref
 from repro_torch.kernels import registry
+from repro_torch.kernels.batched_gather import ops as gather_ops
+from repro_torch.kernels.batched_gather.ref import gather_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -208,9 +213,69 @@ def test_flash_right_padding_is_invisible_to_real_rows():
     torch.testing.assert_close(padded, short, rtol=1e-6, atol=1e-6)
 
 
+# ---------------------------------------------------------- batched gather
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_gather_sample_matches_jnp_ref_and_pallas(seed):
+    """The reference's ``_sample`` shapes (table (128, 32), 64 ids, bn 16):
+    plain version == jnp ref == Pallas kernel under interpret, bit for
+    bit (``tol=None`` in the reference)."""
+    s = registry.get("batched_gather").sample(np.random.default_rng(seed))
+    got = gather_ref(*map(_t, s.args)).numpy()
+    jargs = tuple(jnp.asarray(a) for a in s.args)
+    np.testing.assert_array_equal(got, np.asarray(j_gather_ref(*jargs)))
+    pallas = jreg.get("batched_gather").kernel(*jargs, bn=16, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+
+
+@pytest.mark.parametrize("shape", [(37,), (1,), (3, 5)])
+def test_gather_ragged_ids_match_jnp_ref(shape):
+    """A count N that no Pallas tile divides (the port's kernel takes any
+    N >= 1) and ids of any shape: ids.shape + (D,), bit for bit."""
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((50, 24), dtype=np.float32)
+    ids = rng.integers(0, 50, size=shape).astype(np.int32)
+    got = gather_ops.gather_op(_t(table), _t(ids))
+    assert got.shape == shape + (24,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.take(table, ids, axis=0)))
+
+
+def test_gather_op_gradient_and_vmap_match_jax():
+    """The op's gradient (the scatter-add) equals ``jax.grad`` of ``take``
+    with repeated ids; ``vmap`` over a batch of id sets equals ``jax.vmap``."""
+    rng = np.random.default_rng(6)
+    table = rng.standard_normal((20, 8), dtype=np.float32)
+    ids = rng.integers(0, 5, size=(3, 7)).astype(np.int32)
+    up = rng.standard_normal((3, 7, 8), dtype=np.float32)
+    want = jax.grad(lambda t: jnp.sum(jnp.take(t, jnp.asarray(ids), axis=0) * up))(
+        jnp.asarray(table))
+    t = _t(table).requires_grad_()
+    (got,) = torch.autograd.grad(gather_ops.gather_op(t, _t(ids)), t, _t(up))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    jv = jax.vmap(lambda i: jnp.take(jnp.asarray(table), i, axis=0))(jnp.asarray(ids))
+    tv = torch.vmap(lambda i: gather_ops.gather_op(_t(table), i))(_t(ids))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_gather_supports_gates():
+    """float32 and bf16 tables, int32 and int64 ids of any shape, N >= 1;
+    not float16, not a strided or 3-D table, not float or empty ids, not
+    ids on another device."""
+    ok = gather_ops._supports
+    table, ids = torch.zeros(16, 8), torch.zeros(5, dtype=torch.int32)
+    assert ok(table, ids) and ok(table.bfloat16(), ids.long().reshape(5, 1))
+    assert not ok(table.half(), ids)
+    assert not ok(torch.zeros(8, 16).t(), ids)
+    assert not ok(torch.zeros(2, 16, 8), ids)
+    assert not ok(table, ids.float())
+    assert not ok(table, ids[:0])
+    assert not ok(table, ids.to("meta"))
+
+
 # ---------------------------------------------------------------- dispatch
 
-OPS = ["decode_attention", "flash_attention", "paged_decode_attention", "ssd_scan"]
+OPS = ["batched_gather", "decode_attention", "flash_attention", "paged_decode_attention",
+       "ssd_scan"]
 
 
 def test_registry_names_and_samples():
@@ -219,7 +284,7 @@ def test_registry_names_and_samples():
         op = registry.get(name)
         assert isinstance(op.kernel.launches, int)
     with pytest.raises(KeyError, match="registered"):
-        registry.get("batched_gather")
+        registry.get("no_such_op")
 
 
 def test_launch_counter_is_thread_safe():
