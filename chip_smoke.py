@@ -7,16 +7,22 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build — compile the five CUDA kernels from ``src/repro_torch/csrc``
-   with ``nvcc`` (one process per source, in parallel) and time it;
+   with ``nvcc`` (one process per source, in parallel) and time it; log
+   ``ptxas``' registers and spills of the two attention kernels and the
+   SASS instruction mix of their main-path instances;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes in bf16 and at a small ragged float32 shape (the
    ``ssd_scan`` kernel: mamba2-1.3b's prefill shape in float32 and the
    reference's sweep shapes in float32 and bf16; ``batched_gather``: the
    llama3-8b table and one training step's 4096 ids, N = 1 and ragged
-   shapes, bit for bit), with the tolerance stated; its time, the plain
-   version's, one library call's as a yardstick where one exists (never
-   called by the port) and the least time the card could take
-   (``bound_ms``);
+   shapes, bit for bit; ``flash_attention`` at the serving shape and the
+   trainer's, both instances at ragged shapes, bf16 at D 16 to 128;
+   ``decode_attention`` at the dense
+   engine's 8 lanes and the chunk side's 1), with the tolerance stated;
+   a repeated call of either attention kernel must give the same bits;
+   its time, the plain version's, one library call's as a yardstick
+   where one exists (never called by the port) and the least time the
+   card could take (``bound_ms``);
 4. serving paths — llama3-8b at full width (32 layers, bf16, weights
    drawn from seed 0 on the card) served through
    ``ContinuousBatchingScheduler``, 32 new tokens a request, three paths,
@@ -136,7 +142,44 @@ def phase_build():
     for name, path in libs.items():
         log(f"[build] {name}: {path.relative_to(ROOT)}")
     log(f"[build] {len(libs)} kernels built in {dt:.3f} s (nvcc in parallel)")
+    for name in ("flash_attention", "decode_attention"):
+        _compiler_report(build, name, libs[name])
     torch.cuda.synchronize()
+
+
+# The instances whose SASS phase 2 summarises: the main path's bf16 ones.
+_SASS_OF = {"flash_attention": "flash_wgmma_kernelILi128EE",
+            "decode_attention": "decode_cluster_kernelI13__nv_bfloat16Li4ELi8E"}
+
+
+def _compiler_report(build, name, lib):
+    """Log ``ptxas``' registers and spills for every kernel in ``name``'s
+    library, and the SASS instruction mix of its main-path instance."""
+    import re
+    kernel = None
+    for line in build.ptxas_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_wgmma_kernel|flash_kernel|decode_cluster_kernel)(I\w*?)EEv",
+                          m.group(1))
+            kernel = k.group(1) + k.group(2) if k else m.group(1)
+        elif "spill" in line or "registers" in line:
+            log(f"[build] ptxas {name}: {kernel}: {line.split(':', 1)[-1].strip()}")
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        log(f"[build] SASS {name}: cuobjdump not found")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    for func in sass.split("Function : ")[1:]:
+        if _SASS_OF[name] not in func.split("\n", 1)[0]:
+            continue
+        ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", func,
+                         flags=re.M)
+        counts = sorted(((ops.count(o), o) for o in set(ops)), reverse=True)
+        log(f"[build] SASS {name} {_SASS_OF[name]}: {len(ops)} instructions; HGMMA "
+            f"{ops.count('HGMMA')}, UTMALDG {ops.count('UTMALDG')}; "
+            + ", ".join(f"{o} {c}" for c, o in counts[:16]))
 
 
 # ----------------------------------------------------------------- phase 3
@@ -177,6 +220,18 @@ def _bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _repeat(name, fn, first) -> None:
+    """A second call gives the same bits as the first (no atomics, fixed
+    summation order)."""
+    import torch
+    again = fn()
+    torch.cuda.synchronize()
+    same = torch.equal(again, first)
+    log(f"[kernels] {name}: a repeated call is bit-identical: {same}")
+    if not same:
+        fail(f"{name}: two calls on the same inputs differ")
 
 
 def _compare(label, got, want, rtol, atol):
@@ -273,53 +328,69 @@ def phase_kernels(timer):
     log(f"[kernels] paged_decode_attention: {rows['paged_decode_attention']}")
     torch.cuda.synchronize()
 
-    # -- flash attention (causal prefill), same tolerances and reasons.
-    b, hq, hkv, s, d = 8, 32, 8, 256, 128
-    fq, fk, fv = _flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
-    out = flash_attention_cuda(fq, fk, fv, causal=True)
-    err = _compare(f"flash_attention bf16 B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal",
-                   out, attention_ref(fq, fk, fv, causal=True), 1e-2, 1e-2)
-    for (sb, shq, shkv, ss, sd) in ((2, 4, 2, 77, 64), (1, 8, 2, 130, 128)):
-        sq, sk, sv = _flash_case(gen, sb, shq, shkv, ss, sd, torch.float32)
-        for causal in (True, False):
-            _compare(f"flash_attention f32 ragged B={sb} Hq={shq} Hkv={shkv} S={ss} "
-                     f"D={sd} causal={causal}",
-                     flash_attention_cuda(sq, sk, sv, causal=causal),
-                     attention_ref(sq, sk, sv, causal=causal), 1e-4, 1e-4)
-    # The op the model calls (the custom op around the kernel): its first
-    # call pays torch.library's one-time set-up, which would otherwise land
-    # in the first serving path's first prefill.
-    t0 = time.perf_counter()
-    op_out = attention_op(fq, fk, fv, causal=True)
-    torch.cuda.synchronize()
-    log(f"[kernels] flash_attention custom op, first call: "
-        f"{time.perf_counter() - t0!r} s (one-time torch.library set-up)")
-    if not torch.equal(op_out, out):
-        fail("flash_attention: the custom op differs from the kernel it wraps")
-    # The trainer's shape (phase 8): one microbatch of 2 x 512 tokens.
-    tq, tk, tv = _flash_case(gen, 2, hq, hkv, 512, d, torch.bfloat16)
-    _compare(f"flash_attention bf16 (trainer) B=2 Hq={hq} Hkv={hkv} S=512 D={d} causal, "
-             "custom op", attention_op(tq, tk, tv, causal=True),
-             attention_ref(tq, tk, tv, causal=True), 1e-2, 1e-2)
-    del tq, tk, tv
-    nbytes = 2 * (fq.numel() * 2 + fk.numel() + fv.numel())  # q, k, v in; out
-    flops = 4 * b * hq * d * (s * (s + 1) // 2)                # causal QK and PV
-    bound, by = _bound(nbytes, flops)
+    # -- flash attention (causal prefill), same tolerances and reasons.  Two
+    # hand-written instances (``ops._instance``): bf16 at D 64 and 128 on the
+    # tensor cores, float32 and bf16 at D 16 and 32 on the CUDA cores.
+    from repro_torch.kernels.flash_attention.ops import _TENSOR_CORES, _aligned, _instance
+    hq, hkv, d = 32, 8, 128
+    timed = {}
+    for label, b, s in (("serving", 8, 256), ("trainer", 2, 512)):
+        fq, fk, fv = _flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
+        if _instance(fq.dtype, d, _aligned(fq, fk, fv, fq)) != _TENSOR_CORES:
+            fail("flash_attention: the main path's bf16 shape is not on the tensor cores")
+        out = flash_attention_cuda(fq, fk, fv, causal=True)
+        ref = attention_ref(fq, fk, fv, causal=True)
+        err = _compare(f"flash_attention bf16 ({label}) B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+                       "causal", out, ref, 1e-2, 1e-2)
+        _repeat("flash_attention", lambda: flash_attention_cuda(fq, fk, fv, causal=True), out)
+        nbytes = 2 * (fq.numel() * 2 + fk.numel() + fv.numel())  # q, k, v in; out
+        flops = 4 * b * hq * d * (s * (s + 1) // 2)                # causal QK and PV
+        bound, by = _bound(nbytes, flops)
 
-    def library():
-        return F.scaled_dot_product_attention(fq, fk, fv, is_causal=True,
-                                              enable_gqa=True)
+        def library(fq=fq, fk=fk, fv=fv):
+            return F.scaled_dot_product_attention(fq, fk, fv, is_causal=True,
+                                                  enable_gqa=True)
 
-    _compare("scaled_dot_product_attention (yardstick) vs plain", library(),
-             attention_ref(fq, fk, fv, causal=True), 1e-2, 1e-2)
-    rows["flash_attention"] = dict(
-        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:86",
-        max_abs_err=err,
-        ms=timer.ms(lambda: flash_attention_cuda(fq, fk, fv, causal=True)),
-        plain_ms=timer.ms(lambda: attention_ref(fq, fk, fv, causal=True)),
-        bound_ms=bound, bound_by=by, library_ms=timer.ms(library))
-    log(f"[kernels] flash_attention: {rows['flash_attention']}")
+        _compare(f"scaled_dot_product_attention (yardstick, {label}) vs plain", library(),
+                 ref, 1e-2, 1e-2)
+        timed[label] = dict(
+            route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:86",
+            max_abs_err=err,
+            ms=timer.ms(lambda: flash_attention_cuda(fq, fk, fv, causal=True)),
+            plain_ms=timer.ms(lambda: attention_ref(fq, fk, fv, causal=True)),
+            bound_ms=bound, bound_by=by, library_ms=timer.ms(library))
+        log(f"[kernels] flash_attention ({label}): {timed[label]}")
+        if label == "serving":
+            # The op the model calls (the custom op around the kernel): its
+            # first call pays torch.library's one-time set-up, which would
+            # otherwise land in the first serving path's first prefill.
+            t0 = time.perf_counter()
+            op_out = attention_op(fq, fk, fv, causal=True)
+            torch.cuda.synchronize()
+            log(f"[kernels] flash_attention custom op, first call: "
+                f"{time.perf_counter() - t0!r} s (one-time torch.library set-up)")
+            if not torch.equal(op_out, out):
+                fail("flash_attention: the custom op differs from the kernel it wraps")
+        else:
+            _compare(f"flash_attention bf16 (trainer) B={b} S={s} custom op",
+                     attention_op(fq, fk, fv, causal=True), ref, 1e-2, 1e-2)
+        del fq, fk, fv, out, ref
+    # Both instances at ragged shapes: bf16 on the tensor cores (D 64, 128)
+    # and on the CUDA cores (D 16, 32), float32 on the CUDA cores.
+    for dtype, tol, shapes in (
+            (torch.bfloat16, 1e-2, ((2, 4, 2, 77, 64), (1, 8, 2, 130, 128), (3, 4, 1, 65, 16),
+                                    (2, 4, 2, 63, 32))),
+            (torch.float32, 1e-4, ((2, 4, 2, 77, 64), (1, 8, 2, 130, 128)))):
+        for (sb, shq, shkv, ss, sd) in shapes:
+            sq, sk, sv = _flash_case(gen, sb, shq, shkv, ss, sd, dtype)
+            for causal in (True, False):
+                _compare(f"flash_attention {str(dtype)[6:]} ragged B={sb} Hq={shq} Hkv={shkv} "
+                         f"S={ss} D={sd} causal={causal} (instance "
+                         f"{_instance(dtype, sd)})",
+                         flash_attention_cuda(sq, sk, sv, causal=causal),
+                         attention_ref(sq, sk, sv, causal=causal), tol, tol)
+    rows["flash_attention"] = timed["serving"]  # the trainer's row is logged above
     torch.cuda.synchronize()
 
     # -- dense-cache decode attention, same tolerances and reasons, at the
@@ -334,6 +405,7 @@ def phase_kernels(timer):
         err = _compare(f"decode_attention bf16 ({label}) B={b} Hq=32 Hkv=8 T=512 D=128 "
                        f"lengths={dlen.tolist()}", out, decode_ref(dq, dk, dv, dlen),
                        1e-2, 1e-2)
+        _repeat("decode_attention", lambda: decode_attention_cuda(dq, dk, dv, dlen), out)
         kv_tokens = int(dlen.sum())
         nbytes = (dq.numel() * 2 * 2                    # q in, out
                   + 2 * kv_tokens * 8 * 128 * 2         # valid K and V rows
@@ -362,7 +434,7 @@ def phase_kernels(timer):
         _compare(f"decode_attention f32 ragged B={sb} Hq={shq} Hkv={shkv} T={st} D={sd} "
                  f"lengths={small[3].tolist()}", decode_attention_cuda(*small),
                  decode_ref(*small), 1e-4, 1e-4)
-    rows["decode_attention"] = timed["dense engine"]
+    rows["decode_attention"] = timed["dense engine"]  # the chunk side's is logged above
     torch.cuda.synchronize()
     rows["ssd_scan"] = _ssd_scan_kernel(timer, gen)
     rows["batched_gather"] = _batched_gather_kernel(timer, gen)

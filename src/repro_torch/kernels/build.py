@@ -4,11 +4,15 @@ Each ``repro_torch/csrc/<name>.cu`` is compiled on first use into its own
 shared library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas=-v -o build/repro_torch/<name>-<hash>.so <name>.cu
 
 under ``build/repro_torch/`` at the checkout's root (listed in
-``.gitignore``).  The file name carries a hash of the source, so an edited
-kernel is rebuilt and a stale library is never loaded.  :func:`build_all`
+``.gitignore``).  The file name carries a hash of the source, of every
+header it includes from ``csrc/`` (``#include "..."``, followed
+recursively) and of the flags, so an edited kernel or header is rebuilt
+and a stale library is never loaded.  The compiler's output (``ptxas``'
+registers, spills and shared memory per kernel) is kept beside the
+library as ``<name>-<hash>.log``; :func:`ptxas_log` reads it.  :func:`build_all`
 starts one ``nvcc`` per source at once and waits for all of them; that is
 what ``chip_smoke.py`` times.  Nothing here runs at import: this module is
 imported on machines without ``nvcc`` (the CPU tests).
@@ -22,12 +26,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "check", "BUILD_DIR", "CSRC"]
+__all__ = ["SOURCES", "build_all", "load", "check", "ptxas_log", "BUILD_DIR", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -35,7 +40,7 @@ SOURCES = ("paged_decode_attention", "flash_attention", "decode_attention",
            "ssd_scan", "batched_gather")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -54,10 +59,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every file it includes from ``csrc/``,
+    recursively, each once, in the order first met."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and CSRC in dep.parents:
+                todo.append(dep)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, Path]:
@@ -84,6 +109,7 @@ def build_all(names=SOURCES) -> dict[str, Path]:
             errors.append(f"nvcc {n}.cu exited {proc.returncode}:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            todo[n].with_suffix(".log").write_text(log)
             tmp.replace(todo[n])  # atomic: a reader never sees half a file
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -97,6 +123,13 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build_all((name,))[name]))
         return lib
+
+
+def ptxas_log(name: str) -> str:
+    """The compiler's output for the current build of ``csrc/<name>.cu``
+    (empty if it has not been built)."""
+    path = _lib_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def check(name: str, code: int) -> None:

@@ -5,7 +5,10 @@ the registry it runs :func:`~repro_torch.kernels.decode_attention.ref.decode_ref
 on CPU tensors and :func:`decode_attention_cuda` (the hand-written kernel
 in ``csrc/decode_attention.cu``, which replaces the Pallas
 ``decode_attention_kernel``) on CUDA tensors.  Unlike the Pallas kernel it
-takes any cache length T (no ``bk`` that must divide T).
+takes any cache length T (no ``bk`` that must divide T).  One launch a
+call: each (lane, kv head) is a thread-block cluster whose blocks split
+the keys and combine their softmax states in shared memory; the wrapper
+allocates only the output.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ __all__ = ["decode_op", "decode_attention_cuda"]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUP = 16   # query heads per kv head (the kernel's largest instance)
 _MAX_D = 256      # head dims the kernel's shared buffers hold
-_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+_TARGET_BLOCKS = 256  # about two blocks for each of the H100's 132 SMs
+_MIN_KEYS = 32        # keys per block below which a further split stops
+_MAX_CLUSTER = 8      # blocks per cluster (the portable limit)
 
 
 def _supports(q, k, v, lengths) -> bool:
@@ -39,13 +44,16 @@ def _supports(q, k, v, lengths) -> bool:
             and q.is_contiguous() and k.is_contiguous() and v.is_contiguous())
 
 
-def _split(b: int, hkv: int, t: int) -> int:
-    """Keys per block: the largest of 128, 64, 32 that still gives the
-    partial pass about ``_TARGET_BLOCKS`` blocks over a full cache."""
-    split = 128
-    while split > 32 and b * hkv * -(-t // split) < _TARGET_BLOCKS:
-        split //= 2
-    return split
+def _cluster(b: int, hkv: int, t: int) -> tuple[int, int]:
+    """(blocks per cluster C, keys per block) for B lanes of Hkv kv heads
+    over a cache of T keys: C doubles, up to ``_MAX_CLUSTER``, while the
+    grid has fewer than ``_TARGET_BLOCKS`` blocks and each block would
+    still get at least ``_MIN_KEYS`` keys."""
+    c = 1
+    while (c < _MAX_CLUSTER and b * hkv * c < _TARGET_BLOCKS
+           and -(-t // (2 * c)) >= _MIN_KEYS):
+        c *= 2
+    return c, -(-t // c)
 
 
 def _lib() -> ctypes.CDLL:
@@ -53,7 +61,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention
     if fn.argtypes is None:  # declare the C signature once per process
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     return lib
 
@@ -67,17 +75,13 @@ def decode_attention_cuda(q, k, v, lengths):
         raise ValueError("decode_attention_cuda: unsupported operands")
     b, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    split = _split(b, hkv, t)
-    parts = b * hkv * -(-t // split) * (hq // hkv)
+    cluster, kpb = _cluster(b, hkv, t)
     lens = lengths.to(torch.int32).contiguous()
-    stats = torch.empty((2, parts), dtype=torch.float32, device=q.device)
-    acc = torch.empty((parts, d), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         code = _lib().decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), acc.data_ptr(), out.data_ptr(),
-            b, t, hq, hkv, d, split, _DTYPES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            b, t, hq, hkv, d, cluster, kpb, _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check("decode_attention", code)
     registry.count_launch(decode_attention_cuda)

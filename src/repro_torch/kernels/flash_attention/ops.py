@@ -6,7 +6,10 @@ it runs :func:`~repro_torch.kernels.flash_attention.ref.attention_ref` on
 CPU tensors and :func:`flash_attention_cuda` (the hand-written kernel in
 ``csrc/flash_attention.cu``, which replaces the Pallas ``flash_attention``)
 on CUDA tensors.  Operands may be strided views; only the D axis must be
-contiguous.  The output is laid out like q on both devices.
+contiguous.  The output is laid out like q on both devices.  The kernel
+has two instances, both hand-written: bf16 at D 64 or 128 on the tensor
+cores (wgmma), everything else on the CUDA cores; :func:`_instance`
+picks one.
 
 Being a custom op, it traces as one node (``register_fake``), so a traced
 loop body keeps the launch instead of freezing its output, and it has a
@@ -28,6 +31,7 @@ __all__ = ["attention_op", "flash_attention_cuda"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)  # the kernel's compiled D instances
+_CUDA_CORES, _TENSOR_CORES = 0, 1  # the C entry's `instance` argument
 
 
 def _supports(q, k, v, *, causal: bool = True, window: int = 0) -> bool:
@@ -43,13 +47,30 @@ def _supports(q, k, v, *, causal: bool = True, window: int = 0) -> bool:
             and q.stride(-1) == 1 and k.stride(-1) == 1 and v.stride(-1) == 1)
 
 
+def _instance(dtype: torch.dtype, d: int, aligned: bool = True) -> int:
+    """The kernel instance for operands of ``dtype`` and head dim ``d``:
+    the tensor cores for bf16 at D 64 or 128 whose rows are 16-byte
+    aligned (``aligned``: every pointer a multiple of 16 bytes and every
+    batch, head and sequence stride a multiple of 8 elements); the CUDA
+    cores otherwise.  Float32 stays off the tensor cores: they would
+    round its operands to TF32 (about 1e-3)."""
+    if dtype == torch.bfloat16 and d in (64, 128) and aligned:
+        return _TENSOR_CORES
+    return _CUDA_CORES
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0 for i in range(3))
+               for t in ts)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention
     if fn.argtypes is None:  # declare the C signature once per process
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                       ctypes.POINTER(ctypes.c_longlong), ci, ci, vp]
+                       ctypes.POINTER(ctypes.c_longlong), ci, ci, ci, vp]
         fn.restype = ci
     return lib
 
@@ -66,11 +87,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     out = torch.empty_like(q)  # keeps q's strides for a dense permuted view
     strides = (ctypes.c_longlong * 12)(
         *(x.stride(i) for x in (q, k, v, out) for i in range(3)))
+    instance = _instance(q.dtype, d, _aligned(q, k, v, out))
     with torch.cuda.device(q.device):
         code = _lib().flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, hq, hkv, s, t, d, strides, int(causal), _DTYPES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            instance, torch.cuda.current_stream().cuda_stream)
     build.check("flash_attention", code)
     registry.count_launch(flash_attention_cuda)
     return out

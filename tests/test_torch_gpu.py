@@ -96,10 +96,12 @@ def test_flash_kernel_matches_plain(gen, dtype, causal, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t", [77, 130, 512])
 @pytest.mark.parametrize("shape", [(1, 32, 8, 128), (8, 32, 8, 128), (3, 4, 2, 64),
-                                   (2, 16, 1, 16)])
+                                   (2, 16, 1, 16), (1, 16, 1, 128)])
 def test_decode_kernel_matches_plain(gen, dtype, t, shape):
     """Any T (no block size that must divide it), GQA groups of 4, 2 and
-    16, lengths 0 (zeros, never NaN), 1, T and ragged values between."""
+    16, lengths 0 (zeros, never NaN), 1, T and ragged values between.  A
+    batch-1 lane has T - 5 keys, so at T 512 each of its cluster's 8 blocks
+    holds keys (at G 16 too: 8 x 16 maxima and sums in the combine)."""
     b, hq, hkv, d = shape
     lengths = ([0, 1, t] + [int(x) for x in np.linspace(2, t - 1, max(b - 3, 0))])[:b]
     if b == 1:
@@ -118,6 +120,89 @@ def test_decode_kernel_matches_plain(gen, dtype, t, shape):
     tol = TOLS[dtype]
     torch.testing.assert_close(out.float(), decode_ref(q, k, v, lens).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 257, 512])
+def test_flash_tensor_core_instance_at_tile_edges(gen, s, d, causal):
+    """The bf16 tensor-core instance at query counts on both sides of its
+    64-row tiles, in the model's strided layout."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    q, k, v = (torch.randn((2, s, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+               for h in (8, 2, 2))
+    assert flash_ops._instance(q.dtype, d, flash_ops._aligned(q, k, v)) == flash_ops._TENSOR_CORES
+    out = flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, causal=causal).float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 65, 300, 128), (2, 8, 1, 1, 129, 64),
+                                   (1, 4, 4, 130, 513, 32)])
+def test_flash_kernel_keys_beyond_queries(gen, dtype, shape):
+    """T > S without the causal mask: every query row sees all T keys,
+    including a ragged last key tile."""
+    b, hq, hkv, s, t, d = shape
+    q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, hkv, t, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    out = flash_attention_cuda(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, causal=False).float(),
+                               rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+def test_flash_misaligned_bf16_rows_take_the_cuda_cores(gen):
+    """bf16 rows that are not 16-byte aligned leave the tensor cores for the
+    CUDA-core instance and still match the plain version."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    wide = torch.randn((2, 64, 4, 132), generator=gen, device="cuda").bfloat16()
+    q = wide[..., 2:130].transpose(1, 2)
+    k = wide[:, :, :2, 2:130].transpose(1, 2)
+    assert not flash_ops._aligned(q, k, k)
+    out = flash_attention_cuda(q, k, k, causal=True)
+    torch.testing.assert_close(out.float(), attention_ref(q, k, k, causal=True).float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [4096, 8192])
+def test_decode_kernel_long_caches(gen, dtype, t):
+    """Caches past the cluster's capacity in one tile a block (8 x 64
+    keys): each block walks several tiles; lengths 0, 1 and T."""
+    b, hq, hkv, d = 3, 32, 8, 128
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, t, hkv, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    lens = torch.as_tensor([0, 1, t], dtype=torch.int32, device="cuda")
+    out = decode_attention_cuda(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and not out[0].any()
+    torch.testing.assert_close(out.float(), decode_ref(q, k, v, lens).float(),
+                               rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention"])
+def test_repeated_calls_are_bit_identical(gen, kernel):
+    """Fixed summation orders (no atomics; the decode cluster combines its
+    blocks in rank order): two calls give the same bits."""
+    if kernel == "flash_attention":
+        q, k, v = (torch.randn((4, 256, h, 128), generator=gen, device="cuda").bfloat16()
+                   .transpose(1, 2) for h in (32, 8, 8))
+        first, second = (flash_attention_cuda(q, k, v, causal=True) for _ in range(2))
+    else:
+        q = torch.randn((8, 32, 128), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((8, 512, 8, 128), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        lens = torch.as_tensor([0, 1, 512, 300, 64, 65, 129, 511], dtype=torch.int32,
+                               device="cuda")
+        first, second = (decode_attention_cuda(q, k, v, lens) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_decode_kernel_refuses_operands_outside_supports(gen):

@@ -152,13 +152,62 @@ def test_decode_ragged_lengths_match_jnp_ref_and_pallas(t):
 
 
 def test_decode_split_sizes_fill_the_card():
-    """Keys per block of the CUDA kernel at the main path's shapes: the
-    dense engine's 8 lanes and the batch-1 chunk side both get a few
-    hundred blocks, and never more than 128 keys a block."""
-    assert decode_ops._split(8, 8, 512) == 64     # 512 blocks
-    assert decode_ops._split(1, 8, 512) == 32     # 128 blocks
-    assert decode_ops._split(64, 8, 4096) == 128
-    assert decode_ops._split(1, 1, 7) == 32
+    """Cluster size and keys per block of the CUDA kernel: the dense
+    engine's 8 lanes get 256 blocks of 128 keys, the batch-1 chunk side the
+    cluster limit (8 blocks of 64 keys per kv head); a wide batch needs no
+    split, a short cache is not cut below 32 keys a block, and the blocks
+    of a cluster always cover the cache."""
+    assert decode_ops._cluster(8, 8, 512) == (4, 128)    # 256 blocks
+    assert decode_ops._cluster(1, 8, 512) == (8, 64)     # 64 blocks
+    assert decode_ops._cluster(1, 8, 8192) == (8, 1024)  # 16 tiles of 64 a block
+    assert decode_ops._cluster(64, 8, 4096) == (1, 4096)
+    assert decode_ops._cluster(1, 1, 7) == (1, 7)
+    assert decode_ops._cluster(2, 2, 130) == (4, 33)
+    for b, hkv, t in [(1, 1, 1), (3, 2, 77), (2, 1, 130), (1, 8, 4096), (8, 8, 8192)]:
+        c, kpb = decode_ops._cluster(b, hkv, t)
+        assert c in (1, 2, 4, 8) and c * kpb >= t > (c - 1) * kpb
+
+
+def test_flash_instance_choice():
+    """bf16 at D 64 or 128 with 16-byte aligned rows runs on the tensor
+    cores; float32 (TF32 would round its operands), bf16 at D 16 or 32 and
+    misaligned bf16 rows run on the CUDA cores."""
+    bf, f = torch.bfloat16, torch.float32
+    assert flash_ops._instance(bf, 128) == flash_ops._TENSOR_CORES
+    assert flash_ops._instance(bf, 64) == flash_ops._TENSOR_CORES
+    for dtype, d in [(f, 128), (f, 64), (f, 16), (bf, 32), (bf, 16)]:
+        assert flash_ops._instance(dtype, d) == flash_ops._CUDA_CORES
+    assert flash_ops._instance(bf, 128, aligned=False) == flash_ops._CUDA_CORES
+    q = torch.zeros(2, 64, 8, 128, dtype=bf).transpose(1, 2)
+    assert flash_ops._aligned(q, q)
+    assert not flash_ops._aligned(torch.zeros(2, 64, 9, 132, dtype=bf)[..., :128]
+                                  .transpose(1, 2))
+
+
+def test_kernel_library_hash_covers_headers_and_flags(tmp_path, monkeypatch):
+    """Editing a header that a source includes from csrc/, or a flag,
+    changes the library's path; a header it does not include does not."""
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    (csrc / "unused.cuh").write_text("// included by nothing\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert [p.name for p in build._sources("flash_attention")] == [
+        "flash_attention.cu", "common.cuh"]
+    before = {n: build._lib_path(n) for n in build.SOURCES}
+    (csrc / "unused.cuh").write_text("// still included by nothing\n")
+    assert {n: build._lib_path(n) for n in build.SOURCES} == before
+    with open(csrc / "common.cuh", "a") as fh:
+        fh.write("// edited\n")
+    after = {n: build._lib_path(n) for n in build.SOURCES}
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["decode_attention"] != before["decode_attention"]
+    assert after["ssd_scan"] == before["ssd_scan"]  # includes no csrc header
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-lineinfo"])
+    assert build._lib_path("ssd_scan") != after["ssd_scan"]
 
 
 # ------------------------------------------------------------------- flash
