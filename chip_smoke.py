@@ -8,21 +8,24 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build — compile the five CUDA kernels from ``src/repro_torch/csrc``
    with ``nvcc`` (one process per source, in parallel) and time it; log
-   ``ptxas``' registers and spills of the two attention kernels and the
-   SASS instruction mix of their main-path instances;
+   ``ptxas``' registers and spills of the three attention kernels and the
+   gather, and the SASS instruction mix of their main-path instances;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes in bf16 and at a small ragged float32 shape (the
    ``ssd_scan`` kernel: mamba2-1.3b's prefill shape in float32 and the
    reference's sweep shapes in float32 and bf16; ``batched_gather``: the
-   llama3-8b table and one training step's 4096 ids, N = 1 and ragged
-   shapes, bit for bit; ``flash_attention`` at the serving shape and the
-   trainer's, both instances at ragged shapes, bf16 at D 16 to 128;
-   ``decode_attention`` at the dense
-   engine's 8 lanes and the chunk side's 1), with the tolerance stated;
-   a repeated call of either attention kernel must give the same bits;
-   its time, the plain version's, one library call's as a yardstick
-   where one exists (never called by the port) and the least time the
-   card could take (``bound_ms``);
+   llama3-8b table and one training step's 4096 ids, N = 1, 16 steps'
+   65536 ids and ragged shapes, bit for bit, timed against
+   ``index_select`` at 4096 and 65536; ``flash_attention`` at the
+   serving shape and the trainer's, both instances at ragged shapes, bf16
+   at D 16 to 128; ``decode_attention`` at the dense engine's 8 lanes and
+   the chunk side's 1; ``paged_decode_attention`` beside
+   ``decode_attention`` on the same keys gathered dense, and the host time
+   of one call of each), with the tolerance stated; a repeated call of
+   any attention kernel must give the same bits; its time, the plain
+   version's, one library call's as a yardstick where one exists (never
+   called by the port) and the least time the card could take
+   (``bound_ms``);
 4. serving paths — llama3-8b at full width (32 layers, bf16, weights
    drawn from seed 0 on the card) served through
    ``ContinuousBatchingScheduler``, 32 new tokens a request, three paths,
@@ -55,7 +58,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    dispatch, a few decode ticks and one fused tick (a 64-token prompt
    chunk folded into the decode), then one mamba2 prefill dispatch and a
    few of its decode ticks: host wall time, device busy time, the kernels
-   that take the most of it, and ``ssd_scan``'s share of the prefill;
+   that take the most of it, ``paged_decode_attention``'s device time in
+   a decode tick and ``ssd_scan``'s share of the prefill;
 7. reduced check — the reduced llama3-8b in float32 served on the card
    with the kernels against the same model served on the CPU with the
    plain versions, on the synchronous paged path, the dense engine and
@@ -142,14 +146,17 @@ def phase_build():
     for name, path in libs.items():
         log(f"[build] {name}: {path.relative_to(ROOT)}")
     log(f"[build] {len(libs)} kernels built in {dt:.3f} s (nvcc in parallel)")
-    for name in ("flash_attention", "decode_attention"):
+    for name in _SASS_OF:
         _compiler_report(build, name, libs[name])
     torch.cuda.synchronize()
 
 
-# The instances whose SASS phase 2 summarises: the main path's bf16 ones.
+# The instances whose SASS phase 2 summarises: the main path's ones (bf16;
+# the gather's slices copy of int32 ids, as the trainer's tokens come).
 _SASS_OF = {"flash_attention": "flash_wgmma_kernelILi128EE",
-            "decode_attention": "decode_cluster_kernelI13__nv_bfloat16Li4ELi8E"}
+            "decode_attention": "decode_cluster_kernelI13__nv_bfloat16Li4ELi8E",
+            "paged_decode_attention": "paged_cluster_kernelI13__nv_bfloat16Li4ELi8E",
+            "batched_gather": "gather_slicesIiE"}
 
 
 def _compiler_report(build, name, lib):
@@ -160,7 +167,8 @@ def _compiler_report(build, name, lib):
     for line in build.ptxas_log(name).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_wgmma_kernel|flash_kernel|decode_cluster_kernel)(I\w*?)EEv",
+            k = re.search(r"(flash_wgmma_kernel|flash_kernel|decode_cluster_kernel|"
+                          r"paged_cluster_kernel|gather_rows|gather_slices)(I\w*?)EEv",
                           m.group(1))
             kernel = k.group(1) + k.group(2) if k else m.group(1)
         elif "spill" in line or "registers" in line:
@@ -311,7 +319,8 @@ def phase_kernels(timer):
         fail("paged_decode_attention float32: the length-0 lane is not zeros")
     _compare(f"paged_decode_attention f32 B=3 Hq=4 Hkv=2 D=64 lengths={small[4].tolist()}",
              small_out, paged_decode_ref(*small), 1e-4, 1e-4)
-    q, _kp, _vp, tabs, lens = args
+    _repeat("paged_decode_attention", lambda: paged_decode_attention_cuda(*args), out)
+    q, kp, vp, tabs, lens = args
     kv_tokens = int(lens.sum())
     nbytes = (q.numel() * 2 * 2                       # q in, out
               + 2 * kv_tokens * 8 * 128 * 2           # valid K and V rows
@@ -326,6 +335,27 @@ def phase_kernels(timer):
         plain_ms=timer.ms(lambda: paged_decode_ref(*args)),
         bound_ms=bound, bound_by=by, library_ms=None)
     log(f"[kernels] paged_decode_attention: {rows['paged_decode_attention']}")
+    # Yardstick, not a gate: the dense kernel on the same keys gathered
+    # into a (B, NP * ps, Hkv, D) cache, the same lengths.
+    kd, vd = (x[tabs.long()].reshape(8, 32 * 16, 8, 128) for x in (kp, vp))
+    _compare("decode_attention on the paged case's keys, gathered dense, vs paged plain",
+             decode_attention_cuda(q, kd, vd, lens), paged_decode_ref(*args), 1e-2, 1e-2)
+    log(f"[kernels] paged_decode_attention yardstick: decode_attention_cuda on the same "
+        f"keys and lengths {timer.ms(lambda: decode_attention_cuda(q, kd, vd, lens))!r} ms")
+    # Host time of one call (the wrapper, the tensor maps' encoding and the
+    # launch), the device left busy so no call waits for it.
+    for name, fn in (("paged_decode_attention_cuda", lambda: paged_decode_attention_cuda(*args)),
+                     ("decode_attention_cuda", lambda: decode_attention_cuda(q, kd, vd, lens))):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(Timer.SPIN_CYCLES * 20)
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host_us = (time.perf_counter() - t0) / 100 * 1e6
+        torch.cuda.synchronize()
+        log(f"[kernels] {name}: host time per call {host_us!r} us (mean of 100, enqueue only)")
+    del kd, vd
     torch.cuda.synchronize()
 
     # -- flash attention (causal prefill), same tolerances and reasons.  Two
@@ -554,7 +584,8 @@ def _batched_gather_kernel(timer, gen):
     log(f"[kernels] batched_gather N={ids.numel()} (library_ms: index_select, which is "
         f"also the plain version): {row}")
     log(f"[kernels] batched_gather N={ids.numel()}: {int(torch.unique(ids).numel())} "
-        f"distinct rows; ms / bound {row['ms'] / row['bound_ms']!r}")
+        f"distinct rows; ms / bound {row['ms'] / row['bound_ms']!r}; bound / ms "
+        f"{row['bound_ms'] / row['ms']!r}")
     # The step's 33.6 MB output fits in the 50 MB L2, whose write-back may
     # outlast the end event; 16 steps' ids write 537 MB, which it cannot hold.
     many = torch.as_tensor(np.concatenate([
@@ -1031,7 +1062,10 @@ def phase_profile(arch, params, ticks: int = 8):
         torch.cuda.synchronize()
         log(f"[profile] decode tick, 8 lanes, no profiler: "
             f"{(time.perf_counter() - t0) / ticks * 1e3!r} ms wall (mean of {ticks})")
-        _window(f"decode tick, 8 lanes (mean of {ticks})", eng.decode_tick, ticks)
+        rows = _window(f"decode tick, 8 lanes (mean of {ticks})", eng.decode_tick, ticks)
+        paged = [(ms, c) for key, ms, c in rows if "paged_cluster_kernel" in key]
+        log(f"[profile] decode tick: paged_decode_attention {sum(ms for ms, _c in paged)!r} "
+            f"ms device time in {sum(c for _ms, c in paged)} launches per tick")
         # One fused tick of the asynchronous path: the 8 lanes' paged decode
         # plus a 64-token prompt chunk fed through the dense decode path.
         prompt = np.random.default_rng(2).integers(

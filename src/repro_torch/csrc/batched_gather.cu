@@ -10,22 +10,29 @@
 // checked on the device or read back to the host.
 //
 // What bounds it on the H100: device-memory bytes.  It does no arithmetic;
-// it reads N rows and the ids once and writes N rows, so the least time is
-// (2 * N * D * elt + N * id_bytes) over 3.35 TB/s: at the training shape
-// (N 4096 tokens, D 4096, bf16) 67.1 MB + 16 KB, 0.0200 ms.
+// it writes N rows and reads each distinct row once (a repeated id's row
+// comes from L2), so the least time is ((distinct + N) * D * elt +
+// N * id_bytes) over 3.35 TB/s: at the training shape (N 4096 tokens of
+// one SyntheticLMStream step, 348 of them distinct, D 4096, bf16) 36.4 MB,
+// 0.01087 ms.  What it costs in practice is writing the output: every
+// output line takes an L2 line whose dirty victim goes back to device
+// memory, and a launch of any size pays a few microseconds before its
+// first store.
 //
-// What the design does about it:
-// * the Pallas kernel keeps 8 row DMAs in flight from scalar-prefetched ids;
-//   here one warp copies one row at a time (grid-stride over rows), and
-//   each lane issues four independent 16-byte loads before its four stores,
-//   so a block of 8 warps keeps 8 rows x 2 KB in flight and the launch puts
-//   every row of N = 4096 in flight at once;
-// * 16-byte vectors when the row's byte length and both base pointers
-//   allow it (D * elt % 16 == 0: D a multiple of 4 in float32, of 8 in
-//   bf16); otherwise one element per lane and load (4 or 2 bytes);
-// * the copy moves bytes and never converts, so the result is bit-exact;
-// * row offsets are 64-bit: 128256 x 4096 elements exceed 2^31.
-// Left for later: a TMA or cp.async.bulk row copy.
+// What the design does about it.  A 16-byte-aligned row (D * elt % 16 == 0
+// and both base pointers aligned: D a multiple of 4 in float32, of 8 in
+// bf16) is cut into slices of up to 8 KB, and a block copies one (row,
+// slice): each of its threads loads two 16-byte units, then stores them
+// with streaming stores (st.global.cs: the output's lines are the L2's
+// first to leave) and exits.  Blocks start and retire in row order, so the
+// grid writes a compact window that moves through the output.  On the
+// H100 this beat a warp a row (four or sixteen loads in flight a lane, with
+// or without streaming stores, on a grid of whole waves) and a TMA bulk
+// copy through shared memory, at N 4096 and at N 65536 (PERF.md).  Any
+// other row takes the element-wise copy: one warp a row, one element per
+// lane and load (4 or 2 bytes), four loads in flight before their stores.
+// In both, the copy moves bytes and never converts, so the result is
+// bit-exact, and row offsets are 64-bit: 128256 x 4096 elements exceed 2^31.
 //
 // C interface for ctypes: returns cudaGetLastError() after the launch, or
 // a negative code for arguments it refuses.
@@ -37,11 +44,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;
+constexpr int kUnroll = 4;         // loads a lane has in flight (element-wise copy)
 constexpr long long kMaxBlocks = 1 << 20;
+constexpr int kSliceUnits = 2;     // 16-byte units a slices thread moves
 
-// V: the unit one lane moves per load (uint4 = 16 bytes, or one element);
-// Idx: int32_t or int64_t.  row_units = D * elt / sizeof(V).
+// The element-wise copy.  V: one element (uint32_t or uint16_t); Idx:
+// int32_t or int64_t.  row_units = D.
 template <typename V, typename Idx>
 __global__ void __launch_bounds__(kThreads)
 gather_rows(const V* __restrict__ table, const Idx* __restrict__ ids, V* __restrict__ out,
@@ -64,9 +72,34 @@ gather_rows(const V* __restrict__ table, const Idx* __restrict__ ids, V* __restr
   }
 }
 
+// Block bi copies slice bi % slices of row bi / slices: blockDim.x threads,
+// each kSliceUnits 16-byte units a blockDim.x apart, all loaded before any
+// is stored (streaming stores).  A grid-stride loop covers grids larger
+// than the launch's.
+template <typename Idx>
+__global__ void __launch_bounds__(kThreads)
+gather_slices(const uint4* __restrict__ table, const Idx* __restrict__ ids,
+              uint4* __restrict__ out, long long n_blocks, int slices, long long row_units) {
+  const int t = blockDim.x;
+  for (long long bi = blockIdx.x; bi < n_blocks; bi += gridDim.x) {
+    const long long r = bi / slices;
+    const long long u0 = (bi - r * slices) * (static_cast<long long>(t) * kSliceUnits) +
+                         threadIdx.x;
+    const uint4* src = table + static_cast<long long>(ids[r]) * row_units;
+    uint4* dst = out + r * row_units;
+    uint4 v[kSliceUnits];
+#pragma unroll
+    for (int k = 0; k < kSliceUnits; ++k)
+      if (u0 + k * t < row_units) v[k] = src[u0 + k * t];
+#pragma unroll
+    for (int k = 0; k < kSliceUnits; ++k)
+      if (u0 + k * t < row_units) __stcs(dst + u0 + k * t, v[k]);
+  }
+}
+
 template <typename V, typename Idx>
-int launch(const void* table, const void* ids, void* out, long long n, long long row_units,
-           cudaStream_t s) {
+int launch_rows(const void* table, const void* ids, void* out, long long n,
+                long long row_units, cudaStream_t s) {
   long long blocks = (n + kWarps - 1) / kWarps;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   gather_rows<V, Idx><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
@@ -76,12 +109,29 @@ int launch(const void* table, const void* ids, void* out, long long n, long long
 }
 
 template <typename Idx>
+int launch_slices(const void* table, const void* ids, void* out, long long n,
+                  long long row_units, cudaStream_t s) {
+  // Threads a block: enough warps for the row's units, at most kThreads.
+  const long long per_thread = (row_units + kSliceUnits - 1) / kSliceUnits;
+  const int threads = static_cast<int>(per_thread >= kThreads ? kThreads
+                                                              : (per_thread + 31) / 32 * 32);
+  const long long slices = (row_units + threads * kSliceUnits - 1) / (threads * kSliceUnits);
+  if (slices > 0x7fffffffLL) return -1;
+  const long long n_blocks = n * slices;
+  const long long blocks = n_blocks < 0x7fffffffLL ? n_blocks : 0x7fffffffLL;
+  gather_slices<Idx><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+      static_cast<const uint4*>(table), static_cast<const Idx*>(ids), static_cast<uint4*>(out),
+      n_blocks, static_cast<int>(slices), row_units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Idx>
 int launch_unit(const void* table, const void* ids, void* out, long long n,
                 long long row_bytes, int unit, cudaStream_t s) {
   switch (unit) {
-    case 16: return launch<uint4, Idx>(table, ids, out, n, row_bytes / 16, s);
-    case 4: return launch<uint32_t, Idx>(table, ids, out, n, row_bytes / 4, s);
-    case 2: return launch<uint16_t, Idx>(table, ids, out, n, row_bytes / 2, s);
+    case 16: return launch_slices<Idx>(table, ids, out, n, row_bytes / 16, s);
+    case 4: return launch_rows<uint32_t, Idx>(table, ids, out, n, row_bytes / 4, s);
+    case 2: return launch_rows<uint16_t, Idx>(table, ids, out, n, row_bytes / 2, s);
     default: return -3;
   }
 }

@@ -1,7 +1,8 @@
 // Helpers shared by the port's attention kernels: float conversions,
 // 16-byte asynchronous copies from device memory into shared memory
 // (cp.async), and Hopper's tensor memory accelerator (TMA): bulk tensor
-// copies that complete on an mbarrier, and libcuda's tensor-map encoder.
+// copies that complete on an mbarrier, and libcuda's tensor-map encoder;
+// on the host, the once-per-device shared-memory attribute.
 #pragma once
 
 #include <cuda.h>
@@ -9,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace repro {
 
@@ -104,19 +107,25 @@ inline EncodeTiled encode_tiled() {
 
 // Raise kernel K's dynamic shared memory limit to at least `bytes` on the
 // current device, once: cudaFuncSetAttribute on every launch would cost
-// host time on the serving path's every layer.
+// host time on the serving path's every layer.  The check and the set are
+// one step under a lock: the scheduler's speculation thread and the main
+// thread launch the same instances, and two unlocked callers could land
+// their settings in either order, the smaller last while the larger is
+// recorded, so that later launches needing the larger one were refused.
+// Under the lock the attribute only ever grows.
 template <auto K>
 inline cudaError_t configure_kernel(int bytes) {
   constexpr int kMaxDevices = 64;
-  // Racing threads at worst both set the same attribute.
+  static std::mutex mu;
   static int set_bytes[kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const bool known = dev < kMaxDevices;
+  std::lock_guard<std::mutex> lock(mu);
   if (known && set_bytes[dev] >= bytes) return cudaSuccess;
   e = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess && known) set_bytes[dev] = bytes > set_bytes[dev] ? bytes : set_bytes[dev];
+  if (e == cudaSuccess && known) set_bytes[dev] = bytes;
   return e;
 }
 

@@ -60,8 +60,15 @@ def _paged(gen, b, hq, hkv, d, ps, np_, dtype, lengths):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 32, 8, 128, 16, 32), (3, 4, 2, 64, 16, 5),
-                                   (2, 8, 1, 32, 8, 3)])
+                                   (2, 8, 1, 32, 8, 3), (4, 64, 4, 256, 16, 6),
+                                   (8, 8, 2, 128, 8, 16), (8, 8, 2, 128, 32, 8),
+                                   (4, 8, 2, 40, 12, 6), (4, 8, 2, 36, 5, 9)])
 def test_paged_kernel_matches_plain(gen, dtype, shape):
+    """The serving shape and two small ones, a group of 16 at D 256, pages
+    of 8, 16 and 32 keys (boxes of 8 and 16 keys), pages of 12 keys at D
+    40 (boxes of 4 keys: 640 bytes in float32, TMA; 320 in bf16, not a
+    128-byte multiple, so the element-wise copy) and of 5 keys at D 36
+    (boxes of one row, 144 or 72 bytes: the element-wise copy)."""
     b, hq, hkv, d, ps, np_ = shape
     lengths = [0] + [int(x) for x in np.linspace(1, np_ * ps, b - 1)]
     args = _paged(gen, b, hq, hkv, d, ps, np_, dtype, lengths)
@@ -73,6 +80,99 @@ def test_paged_kernel_matches_plain(gen, dtype, shape):
     assert not out[0].any()  # the length-0 lane: zeros, never NaN
     tol = TOLS[dtype]
     torch.testing.assert_close(out.float(), paged_decode_ref(*args).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_paged_kernel_lengths_at_page_and_block_edges(gen, dtype, ps):
+    """Lengths 0, 1, a page boundary -1, 0 and +1, the whole table and one
+    that ends inside the last block of its cluster; every table entry at
+    or past ceil(length / ps) points at the trash page P - 1, filled with
+    large values that would show if any of its rows were attended; a
+    repeated call gives the same bits."""
+    from repro_torch.kernels.paged_attention.ops import _cluster
+
+    b, hq, hkv, d, np_ = 8, 8, 2, 128, 8
+    c, kpb = _cluster(b, hkv, np_, ps)
+    assert c > 1  # the last block of a cluster below starts at (c - 1) * kpb
+    lengths = [0, 1, ps - 1, ps, ps + 1, np_ * ps, (c - 1) * kpb + ps // 2 + 1, 3 * ps]
+    q, kp, vp, tabs, lens = _paged(gen, b, hq, hkv, d, ps, np_, dtype, lengths)
+    kp, vp = (torch.cat([x, torch.full_like(x[:1], 1e3)]) for x in (kp, vp))
+    trash = kp.shape[0] - 1  # in no table's first ceil(length / ps) entries
+    pages = (lens.long() + ps - 1) // ps
+    tabs = torch.where(torch.arange(np_, device="cuda")[None, :] < pages[:, None], tabs,
+                       torch.full_like(tabs, trash))
+    assert bool((tabs == trash).any())
+    out = paged_decode_attention_cuda(q, kp, vp, tabs, lens)
+    again = paged_decode_attention_cuda(q, kp, vp, tabs, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert bool(torch.isfinite(out).all()) and not out[0].any()
+    tol = TOLS[dtype]
+    torch.testing.assert_close(out.float(), paged_decode_ref(q, kp, vp, tabs, lens).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_paged_kernel_refuses_operands_outside_supports(gen):
+    """Float lengths or block tables, a group of 32 query heads, D above
+    256, strided pages and mixed dtypes raise ValueError on the card;
+    nothing is launched."""
+    q = torch.zeros((2, 8, 64), device="cuda")
+    kp = torch.zeros((9, 16, 2, 64), device="cuda")
+    tabs = torch.ones((2, 4), dtype=torch.int32, device="cuda")
+    lens = torch.ones(2, dtype=torch.int32, device="cuda")
+    strided = kp.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.zeros((9, 16, 2, 512), device="cuda")
+    registry.reset_launches()
+    bad = [
+        (q, kp, kp, tabs, lens.float()),                              # float lengths
+        (q, kp, kp, tabs.float(), lens),                              # float tables
+        (torch.zeros((2, 64, 64), device="cuda"), kp, kp, tabs, lens),  # G = 32
+        (torch.zeros((2, 8, 512), device="cuda"), wide, wide, tabs, lens),  # D > 256
+        (q, strided, strided, tabs, lens),                            # strided pages
+        (q.bfloat16(), kp, kp, tabs, lens),                           # mixed dtypes
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            registry.dispatch("paged_decode_attention", args)
+    assert registry.launch_counts() == {n: 0 for n in registry.names()}
+
+
+def test_configure_kernel_from_two_threads(gen):
+    """Two threads launch one kernel instance (paged decode, bf16 rows
+    that are not 16-byte multiples, a group of 12: used by no other test
+    here, so its shared-memory attribute is first set inside this test)
+    at two shared-memory sizes, D 36 and D 100, many times and at once:
+    no launch is refused and every output equals the plain version."""
+    import sys
+    import threading
+
+    cases = [_paged(gen, 2, 12, 1, d, 8, 4, torch.bfloat16, [5, 32]) for d in (36, 100)]
+    wants = [paged_decode_ref(*a).float() for a in cases]
+    errors = []
+
+    def run(order):
+        try:
+            for _ in range(50):
+                for i in order:
+                    got = paged_decode_attention_cuda(*cases[i])
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got.float(), wants[i], rtol=1e-2, atol=1e-2)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(o,)) for o in ((0, 1), (1, 0))]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -186,11 +286,16 @@ def test_decode_kernel_long_caches(gen, dtype, t):
                                rtol=TOLS[dtype], atol=TOLS[dtype])
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention",
+                                    "paged_decode_attention"])
 def test_repeated_calls_are_bit_identical(gen, kernel):
-    """Fixed summation orders (no atomics; the decode cluster combines its
-    blocks in rank order): two calls give the same bits."""
-    if kernel == "flash_attention":
+    """Fixed summation orders (no atomics; the decode clusters combine
+    their blocks in rank order): two calls give the same bits."""
+    if kernel == "paged_decode_attention":
+        args = _paged(gen, 8, 32, 8, 128, 16, 32, torch.bfloat16,
+                      [0, 1, 512, 300, 64, 65, 129, 511])
+        first, second = (paged_decode_attention_cuda(*args) for _ in range(2))
+    elif kernel == "flash_attention":
         q, k, v = (torch.randn((4, 256, h, 128), generator=gen, device="cuda").bfloat16()
                    .transpose(1, 2) for h in (32, 8, 8))
         first, second = (flash_attention_cuda(q, k, v, causal=True) for _ in range(2))
@@ -437,19 +542,35 @@ def test_reduced_mamba2_served_on_card_matches_cpu(gen, overlap):
 V_FULL = 128256  # llama3-8b's vocabulary: row offsets beyond 2^31 elements
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 7, 4096])
-@pytest.mark.parametrize("d", [8, 64, 4096])
-def test_batched_gather_kernel_matches_plain(gen, dtype, n, d):
-    """Bit-exact against the plain version on the full 128256-row table,
-    with the last row among the ids (its offset needs 64-bit arithmetic at
-    D = 4096)."""
+_GATHER_CASES = [
+    pytest.param(V_FULL, d, n, dtype, torch.int32, False, id=f"{name}-n{n}-d{d}")
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))
+    for n in (1, 7, 4096) for d in (8, 64, 4096)
+] + [
+    pytest.param(3000, 4104, 4095, torch.bfloat16, torch.int64, False, id="ragged"),
+    pytest.param(V_FULL, 4096, 65536, torch.bfloat16, torch.int32, False, id="beyond_l2"),
+    pytest.param(1000, 64, 1000, torch.float32, torch.int32, True, id="unaligned"),
+]
+
+
+@pytest.mark.parametrize("v, d, n, dtype, id_dtype, unaligned", _GATHER_CASES)
+def test_batched_gather_kernel_matches_plain(gen, v, d, n, dtype, id_dtype, unaligned):
+    """Bit-exact against the plain version, with the last row among the
+    ids: on the full 128256-row table (its last row's offset needs 64-bit
+    arithmetic at D = 4096) at 1, 7 and 4096 ids; N not a multiple of the
+    rows a block takes, with int64 ids and rows of two slices (D 4104
+    bf16, 8208 bytes); N 65536 at the llama3-8b table's width (an output
+    beyond L2); a table view that is contiguous but not 16-byte aligned
+    (the element-wise copy)."""
     from repro_torch.kernels.batched_gather.ops import batched_gather_cuda
     from repro_torch.kernels.batched_gather.ref import gather_ref
 
-    table = torch.randn((V_FULL, d), generator=gen, device="cuda").to(dtype)
-    ids = torch.randint(0, V_FULL, (n,), generator=gen, device="cuda", dtype=torch.int32)
-    ids[-1] = V_FULL - 1
+    table = torch.randn((v, d), generator=gen, device="cuda").to(dtype)
+    if unaligned:
+        table = torch.randn((v * d + 1,), generator=gen, device="cuda")[1:].view(v, d)
+        assert table.is_contiguous() and table.data_ptr() % 16 != 0
+    ids = torch.randint(0, v, (n,), generator=gen, device="cuda").to(id_dtype)
+    ids[-1] = v - 1
     got = batched_gather_cuda(table, ids)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (n, d)

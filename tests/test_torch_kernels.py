@@ -168,6 +168,53 @@ def test_decode_split_sizes_fill_the_card():
         assert c in (1, 2, 4, 8) and c * kpb >= t > (c - 1) * kpb
 
 
+def test_paged_split_sizes_fill_the_card():
+    """Cluster size and keys per block of the paged kernel: the dense
+    kernel's rule in whole pages.  The serving shape (8 lanes, 8 kv heads,
+    32 pages of 16) gets 256 blocks of 128 keys, as the dense kernel at T
+    512; one lane the cluster limit; a wide batch no split; a block never
+    gets fewer than 32 keys or no page at all; the blocks' page-aligned
+    ranges always cover the table."""
+    split = paged_ops._cluster
+    assert split(8, 8, 32, 16) == (4, 128) == decode_ops._cluster(8, 8, 512)
+    assert split(1, 8, 32, 16) == (8, 64)
+    assert split(64, 8, 32, 16) == (1, 512)
+    assert split(3, 2, 5, 16) == (2, 48)   # a third block would be empty
+    assert split(2, 1, 3, 8) == (1, 24)    # 12 keys a block would be too few
+    assert split(8, 2, 8, 32) == (8, 32)
+    for b, hkv, np_, ps in [(1, 1, 1, 1), (3, 2, 5, 16), (2, 1, 3, 8), (1, 8, 256, 16),
+                            (8, 8, 32, 16), (4, 4, 6, 16), (8, 2, 16, 8), (1, 1, 7, 5)]:
+        c, kpb = split(b, hkv, np_, ps)
+        assert c in (1, 2, 4, 8) and kpb % ps == 0
+        assert c * kpb >= np_ * ps > (c - 1) * kpb
+
+
+_PAGED_SHAPES = [(8, 32, 8, 128, 16, 32), (3, 4, 2, 64, 16, 5), (2, 8, 1, 32, 8, 3),
+                 (4, 64, 4, 256, 16, 6), (8, 8, 2, 128, 32, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _PAGED_SHAPES)
+def test_paged_supports_takes_integer_tables_and_lengths(dtype, shape):
+    """The paged kernel takes the serving shape and two small ones, a
+    group of 16 at D 256 and pages of 32, in float32 and bf16, with int32
+    or int64 tables and lengths; not float tables or lengths, a group of
+    32 or D 512."""
+    b, hq, hkv, d, ps, np_ = shape
+    q = torch.zeros(b, hq, d, dtype=dtype)
+    kp = torch.zeros(b * np_ + 1, ps, hkv, d, dtype=dtype)
+    tabs = torch.zeros(b, np_, dtype=torch.int32)
+    lens = torch.zeros(b, dtype=torch.int32)
+    ok = paged_ops._supports
+    assert ok(q, kp, kp, tabs, lens) and ok(q, kp, kp, tabs.long(), lens.long())
+    assert not ok(q, kp, kp, tabs, lens.float())
+    assert not ok(q, kp, kp, tabs.to(dtype), lens)
+    wide_g = torch.zeros(b, 32 * hkv, d, dtype=dtype)
+    assert not ok(wide_g, kp, kp, tabs, lens)
+    wide_d = torch.zeros(b * np_ + 1, ps, hkv, 512, dtype=dtype)
+    assert not ok(torch.zeros(b, hq, 512, dtype=dtype), wide_d, wide_d, tabs, lens)
+
+
 def test_flash_instance_choice():
     """bf16 at D 64 or 128 with 16-byte aligned rows runs on the tensor
     cores; float32 (TF32 would round its operands), bf16 at D 16 or 32 and
