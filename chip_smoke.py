@@ -42,30 +42,48 @@ Phases, each ending in ``torch.cuda.synchronize()``:
       fed through the decode path x 32, and no speculation crash;
    c. dense — ``InferenceEngine`` with the main path's requests:
       ``decode_attention`` = decode steps x 32;
+   d. prefix — ``prefix_share=True``, 16 prompts of one 192-token prefix
+      and a tail of 8-40 tokens: later requests alias the 12 resident
+      prefix pages and feed their tails through ``_shared_tail``
+      (``decode_attention`` = tail tokens x 32); then the same traffic
+      unshared, which must move more KV bytes;
+   e. spill — 128 pages (half of full provisioning), a host spill pool,
+      phase a's prompts with 160 new tokens each: lanes evicted under
+      page pressure and restored, streams equal token for token to the
+      same traffic at full provisioning;
    then mamba2-1.3b at full width (48 layers, bf16, weights drawn from
    seed 0 on the card) through ``InferenceEngine(n_lanes=8,
    max_prompt_len=2048, max_len=2080)``:
-   d. ssm — the synchronous path, 16 requests of 300-2000 tokens:
+   f. ssm — the synchronous path, 16 requests of 300-2000 tokens:
       ``ssd_scan`` = prefill dispatches x 48, no other kernel;
-   e. ssm-async — ``overlap=True, chunk_tokens=1024``, 14 prompts of
+   g. ssm-async — ``overlap=True, chunk_tokens=1024``, 14 prompts of
       300-1000 tokens and 2 of 1056-1152 (their tails fed through the
       recurrent decode): ``ssd_scan`` = prefill dispatches x 48, no
       speculation crash;
+   h. ssm-paged — the ``ssm`` traffic on ``PagedInferenceEngine``'s
+      dense-compute mode with a spill pool and ``lane_timeout``: every
+      lane spilled and restored whole, streams equal to phase f's;
 5. checks — first prefill and first decode tick of the full-width
-   llama3-8b, and the first full-width mamba2 prefill, kernel path
-   against the plain path on the same weights and batch;
+   llama3-8b, a prefix hit's ``_shared_tail`` logits against a flash
+   prefill of the whole prompt, and the first full-width mamba2
+   prefill, kernel path against the plain path on the same weights and
+   batch;
 6. profile — ``torch.profiler`` over one full-width llama3-8b prefill
-   dispatch, a few decode ticks and one fused tick (a 64-token prompt
-   chunk folded into the decode), then one mamba2 prefill dispatch and a
+   dispatch, a few decode ticks, one fused tick (a 64-token prompt chunk
+   folded into the decode) and one ``_shared_tail`` beside a flash
+   prefill of the same prompt, then one mamba2 prefill dispatch and a
    few of its decode ticks: host wall time, device busy time, the kernels
    that take the most of it, ``paged_decode_attention``'s device time in
-   a decode tick and ``ssd_scan``'s share of the prefill;
+   a decode tick, ``decode_attention``'s in the tail and ``ssd_scan``'s
+   share of the prefill;
 7. reduced check — the reduced llama3-8b in float32 served on the card
    with the kernels against the same model served on the CPU with the
-   plain versions, on the synchronous paged path, the dense engine and
-   the overlap + chunk paged path; the reduced mamba2 the same way on the
-   dense engine, synchronous and overlap + chunk (per-request greedy
-   streams and the engine's counters must be equal);
+   plain versions, on the synchronous paged path, the dense engine, the
+   overlap + chunk paged path, prefix sharing and an oversubscribed pool
+   with spill; the reduced mamba2 the same way on the dense engine,
+   synchronous and overlap + chunk, and on the paged engine's
+   dense-compute mode with spills (per-request greedy streams and the
+   engine's counters must be equal);
 8. train — the trainer at full width, after the serving phases: llama3-8b
    (bf16, depth cut to 4 of 32 layers, ``query_embedding=True``,
    ``remat=False``) through ``make_train_step(..., TrainStepConfig(
@@ -786,6 +804,149 @@ def phase_dense(arch, params, device="cuda"):
     return launches
 
 
+def _prefix_requests(Request, vocab: int, n: int = 16, max_new: int = 32):
+    """``n`` prompts: one common 192-token prefix (12 pages of 16, a
+    shared system prompt) and a tail of 8-40 tokens each, from
+    ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, vocab, size=192)
+    tails = rng.integers(8, 41, size=n)
+    return [Request(rid=i, prompt=np.concatenate(
+                [prefix, rng.integers(0, vocab, size=int(t))]).astype(np.int32),
+                    max_new_tokens=max_new) for i, t in enumerate(tails)]
+
+
+def _ttft_ms(reqs) -> str:
+    if not reqs:
+        return "none"
+    ttft = sorted(r.metrics.ttft * 1e3 for r in reqs)
+    return f"p50 {float(np.median(ttft))!r} ms, max {ttft[-1]!r} ms ({len(reqs)} requests)"
+
+
+def phase_prefix(arch, params, device="cuda"):
+    """A chat service whose requests share one system prompt: the paged
+    engine with ``prefix_share=True`` on the synchronous path.  The first
+    request prefills whole (flash); every later one aliases the 12
+    resident prefix pages and feeds only its tail through ``_shared_tail``
+    (one ``decode_step``, so one ``decode_attention`` launch a layer, per
+    tail token).  The same traffic then runs unshared.  Returns the two
+    runs' launch counts."""
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    L = arch.cfg.n_layers
+    out, streams, moved = {}, {}, {}
+    for label, share in (("prefix", True), ("prefix-unshared", False)):
+        eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256, max_len=512,
+                                   page_size=16, prefix_share=share, device=device)
+        sched = ContinuousBatchingScheduler(
+            eng, strategy=GrowingUpperThreshold(initial_upper=2))
+        n_prefill = _count_calls(eng, "_prefill")
+        hit_rids = []
+        _count_calls(eng, "_admit_prefix_hit", lambda r, *_a: hit_rids.append(r.rid) or 1)
+        tail = _count_calls(eng, "_shared_tail", lambda _i, toks, _s: int(toks.shape[1]))
+        reqs = _prefix_requests(Request, arch.cfg.vocab_size)
+        out[label], wall = _drive(label, eng, sched, reqs, device)
+        streams[label] = [r.generated for r in reqs]
+        moved[label] = eng.kv_bytes_moved
+        hits = [r for r in reqs if r.rid in hit_rids]
+        misses = [r for r in reqs if r.rid not in hit_rids]
+        log(f"[{label}] prefix_hits {eng.prefix_hits} (scheduler {sched.stats.prefix_hits}), "
+            f"prefill_flops_saved / prefill_flops_total {eng.prefill_flops_saved} / "
+            f"{eng.prefill_flops_total} = "
+            f"{eng.prefill_flops_saved / max(1, eng.prefill_flops_total)!r}; kv_bytes_moved "
+            f"{eng.kv_bytes_moved}; prefill dispatches {n_prefill[0]}, tail tokens through "
+            f"_shared_tail {tail[0]}; TTFT hits {_ttft_ms(hits)}, misses {_ttft_ms(misses)}")
+        if eng.dispatches != n_prefill[0] + eng.prefix_hits + eng.decode_steps:
+            fail(f"{label}: dispatches != prefills + prefix hits + decode ticks")
+        _expect(label, out[label], {"flash_attention": n_prefill[0] * L,
+                                    "decode_attention": tail[0] * L,
+                                    "paged_decode_attention": eng.decode_steps * L,
+                                    "ssd_scan": 0})
+        if share and (eng.prefix_hits < 1 or sched.stats.prefix_hits != eng.prefix_hits):
+            fail("prefix: no prefix hit, or the scheduler's count differs from the engine's")
+    if moved["prefix"] >= moved["prefix-unshared"]:
+        fail("prefix: sharing did not move fewer KV bytes than the unshared run")
+    a, b = streams["prefix"], streams["prefix-unshared"]
+    log(f"[prefix] against the unshared run: first tokens equal in "
+        f"{sum(x[0] == y[0] for x, y in zip(a, b))}/{len(a)} requests, whole streams in "
+        f"{sum(x == y for x, y in zip(a, b))}/{len(a)} (bf16: near-ties may differ; not "
+        f"gated); kv_bytes_moved {moved['prefix']} against {moved['prefix-unshared']}")
+    _sync(device)
+    return out
+
+
+def phase_spill(arch, params, device="cuda", n_pages: int = 128):
+    """Long generations that outgrow an oversubscribed pool: 128 pages,
+    half of full provisioning, a host spill pool of 16 entries, and phase
+    4's prompts with 160 new tokens each (a lane grows to about 23
+    pages).  Growth evicts the least-recently-touched lane to the host;
+    the scheduler re-queues it and its restore resumes it.  The same
+    traffic then runs at full provisioning with no spill pool, and the
+    greedy streams must be equal token for token (evict/restore = no
+    evict).  Both runs admit one request a prefill (``PureAsync``), so
+    every prompt is prefilled at the same shape in both: bf16 matrix
+    products of different batch shapes may round differently, and random
+    weights have near-ties.  Returns the two runs' launch counts."""
+    from repro_torch.core.strategies import PureAsync
+    from repro_torch.serving.engine import HostSpillPool
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    L = arch.cfg.n_layers
+    out, streams = {}, {}
+    for label, kw in (("spill", dict(n_pages=n_pages, kv_spill=HostSpillPool(16),
+                                     prefetch_pages=2)),
+                      ("spill-full", {})):
+        eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256, max_len=512,
+                                   page_size=16, device=device, **kw)
+        sched = ContinuousBatchingScheduler(eng, strategy=PureAsync())
+        n_prefill = _count_calls(eng, "_prefill")
+        moved = {"spilled": 0, "restored": 0}
+        if eng.kv_spill is not None:
+            put = eng.kv_spill.put
+
+            def counted_put(key, template, entry):
+                moved["spilled"] += sum(t.element_size() * t.numel()
+                                        for t in _leaves(entry["rows"]))
+                return put(key, template, entry)
+
+            eng.kv_spill.put = counted_put
+            write = eng._write_rows
+
+            def counted_write(*args, **kwargs):
+                before = eng.kv_bytes_moved
+                write(*args, **kwargs)
+                moved["restored"] += eng.kv_bytes_moved - before
+
+            eng._write_rows = counted_write
+        reqs = _requests(Request, arch.cfg.vocab_size, max_new=160)
+        out[label], wall = _drive(label, eng, sched, reqs, device)
+        streams[label] = [r.generated for r in reqs]
+        st = sched.stats
+        log(f"[{label}] n_pages {eng.n_pages} ({eng.n_lanes * eng.pages_per_lane} at full "
+            f"provisioning); page_evictions {eng.page_evictions}, kv_spilled "
+            f"{st.kv_spilled}, kv_restored {st.kv_restored}; bytes to the host "
+            f"{moved['spilled']}, back to the card {moved['restored']}; kv_bytes_moved "
+            f"{eng.kv_bytes_moved}; prefill dispatches {n_prefill[0]}")
+        _expect(label, out[label], {"paged_decode_attention": eng.decode_steps * L,
+                                    "flash_attention": n_prefill[0] * L,
+                                    "decode_attention": 0, "ssd_scan": 0})
+        if label == "spill" and not (eng.page_evictions >= 1
+                                     and st.kv_restored == st.kv_spilled >= 1):
+            fail("spill: need page_evictions >= 1 and kv_restored == kv_spilled >= 1")
+    same = sum(a == b for a, b in zip(streams["spill"], streams["spill-full"]))
+    log(f"[spill] greedy streams equal to the full-provisioning run in "
+        f"{same}/{len(streams['spill'])} requests")
+    if same != len(streams["spill"]):
+        fail("spill: evict/restore changed a greedy stream")
+    _sync(device)
+    return out
+
+
 def _ssm_requests(Request, vocab: int, max_new: int = 32):
     """16 prompts of 300-2000 tokens from ``default_rng(0)``."""
     rng = np.random.default_rng(0)
@@ -828,8 +989,8 @@ def phase_ssm(arch, params, device="cuda"):
     shapes = []  # the padded (batch, prompt) bucket of each prefill
     n_prefill = _count_calls(eng, "_prefill",
                              lambda toks, _p: shapes.append(tuple(toks.shape)) or 1)
-    launches, wall = _drive("ssm", eng, sched, _ssm_requests(Request, arch.cfg.vocab_size),
-                            device)
+    reqs = _ssm_requests(Request, arch.cfg.vocab_size)
+    launches, wall = _drive("ssm", eng, sched, reqs, device)
     if eng.decode_steps == 0 or n_prefill[0] == 0:
         fail("ssm: the path ran no decode step or no prefill")
     if eng.dispatches != n_prefill[0] + eng.decode_steps:
@@ -838,7 +999,7 @@ def phase_ssm(arch, params, device="cuda"):
     _expect("ssm", launches, {"ssd_scan": n_prefill[0] * L, "flash_attention": 0,
                               "decode_attention": 0, "paged_decode_attention": 0})
     _sync(device)
-    return launches, wall
+    return launches, wall, [r.generated for r in reqs]
 
 
 def phase_ssm_async(arch, params, device="cuda", chunk: int = 1024):
@@ -873,6 +1034,48 @@ def phase_ssm_async(arch, params, device="cuda", chunk: int = 1024):
     if eng.dispatches != n_prefill[0] + n_extend[0] + eng.decode_steps:
         fail("ssm-async: dispatches != prefills + extends + decode ticks")
     _expect("ssm-async", launches, {"ssd_scan": n_prefill[0] * L, "flash_attention": 0,
+                                    "decode_attention": 0, "paged_decode_attention": 0})
+    _sync(device)
+    return launches, wall
+
+
+def phase_ssm_paged(arch, params, ssm_streams, device="cuda", lane_timeout: int = 16):
+    """mamba2 on the paged engine's dense-compute mode (the per-lane state
+    stays, identity page frames, page-granular motion), with the ``ssm``
+    phase's engine size and traffic, a host spill pool of 8 entries and a
+    ``lane_timeout``: every lane is spilled once, whole, after 17 decode
+    steps, and restored at the next admission.  A restore takes exactly
+    the lane its spill freed, so the admissions, and so the prefill
+    batches, are those of the ``ssm`` phase, and the greedy streams must
+    equal that phase's (which matters: the right-padded SSM prefill makes
+    a request's stream depend on its batch)."""
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.serving.engine import HostSpillPool
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    L = arch.cfg.n_layers
+    eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=2048, max_len=2080,
+                               page_size=16, kv_spill=HostSpillPool(8), device=device)
+    if eng.paged_compute:
+        fail("ssm-paged: mamba2 should run the dense-compute mode")
+    sched = ContinuousBatchingScheduler(
+        eng, strategy=GrowingUpperThreshold(initial_upper=2), lane_timeout=lane_timeout)
+    n_prefill = _count_calls(eng, "_prefill")
+    reqs = _ssm_requests(Request, arch.cfg.vocab_size)
+    launches, wall = _drive("ssm-paged", eng, sched, reqs, device)
+    st = sched.stats
+    same = sum(r.generated == s for r, s in zip(reqs, ssm_streams))
+    log(f"[ssm-paged] kv_spilled {st.kv_spilled}, kv_restored {st.kv_restored}, "
+        f"kv_bytes_moved {eng.kv_bytes_moved}, pool {eng.pool.snapshot()}; prefill "
+        f"dispatches {n_prefill[0]}; greedy streams equal to the ssm phase's in "
+        f"{same}/{len(reqs)} requests")
+    if not st.kv_restored == st.kv_spilled >= 1:
+        fail("ssm-paged: need kv_restored == kv_spilled >= 1")
+    if same != len(reqs):
+        fail("ssm-paged: a greedy stream differs from the dense engine's ssm phase")
+    _expect("ssm-paged", launches, {"ssd_scan": n_prefill[0] * L, "flash_attention": 0,
                                     "decode_attention": 0, "paged_decode_attention": 0})
     _sync(device)
     return launches, wall
@@ -938,6 +1141,64 @@ def phase_logits_check(arch, params, device="cuda"):
                for n in kc for k in kc[n])
     log(f"[check] first decode tick: page arrays max abs diff {diff!r}")
     _sync(device)
+
+
+def phase_prefix_check(arch, params, device="cuda"):
+    """The prefix-hit path at full width: one hit's last-position logits
+    from ``_shared_tail`` (the owner's 12 aliased pages gathered into a
+    dense cache, the tail fed through ``decode_step``) against a flash
+    prefill of the same whole prompt, same weights (phase 5's gate, 0.05 x
+    max |logit|).  Then what the tail costs: wall time of one
+    ``_shared_tail`` and of one flash prefill dispatch of the whole prompt,
+    and, on the card, both under the profiler with ``decode_attention``'s
+    launches and device time in the tail."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    cfg = arch.cfg
+    eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256, max_len=512,
+                               page_size=16, prefix_share=True, device=device)
+    owner, hit = _prefix_requests(Request, cfg.vocab_size)[:2]
+    eng.admit([owner, hit])
+    if eng.prefix_hits != 1:
+        fail("prefix check: the second request was not a prefix hit")
+    start = 12 * eng.page_size
+    idx = torch.as_tensor(eng.pool.pages(hit.lane)[:12], device=device)
+    tail = hit.prompt[None, start:]
+    with torch.no_grad():
+        kern = eng._shared_tail(idx, tail, start)[0]
+        full = tf.prefill(cfg, params, torch.as_tensor(hit.prompt[None], device=device))[0]
+    _report_logits(f"prefix hit ({tail.shape[1]}-token tail after {start} aliased rows): "
+                   f"_shared_tail vs a flash prefill of the whole {len(hit.prompt)}-token "
+                   "prompt", kern, full)
+    walls = {}
+    for label, fn in (("_shared_tail", lambda: eng._shared_tail(idx, tail, start)),
+                      ("flash prefill dispatch", lambda: eng.prefill_dispatch([hit]))):
+        with torch.no_grad():
+            fn()
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            _sync(device)
+        walls[label] = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"[profile] prefix hit, {tail.shape[1]}-token tail: _shared_tail "
+        f"{walls['_shared_tail']!r} ms wall, a flash prefill dispatch of the whole "
+        f"{len(hit.prompt)}-token prompt {walls['flash prefill dispatch']!r} ms wall "
+        "(no profiler, mean of 3)")
+    if device != "cuda":
+        return
+    with torch.no_grad():
+        rows = _window(f"_shared_tail, a {tail.shape[1]}-token tail",
+                       lambda: eng._shared_tail(idx, tail, start), 1)
+        dec = [(ms, c) for key, ms, c in rows if "decode_cluster_kernel" in key]
+        log(f"[profile] _shared_tail: decode_attention {sum(ms for ms, _c in dec)!r} ms "
+            f"device time in {sum(c for _ms, c in dec)} launches")
+        _window(f"flash prefill dispatch of the whole {len(hit.prompt)}-token prompt",
+                lambda: eng.prefill_dispatch([hit]), 1)
+    torch.cuda.synchronize()
 
 
 def phase_ssm_logits_check(arch, params, device="cuda"):
@@ -1114,27 +1375,40 @@ def _reduced_run(kind, arch, params, device):
     """One reduced-model serving run: ``kind`` is "paged" (phase 4's
     synchronous path), "dense" (the dense engine), "async" (paged,
     ``overlap=True``, ``chunk_tokens=8``, with prompts up to 30 tokens in
-    their own template) or "dense-async" (the dense engine under the same
-    overlap + chunk traffic).  Returns (per-request streams, counters)."""
+    their own template), "dense-async" (the dense engine under the same
+    overlap + chunk traffic), "paged-prefix" (``prefix_share=True``,
+    prompts that share a 16-token prefix), "paged-spill" (12 pages, half
+    of full provisioning, with a spill pool) or "paged-ssm" (the paged
+    engine's dense-compute mode with a spill pool and ``lane_timeout``).
+    Returns (per-request streams, counters)."""
     from repro_torch.core.strategies import GrowingUpperThreshold
-    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.engine import HostSpillPool, InferenceEngine
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
     rng = np.random.default_rng(1)
     lens = [int(n) for n in rng.integers(3, 17, size=6)]
-    skw = {}
+    skw, ekw, prefix = {}, {}, np.zeros(0, np.int32)
+    if kind == "paged-prefix":
+        ekw = dict(prefix_share=True)
+        prefix = rng.integers(1, 256, size=16).astype(np.int32)
+    elif kind == "paged-spill":
+        ekw = dict(n_pages=12, kv_spill=HostSpillPool(8), prefetch_pages=1)
+    elif kind == "paged-ssm":
+        ekw = dict(kv_spill=HostSpillPool(4))
+        skw = dict(lane_timeout=6)
     if kind.startswith("dense"):
         eng = InferenceEngine(arch, params, n_lanes=4, max_prompt_len=16, max_len=48,
                               device=device)
     else:
-        eng = PagedInferenceEngine(arch, params, n_lanes=4, max_prompt_len=16,
-                                   max_len=48, page_size=8, device=device)
+        eng = PagedInferenceEngine(arch, params, n_lanes=4, max_prompt_len=16 + len(prefix),
+                                   max_len=48, page_size=8, device=device, **ekw)
     if kind.endswith("async"):
         lens += [21, 30]
         skw = dict(overlap=True, chunk_tokens=8)
-    reqs = [Request(rid=i, prompt=rng.integers(1, 256, size=n).astype(np.int32),
+    reqs = [Request(rid=i, prompt=np.concatenate(
+                [prefix, rng.integers(1, 256, size=n)]).astype(np.int32),
                     max_new_tokens=24 if n <= 16 else 8,
                     template="long" if n > 16 else "default")
             for i, n in enumerate(lens)]
@@ -1144,19 +1418,22 @@ def _reduced_run(kind, arch, params, device):
         sched.submit(r)
     sched.producer_done()
     sched.run_until_drained()
-    counters = {a: getattr(eng, a) for a in ("dispatches", "decode_steps",
-                                             "prefill_calls", "kv_bytes_moved")}
-    counters["fused_folds"] = getattr(eng, "fused_folds", None)
-    counters["spec_chunks"] = sched.stats.spec_chunks
+    counters = {a: getattr(eng, a, None) for a in (
+        "dispatches", "decode_steps", "prefill_calls", "kv_bytes_moved", "fused_folds",
+        "prefix_hits", "page_evictions")}
+    for a in ("spec_chunks", "kv_spilled", "kv_restored"):
+        counters[a] = getattr(sched.stats, a)
     return {r.rid: r.generated for r in reqs}, counters
 
 
-def phase_reduced_check(name: str = "llama3-8b", kinds=("paged", "dense", "async")):
+def phase_reduced_check(name: str = "llama3-8b",
+                        kinds=("paged", "dense", "async", "paged-prefix", "paged-spill")):
     """A reduced model in float32: served on the card through the kernels
     and on the CPU through the plain versions, same weights and traffic,
     on each path of ``kinds`` (llama3-8b: the paged synchronous path, the
-    dense engine and the paged overlap + chunk path; mamba2: the dense
-    engine, synchronous and overlap + chunk).  Per-request greedy streams
+    dense engine, the paged overlap + chunk path, prefix sharing and an
+    oversubscribed pool with spill; mamba2: the dense engine, synchronous
+    and overlap + chunk, and the paged engine's dense-compute mode).  Per-request greedy streams
     and the engine's counters must be equal (float32 sums in another
     order differ by about 1e-6, far below the logit gaps argmax decides
     on; with one speculation bet in flight the scheduler joins it at every
@@ -1191,6 +1468,13 @@ def phase_reduced_check(name: str = "llama3-8b", kinds=("paged", "dense", "async
             fail(f"reduced {name}, dense-async: fewer than two chunks on the spec thread")
         if arch.cfg.family == "ssm" and launched["ssd_scan"] == 0:
             fail(f"reduced {name}, {kind}: the ssd_scan kernel never launched")
+        c = card[1]
+        if kind == "paged-prefix" and not (c["prefix_hits"] and launched["decode_attention"]):
+            fail("reduced model, paged-prefix: no prefix hit or no decode_attention launch")
+        if kind in ("paged-spill", "paged-ssm") and not (
+                c["kv_restored"] == c["kv_spilled"] >= 1
+                and (kind == "paged-ssm" or c["page_evictions"] >= 1)):
+            fail(f"reduced {name}, {kind}: no eviction, or a spill without its restore")
     torch.cuda.synchronize()
 
 
@@ -1427,7 +1711,13 @@ def main() -> None:
     paths = {"main": phase_main_path(arch, params)}
     paths["async"], async_wall = phase_async(arch, params)
     paths["dense"] = phase_dense(arch, params)
+    log(f"[prefix] on {smi}")
+    paths.update(phase_prefix(arch, params))
+    log(f"[spill] on {smi}")
+    paths.update(phase_spill(arch, params))
     phase_logits_check(arch, params)
+    log(f"[check] on {smi}")
+    phase_prefix_check(arch, params)
     phase_profile(arch, params)
     del params
     gc.collect()  # engines and their threads can hold the weights in cycles
@@ -1441,9 +1731,11 @@ def main() -> None:
     log(f"[ssm] on {smi}: mamba2-1.3b full width: {arch.cfg.n_layers} layers, d_model "
         f"{arch.cfg.d_model}, {n_params} parameters (bf16; A_log, D, dt_bias float32), "
         f"drawn from seed 0 in {time.perf_counter() - t0!r} s")
-    paths["ssm"], ssm_wall = phase_ssm(arch, params)
+    paths["ssm"], ssm_wall, ssm_streams = phase_ssm(arch, params)
     log(f"[ssm-async] on {smi}")
     paths["ssm-async"], ssm_async_wall = phase_ssm_async(arch, params)
+    log(f"[ssm-paged] on {smi}")
+    paths["ssm-paged"], ssm_paged_wall = phase_ssm_paged(arch, params, ssm_streams)
     log(f"[check] on {smi}")
     phase_ssm_logits_check(arch, params)
     log(f"[profile] on {smi}")
@@ -1453,7 +1745,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths.update(phase_train(smi))
     phase_reduced_check()
-    phase_reduced_check("mamba2-1.3b", ("dense", "dense-async"))
+    phase_reduced_check("mamba2-1.3b", ("dense", "dense-async", "paged-ssm"))
     log(f"[check] on {smi}")
     phase_train_reduced()
     log(f"[fission] on {smi}")
@@ -1463,7 +1755,8 @@ def main() -> None:
     # from 0 in its own run.
     launches = {n: sum(p[n] for p in paths.values()) for n in rows}
     log(f"[paths] launches by path {paths}; async wall {async_wall!r} s, ssm wall "
-        f"{ssm_wall!r} s, ssm-async wall {ssm_async_wall!r} s")
+        f"{ssm_wall!r} s, ssm-async wall {ssm_async_wall!r} s, ssm-paged wall "
+        f"{ssm_paged_wall!r} s")
     kernels = [dict(name=n, launches=launches[n], **rows[n]) for n in sorted(rows)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -636,7 +636,9 @@ class InferenceEngine:
         if pool is None or not pool.accepts(template):
             self.retire(lane)
             return False
-        rows = {name: {k: a[:, lane].cpu() for k, a in stack.items()}
+        # A copy even on the CPU, where .cpu() would return a view of the
+        # lane that later ticks and commits keep writing.
+        rows = {name: {k: a[:, lane].to("cpu", copy=True) for k, a in stack.items()}
                 for name, stack in self.cache.items()}
         entry = {"rows": rows, "length": int(self.lengths[lane]),
                  "last": int(self.last_token[lane])}

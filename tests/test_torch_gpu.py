@@ -417,6 +417,136 @@ def test_reduced_model_served_on_card_matches_cpu(gen, kind):
     assert out["cpu"][2] == {n: 0 for n in registry.names()}
 
 
+def _reduced(name):
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch(name)
+    arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
+    return arch, arch.init(seed=0, device="cpu")
+
+
+def test_shared_tail_on_card_matches_cpu(gen):
+    """A prefix hit on reduced llama3-8b in float32: ``_shared_tail``'s
+    logits and dense cache on the card (the ``decode_attention`` kernel,
+    one launch a layer per tail token) equal the CPU's (plain version),
+    and so does the admitted request's first token."""
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    arch, cpu_params = _reduced("llama3-8b")
+    rng = np.random.default_rng(3)
+    shared = rng.integers(1, 256, size=16).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(1, 256, size=n).astype(np.int32)])
+               for n in (5, 9)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = PagedInferenceEngine(arch, _to(cpu_params, device), n_lanes=2, max_prompt_len=32,
+                                   max_len=48, page_size=8, prefix_share=True, device=device)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=4) for i, p in enumerate(prompts)]
+        eng.admit(reqs)
+        assert eng.prefix_hits == 1
+        idx = torch.as_tensor(eng.pool.pages(reqs[1].lane)[:2], device=device)
+        registry.reset_launches()
+        logits, dcache = eng._shared_tail(idx, prompts[1][None, 16:], 16)
+        launched = registry.launch_counts()
+        out[device] = (logits.cpu(), {k: a.cpu() for k, a in dcache["layers"].items()},
+                       [r.generated for r in reqs], launched)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    for k in out["cpu"][1]:
+        torch.testing.assert_close(out["cuda"][1][k], out["cpu"][1][k], rtol=1e-4, atol=1e-4)
+    assert out["cuda"][2] == out["cpu"][2]
+    assert out["cuda"][3]["decode_attention"] == arch.cfg.n_layers * 9
+    assert out["cpu"][3] == {n: 0 for n in registry.names()}
+
+
+@pytest.mark.parametrize("prefetch", [1, 2])
+def test_paged_spill_restore_on_card_gives_back_the_page_bytes(gen, prefetch):
+    """A lane spilled to the host (CPU tensors), its pages reused by a
+    newcomer, then restored into new frames: once the prefetch tail is
+    flushed, the lane's pages hold the same bytes as before the spill."""
+    from repro_torch.serving.engine import HostSpillPool
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    arch, cpu_params = _reduced("llama3-8b")
+    eng = PagedInferenceEngine(arch, _to(cpu_params, "cuda"), n_lanes=3, max_prompt_len=16,
+                               max_len=48, page_size=8, kv_spill=HostSpillPool(4),
+                               prefetch_pages=prefetch, device="cuda")
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(1, 256, size=n).astype(np.int32),
+                    max_new_tokens=30) for i, n in enumerate((15, 7))]
+    eng.admit(reqs)
+    for _ in range(12):
+        eng.decode_tick()
+    r = reqs[0]
+    length = int(eng.lengths[r.lane])
+    npg = -(-length // 8)
+
+    def rows(lane):
+        idx = torch.as_tensor(eng.pool.pages(lane)[:npg], device="cuda")
+        return {k: a[:, idx].clone() for k, a in eng.cache["layers"].items()}
+
+    before = rows(r.lane)
+    assert eng.spill(r.lane, r.rid)
+    (_t, entry), = eng.kv_spill._lru.values()
+    assert all(t.device.type == "cpu" for t in entry["rows"]["layers"].values())
+    newcomer = Request(rid=9, prompt=rng.integers(1, 256, size=16).astype(np.int32))
+    eng.admit([newcomer])
+    for _ in range(3):
+        eng.decode_tick()
+    eng.retire(newcomer.lane)
+    lane = eng.try_restore(r.rid)
+    assert lane is not None and (lane in eng._pending_restore) == (npg > prefetch)
+    eng._flush_restores()
+    torch.cuda.synchronize()
+    for k, a in rows(lane).items():
+        assert torch.equal(a, before[k])
+
+
+@pytest.mark.parametrize("kind", ["paged-prefix", "paged-spill"])
+def test_reduced_paged_modes_on_card_match_cpu(gen, kind):
+    """Prefix sharing and an oversubscribed pool with host spill, through
+    the scheduler on reduced llama3-8b in float32: greedy streams and
+    counters on the card (kernels) equal the CPU's (plain versions)."""
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.serving.engine import HostSpillPool
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    arch, cpu_params = _reduced("llama3-8b")
+    out = {}
+    for device in ("cuda", "cpu"):
+        rng = np.random.default_rng(7)
+        shared = rng.integers(1, 256, size=16 if kind == "paged-prefix" else 0)
+        ekw = (dict(prefix_share=True) if kind == "paged-prefix"
+               else dict(n_pages=9, kv_spill=HostSpillPool(8), prefetch_pages=1))
+        eng = PagedInferenceEngine(arch, _to(cpu_params, device), n_lanes=3, max_prompt_len=32,
+                                   max_len=48, page_size=8, device=device, **ekw)
+        sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2))
+        reqs = [Request(rid=i, prompt=np.concatenate(
+                    [shared, rng.integers(1, 256, size=int(n))]).astype(np.int32),
+                        max_new_tokens=30) for i, n in enumerate(rng.integers(3, 14, size=6))]
+        registry.reset_launches()
+        for r in reqs:
+            sched.submit(r)
+        sched.producer_done()
+        sched.run_until_drained()
+        out[device] = ({r.rid: r.generated for r in reqs},
+                       [getattr(eng, a) for a in ("dispatches", "decode_steps", "prefill_calls",
+                                                  "kv_bytes_moved", "prefix_hits",
+                                                  "page_evictions")],
+                       [sched.stats.kv_spilled, sched.stats.kv_restored],
+                       registry.launch_counts())
+    assert out["cuda"][:3] == out["cpu"][:3]
+    launched = out["cuda"][3]
+    assert launched["paged_decode_attention"] > 0
+    if kind == "paged-prefix":
+        assert out["cuda"][1][4] >= 1 and launched["decode_attention"] > 0
+    else:
+        assert out["cuda"][1][5] >= 1 and out["cuda"][2][0] == out["cuda"][2][1] >= 1
+
+
 # ---------------------------------------------------------------- ssd_scan
 
 SCAN_TOLS = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
@@ -535,6 +665,42 @@ def test_reduced_mamba2_served_on_card_matches_cpu(gen, overlap):
     assert out["cuda"][:2] == out["cpu"][:2]
     assert out["cuda"][2]["ssd_scan"] > 0
     assert out["cpu"][2] == {n: 0 for n in registry.names()}
+
+
+def test_reduced_mamba2_paged_dense_compute_on_card_matches_cpu(gen):
+    """mamba2 on the paged engine's dense-compute mode, with straggler
+    spills and restores of whole state lanes: greedy streams, counters and
+    the pool's snapshot on the card (``ssd_scan`` kernel) equal the CPU's."""
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.serving.engine import HostSpillPool
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    arch, cpu_params = _reduced("mamba2-1.3b")
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = PagedInferenceEngine(arch, _to(cpu_params, device), n_lanes=3, max_prompt_len=16,
+                                   max_len=48, page_size=8, kv_spill=HostSpillPool(4),
+                                   device=device)
+        sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2),
+                                            lane_timeout=4)
+        rng = np.random.default_rng(9)
+        reqs = [Request(rid=i, prompt=rng.integers(1, 256, size=int(n)).astype(np.int32),
+                        max_new_tokens=12) for i, n in enumerate(rng.integers(3, 17, size=6))]
+        registry.reset_launches()
+        for r in reqs:
+            sched.submit(r)
+        sched.producer_done()
+        sched.run_until_drained()
+        out[device] = ({r.rid: r.generated for r in reqs},
+                       [getattr(eng, a) for a in ("dispatches", "decode_steps",
+                                                  "prefill_calls", "kv_bytes_moved")],
+                       eng.pool.snapshot(), [sched.stats.kv_spilled, sched.stats.kv_restored],
+                       registry.launch_counts())
+    assert out["cuda"][:4] == out["cpu"][:4]
+    assert out["cuda"][3][0] == out["cuda"][3][1] >= 1
+    assert out["cuda"][4]["ssd_scan"] > 0 and out["cuda"][4]["paged_decode_attention"] == 0
 
 
 # ----------------------------------------------------------- batched_gather

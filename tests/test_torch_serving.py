@@ -26,7 +26,6 @@ from repro_torch.core import strategies
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.paged_decode import sample_tokens
 from repro_torch.models.registry import get_arch
-from repro_torch.serving.engine import HostSpillPool
 from repro_torch.serving.paged_kv import PagedInferenceEngine
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler
@@ -174,16 +173,26 @@ def test_cow_guard_forks_an_aliased_write_page(setup):
         assert not torch.equal(a[:, mine, 5], before[k][:, 5])  # the new row
 
 
-@pytest.mark.parametrize("kw, match", [
-    ({"prefix_share": True}, "prefix sharing"),
-    ({"n_pages": 4}, "oversubscribed"),
-    ({"kv_spill": HostSpillPool(4)}, "spill"),
-])
-def test_unported_modes_raise(setup, kw, match):
-    _jarch, _jp, arch, tparams = setup
-    with pytest.raises(NotImplementedError, match=match):
-        PagedInferenceEngine(arch, tparams, n_lanes=2, max_prompt_len=16, max_len=32,
-                             page_size=8, device="cpu", **kw)
+GUARDS = {
+    "prefix-share-windowed": (8, {"prefix_share": True}, "prefix_share"),
+    "oversubscribed-windowed": (8, {"n_pages": 6}, "paged-decode-capable"),
+    "below-one-lane": (0, {"n_pages": 3}, "at least one lane"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GUARDS))
+def test_constructor_guards_match_reference(setup, case):
+    """The reference's guards, as ``ValueError`` in both packages: prefix
+    sharing and an oversubscribed pool need paged compute (a sliding
+    window rules it out), and the pool must cover one lane."""
+    jarch, jparams, arch, tparams = setup
+    window, kw, match = GUARDS[case]
+    for Engine, a, params, ekw in ((JPagedEngine, jarch, jparams, {}),
+                                   (PagedInferenceEngine, arch, tparams, {"device": "cpu"})):
+        a = dataclasses.replace(a, cfg=dataclasses.replace(a.cfg, attn_window=window))
+        with pytest.raises(ValueError, match=match):
+            Engine(a, params, n_lanes=2, max_prompt_len=16, max_len=32, page_size=8,
+                   **kw, **ekw)
 
 
 # ------------------------------------------------------- temperature > 0

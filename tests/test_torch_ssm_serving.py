@@ -1,4 +1,5 @@
-"""The port's serving of mamba2 (the dense engine) against the JAX package.
+"""The port's serving of mamba2 against the JAX package: the dense engine,
+and the paged engine's dense-compute mode.
 
 Reduced mamba2-1.3b in float32, the JAX weights carried across with
 ``params_from_numpy``, the same requests through the port's
@@ -27,6 +28,7 @@ from repro.core import strategies as j_strategies
 from repro.models.registry import get_arch as j_get_arch
 from repro.serving.engine import HostSpillPool as JHostSpillPool
 from repro.serving.engine import InferenceEngine as JEngine
+from repro.serving.paged_kv import PagedInferenceEngine as JPagedEngine
 from repro.serving.request import Request as JRequest
 from repro.serving.scheduler import ContinuousBatchingScheduler as JScheduler
 from repro_torch.core import strategies
@@ -60,6 +62,7 @@ class Side:
     Scheduler: type
     Request: type
     Spill: type
+    Paged: type
     strategies: object
     arch: object
     params: object
@@ -71,10 +74,10 @@ class Side:
 
 def _sides(setup):
     jarch, jparams, arch, tparams = setup
-    return (Side(JEngine, JScheduler, JRequest, JHostSpillPool, j_strategies, jarch,
-                 jparams, {}),
+    return (Side(JEngine, JScheduler, JRequest, JHostSpillPool, JPagedEngine, j_strategies,
+                 jarch, jparams, {}),
             Side(InferenceEngine, ContinuousBatchingScheduler, Request, HostSpillPool,
-                 strategies, arch, tparams, {"device": "cpu"}))
+                 PagedInferenceEngine, strategies, arch, tparams, {"device": "cpu"}))
 
 
 def _counters(eng) -> dict:
@@ -231,10 +234,52 @@ def test_ssm_spill_restore_equals_reference(setup):
     assert out[1] == out[0]
 
 
-def test_paged_engine_still_refuses_ssm(setup):
-    """The paged engine's dense-compute mode (how the reference pages SSM
-    stacks) is not ported: it raises."""
-    _j, _jp, arch, tparams = setup
-    with pytest.raises(NotImplementedError, match="dense-compute"):
-        PagedInferenceEngine(arch, tparams, n_lanes=2, max_prompt_len=16, max_len=32,
-                             page_size=8, device="cpu")
+@pytest.mark.parametrize("kw, match", [({"prefix_share": True}, "prefix_share"),
+                                       ({"n_pages": 4}, "paged-decode-capable")])
+def test_paged_engine_guards_on_ssm(setup, kw, match):
+    """mamba2 runs the paged engine's dense-compute mode, which neither
+    shares prefixes nor oversubscribes its pool: both packages raise."""
+    for side in _sides(setup):
+        with pytest.raises(ValueError, match=match):
+            side.Paged(side.arch, side.params, n_lanes=2, max_prompt_len=16, max_len=32,
+                       page_size=8, **kw, **side.kw)
+
+
+PAGED = {
+    "sync-straggler-spill": ("OneOrAll", {}, {}, 2),
+    "growing-upper-chunked-overlap": ("GrowingUpperThreshold", {"initial_upper": 2},
+                                      {"overlap": True, "chunk_tokens": 5}, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED))
+def test_paged_dense_compute_equals_reference(setup, case):
+    """mamba2 on ``PagedInferenceEngine`` (dense-compute mode: the
+    per-lane state stays, identity page frames, page-granular motion)
+    against the JAX paged engine: a scheduler run with straggler spills
+    and restores of whole state lanes, and one with overlap and chunked
+    prefill (declined fused ticks).  Streams, counters and the pool's
+    snapshot are equal, and the streams equal the dense engine's."""
+    strat, skw, sched_kw, timeout = PAGED[case]
+    rng = np.random.default_rng(71 + sorted(PAGED).index(case))
+    prompts = [rng.integers(1, 200, size=n).astype(np.int32) for n in (5, 13, 7, 11, 3, 9)]
+    traffic = [dict(rid=i, prompt=p, max_new_tokens=7) for i, p in enumerate(prompts)]
+    out = []
+    for side in _sides(setup):
+        dense = side.engine(n_lanes=3, max_prompt_len=16, max_len=48,
+                            kv_spill=side.Spill(max_entries=4))
+        d_reqs, _ = _run(side, dense, traffic, strat, skw, lane_timeout=timeout, **sched_kw)
+        eng = side.Paged(side.arch, side.params, n_lanes=3, max_prompt_len=16, max_len=48,
+                         page_size=8, prefetch_pages=1, kv_spill=side.Spill(max_entries=4),
+                         **side.kw)
+        assert not eng.paged_compute
+        reqs, sched = _run(side, eng, traffic, strat, skw, lane_timeout=timeout, **sched_kw)
+        st = sched.stats
+        if timeout:
+            assert st.kv_spilled >= 1 and st.kv_restored == st.kv_spilled
+        else:
+            assert st.spec_chunks >= 2 and eng.fused_folds == 0
+        assert [r.generated for r in reqs] == [r.generated for r in d_reqs]
+        out.append(([r.generated for r in reqs], _counters(eng), eng.pool.snapshot(),
+                    st.kv_spilled, st.admission_trace))
+    assert out[1] == out[0]
