@@ -51,18 +51,34 @@ Phases, each ending in ``torch.cuda.synchronize()``:
       phase a's prompts with 160 new tokens each: lanes evicted under
       page pressure and restored, streams equal token for token to the
       same traffic at full provisioning;
+   f. app-traces — the paper's transformation on the real engine: the
+      three app traces of ``core/app_traces.py`` (49 queries) through
+      the HIR → scheduler bridge, synchronous (one scheduler drive per
+      query) against ``transform_program``'s output on
+      ``AsyncQueryRuntime`` (one drive per cohort), each over a fresh
+      ``PagedInferenceEngine(n_lanes=8, page_size=16)``: 49 synchronous
+      drives, fewer transformed ones, exact attention launches;
+   g. model-service — the ML instantiation: ``ModelService`` whose query
+      gathers a row of the llama3-8b embedding table through
+      ``batched_gather`` and scores it, 4096 ids, synchronous and
+      transformed (with and without ``pad_batches``): equal totals,
+      ``batched_gather`` = single queries + batches;
+   h. chaos — phase a's traffic on a paged engine with a spill pool, one
+      request a prefill, fault-free and inside ``ChaosEngine`` (seeded
+      decode and prefill faults) with ``Resilience``: faults of both
+      kinds, quarantined lanes, spills = restores, streams equal 16/16;
    then mamba2-1.3b at full width (48 layers, bf16, weights drawn from
    seed 0 on the card) through ``InferenceEngine(n_lanes=8,
    max_prompt_len=2048, max_len=2080)``:
-   f. ssm — the synchronous path, 16 requests of 300-2000 tokens:
+   i. ssm — the synchronous path, 16 requests of 300-2000 tokens:
       ``ssd_scan`` = prefill dispatches x 48, no other kernel;
-   g. ssm-async — ``overlap=True, chunk_tokens=1024``, 14 prompts of
+   j. ssm-async — ``overlap=True, chunk_tokens=1024``, 14 prompts of
       300-1000 tokens and 2 of 1056-1152 (their tails fed through the
       recurrent decode): ``ssd_scan`` = prefill dispatches x 48, no
       speculation crash;
-   h. ssm-paged — the ``ssm`` traffic on ``PagedInferenceEngine``'s
+   k. ssm-paged — the ``ssm`` traffic on ``PagedInferenceEngine``'s
       dense-compute mode with a spill pool and ``lane_timeout``: every
-      lane spilled and restored whole, streams equal to phase f's;
+      lane spilled and restored whole, streams equal to phase i's;
 5. checks — first prefill and first decode tick of the full-width
    llama3-8b, a prefix hit's ``_shared_tail`` logits against a flash
    prefill of the whole prompt, and the first full-width mamba2
@@ -80,10 +96,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    with the kernels against the same model served on the CPU with the
    plain versions, on the synchronous paged path, the dense engine, the
    overlap + chunk paged path, prefix sharing and an oversubscribed pool
-   with spill; the reduced mamba2 the same way on the dense engine,
-   synchronous and overlap + chunk, and on the paged engine's
-   dense-compute mode with spills (per-request greedy streams and the
-   engine's counters must be equal);
+   with spill, and ``ChaosEngine`` over a paged engine with spill; the
+   three app traces through the bridge (vocabulary raised to 65536) and
+   the ``model-service`` program; the reduced mamba2 the same way on the
+   dense engine, synchronous and overlap + chunk, and on the paged
+   engine's dense-compute mode with spills (per-request greedy streams
+   and the engine's counters must be equal; synchronous = transformed);
 8. train — the trainer at full width, after the serving phases: llama3-8b
    (bf16, depth cut to 4 of 32 layers, ``query_embedding=True``,
    ``remat=False``) through ``make_train_step(..., TrainStepConfig(
@@ -947,6 +965,410 @@ def phase_spill(arch, params, device="cuda", n_pages: int = 128):
     return out
 
 
+# ------------------------------------------------- phase 4i-k: the paper's layer
+class _Recorder:
+    """A query-service facade logging each query's result by its identity
+    (instrumentation of this script only)."""
+
+    def __init__(self, svc):
+        self.svc = svc
+        self.log = {}
+
+    def execute(self, query_name, params):
+        out = self.svc.execute(query_name, params)
+        self.log[(query_name, tuple(int(p) for p in params))] = out
+        return out
+
+    def execute_batch(self, query_name, params_list):
+        outs = self.svc.execute_batch(query_name, params_list)
+        for p, o in zip(params_list, outs):
+            self.log[(query_name, tuple(int(x) for x in p))] = o
+        return outs
+
+
+def _trace_sides(arch, params, device, trace, engine_kw):
+    """One app trace the reference's Part 10 way: the synchronous program
+    on ``Interpreter`` through ``SchedulerQueryService`` (one scheduler
+    drive per query), then ``transform_program``'s output on
+    ``AsyncQueryRuntime(n_threads=4, PureBatch())`` (one drive per cohort),
+    each over a fresh ``PagedInferenceEngine`` of the same geometry.
+    Returns per side: observables, per-query token tuples, drives, tokens,
+    wall seconds, prefill dispatches and decode ticks."""
+    from repro_torch.core.hir import Interpreter, transform_program
+    from repro_torch.core.runtime import AsyncQueryRuntime
+    from repro_torch.core.strategies import PureBatch
+    from repro_torch.serving.hir_bridge import SchedulerQueryService
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+
+    out = {}
+    for side in ("sync", "async"):
+        eng = PagedInferenceEngine(arch, params, device=device, **engine_kw)
+        svc = _Recorder(SchedulerQueryService(eng))  # max_new_tokens=4, the default
+        _sync(device)
+        t0 = time.perf_counter()
+        if side == "sync":
+            env = Interpreter(svc).run(trace.program, dict(trace.inputs))
+        else:
+            rt = AsyncQueryRuntime(svc, n_threads=4, strategy=PureBatch())
+            try:
+                env = Interpreter(rt).run(transform_program(trace.program),
+                                          dict(trace.inputs))
+            finally:
+                rt.drain()
+                rt.shutdown()
+        _sync(device)
+        st = svc.svc.stats
+        out[side] = dict(observe={k: env.get(k) for k in trace.observe}, log=svc.log,
+                         drives=st.round_trips, tokens=st.tokens,
+                         wall=time.perf_counter() - t0,
+                         prefills=eng.dispatches - eng.decode_steps,
+                         ticks=eng.decode_steps)
+    return out
+
+
+def _batch_shape_probe(arch, params, device, sizes=(2, 4, 8)):
+    """Whether a prompt's prefill logits depend on the batch it is in, at
+    the bridge's prompt shapes: prompts of 2 and 3 tokens (one and two
+    query parameters; padded to 2 and 4 positions) prefilled in batches of
+    ``sizes`` and each alone.  Returns ({(prompt tokens, batch): (largest
+    |logit difference| against alone, rows whose argmax differs)}, the
+    largest |logit|)."""
+    import torch
+    from repro_torch.models import transformer as _tf
+
+    rng = np.random.default_rng(0)
+    n, out, top = max(sizes), {}, 0.0
+    for plen, width in ((2, 2), (3, 4)):
+        toks = np.zeros((n, width), np.int32)
+        toks[:, 0] = plen - 1
+        toks[:, 1:plen] = rng.integers(0, min(arch.cfg.vocab_size, 50021), size=(n, plen - 1))
+        batch = torch.as_tensor(toks, device=device)
+
+        def last(rows):
+            return _tf.prefill(arch.cfg, params, rows, return_all_logits=True)[0][:, plen - 1]
+
+        with torch.no_grad():
+            alone = torch.cat([last(batch[i:i + 1]) for i in range(n)]).float()
+            top = max(top, float(alone.abs().max()))
+            for b in sizes:
+                together = last(batch[:b]).float()
+                out[plen, b] = (float((together - alone[:b]).abs().max()),
+                                int((together.argmax(-1) != alone[:b].argmax(-1)).sum()))
+    return out, top
+
+
+def _cohort_probe(arch, params, device, kw):
+    """The bridge's two prompt shapes (2 and 3 tokens) as 8 queries of one
+    template, admitted as one cohort and each alone (as the synchronous
+    side does), 3 decode ticks each: how many first tokens and whole
+    streams agree.  Returns {prompt tokens: (first tokens equal, streams
+    equal)}."""
+    from repro_torch.serving.hir_bridge import _prompt_for
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    out = {}
+    for n_params in (1, 2):
+        prompts = [_prompt_for("q", tuple(range(k, k + n_params)))
+                   for k in (3, 17, 250, 4093, 777, 12, 9001, 42)]
+        runs = []
+        for groups in ([list(range(8))], [[i] for i in range(8)]):
+            eng = PagedInferenceEngine(arch, params, device=device, **kw)
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=4, template="q")
+                    for i, p in enumerate(prompts)]
+            for g in groups:
+                eng.admit([reqs[i] for i in g], template="q")
+                for _ in range(3):
+                    tick = eng.decode_tick()
+                    for i in g:
+                        reqs[i].generated.append(tick[reqs[i].lane])
+                for i in g:
+                    eng.retire(reqs[i].lane)
+            runs.append([r.generated for r in reqs])
+        out[n_params + 1] = (sum(a[0] == b[0] for a, b in zip(*runs)),
+                             sum(a == b for a, b in zip(*runs)))
+    return out
+
+
+def phase_app_traces(arch, params, device="cuda"):
+    """The paper's Part 10 on the real engine: the three app traces of
+    ``core/app_traces.py`` (admin workflow 8+1 queries, user flow 5 x
+    (1+4), RAG pipeline 6+8+1), synchronous against transformed, through
+    the HIR → scheduler bridge on ``PagedInferenceEngine(n_lanes=8,
+    page_size=16)``, 4 new tokens a query.  Gates: 49 synchronous drives
+    (one per query), fewer transformed drives on every trace, 4
+    in-vocabulary tokens a query, and exact launches (``flash_attention``
+    = prefill dispatches x 32, ``paged_decode_attention`` = decode ticks
+    x 32).  Equal observables across the sides are reported, not gated:
+    the synchronous side prefills each query alone and the transformed
+    side prefills cohorts, and in bf16 a prompt's logits may depend on
+    the batch's shape.  Returns the launch counts."""
+    import torch
+    from repro_torch.core.app_traces import all_traces
+    from repro_torch.kernels import registry
+
+    L, vocab = arch.cfg.n_layers, arch.cfg.vocab_size
+    kw = dict(n_lanes=8, max_prompt_len=16, max_len=32, page_size=16)
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    tot = {s: dict(drives=0, tokens=0, wall=0.0, prefills=0, ticks=0)
+           for s in ("sync", "async")}
+    same_obs = same_toks = n_q = 0
+    for tr in all_traces():
+        res = _trace_sides(arch, params, device, tr, kw)
+        s, a = res["sync"], res["async"]
+        for side in ("sync", "async"):
+            for k in tot[side]:
+                tot[side][k] += res[side][k]
+            for key, toks in res[side]["log"].items():
+                if len(toks) != 4 or not all(0 <= t < vocab for t in toks):
+                    fail(f"app-traces {tr.name} {side}: query {key} gave {toks}, not 4 "
+                         f"in-vocabulary tokens")
+        if s["drives"] != tr.n_queries:
+            fail(f"app-traces {tr.name}: {s['drives']} synchronous drives, not "
+                 f"{tr.n_queries}")
+        if not a["drives"] < s["drives"]:
+            fail(f"app-traces {tr.name}: the transformed program took {a['drives']} "
+                 f"drives, not fewer than {s['drives']}")
+        obs = s["observe"] == a["observe"]
+        toks = sum(a["log"][k] == s["log"].get(k) for k in a["log"])
+        same_obs += obs
+        same_toks += toks
+        n_q += len(a["log"])
+        s_tps, a_tps = s["tokens"] / s["wall"], a["tokens"] / a["wall"]
+        log(f"[app-traces] {tr.name}: sync {s['drives']} drives, {s['tokens']} tokens in "
+            f"{s['wall']!r} s ({s_tps!r} tokens/s, {s['prefills']} prefill dispatches, "
+            f"{s['ticks']} decode ticks); transformed {a['drives']} drives, {a['tokens']} "
+            f"tokens in {a['wall']!r} s ({a_tps!r} tokens/s, {a['prefills']} prefill "
+            f"dispatches, {a['ticks']} decode ticks); tokens/s ratio {a_tps / s_tps!r}, "
+            f"drive ratio {a['drives'] / s['drives']!r}; observables "
+            f"{'equal' if obs else 'DIFFER'} {s['observe']} / {a['observe']}; token "
+            f"tuples equal in {toks}/{len(a['log'])} transformed queries")
+    _sync(device)
+    launches = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    s, a = tot["sync"], tot["async"]
+    s_tps, a_tps = s["tokens"] / s["wall"], a["tokens"] / a["wall"]
+    log(f"[app-traces] all three: sync {s['drives']} drives, {s['tokens']} tokens in "
+        f"{s['wall']!r} s ({s_tps!r} tokens/s); transformed {a['drives']} drives, "
+        f"{a['tokens']} tokens in {a['wall']!r} s ({a_tps!r} tokens/s); tokens/s ratio "
+        f"{a_tps / s_tps!r}; drive ratio {a['drives'] / s['drives']!r}; observables equal "
+        f"in {same_obs}/3 traces, token tuples in {same_toks}/{n_q} transformed queries "
+        f"(bf16: reported, not gated); peak memory {peak / 2**30!r} GiB; launches "
+        f"{launches}")
+    probe, top = _batch_shape_probe(arch, params, device)
+    log(f"[app-traces] batch shape: prompts of 2 and 3 tokens prefilled in batches of "
+        f"2, 4 and 8 against each alone, (tokens, batch): (largest |logit difference|, "
+        f"rows whose argmax differs) {probe}; largest |logit| {top!r}")
+    log(f"[app-traces] cohort of 8 against each alone, 3 decode ticks, {{prompt tokens: "
+        f"(first tokens equal, streams equal) of 8}}: {_cohort_probe(arch, params, device, kw)}")
+    if s["drives"] != 49:
+        fail(f"app-traces: {s['drives']} synchronous drives in all, not 49")
+    _expect("app-traces", launches,
+            {"paged_decode_attention": (s["ticks"] + a["ticks"]) * L,
+             "flash_attention": (s["prefills"] + a["prefills"]) * L,
+             "decode_attention": 0, "ssd_scan": 0})
+    return launches
+
+
+def _program_embed_score():
+    """``tests/test_system.py``'s loop: ``s = embed.score(t)``, ``total +=
+    float(s)``, ``log`` keeping each result in order."""
+    from repro_torch.core.hir import Assign, Loop, Program, Query
+
+    return Program(inputs=("items", "total", "log"), body=[
+        Loop(item_var="t", iter_var="items", body=[
+            Query(target="s", query_name="embed.score", params=("t",)),
+            Assign(target="total", fn=lambda tot, s: tot + float(s), args=("total", "s")),
+            Assign(target="log", fn=lambda lg, s: lg + (float(s),), args=("log", "s")),
+        ])])
+
+
+def _model_service_runs(table, w, ids, device):
+    """The ML instantiation: ``ModelService`` whose query reads row ``t`` of
+    an embedding table through ``batched_gather`` and scores it, ``(row.float()
+    * w).sum()``, run three ways: synchronously through ``Interpreter``, then
+    transformed (``overlap=True``) on ``AsyncQueryRuntime(n_threads=4,
+    GrowingUpperThreshold(initial_upper=8, bt=3))``, then the same with
+    ``pad_batches=True``.  The ids are 0-d int64 tensors on ``device``.
+    Returns each run's total, results, service counters, lane buckets,
+    ``batched_gather`` launches and wall seconds."""
+    import torch
+    from repro_torch.core.hir import Interpreter, transform_program
+    from repro_torch.core.runtime import AsyncQueryRuntime
+    from repro_torch.core.services import ModelService
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.batched_gather.ops import gather_op
+
+    def batch_fn(t):
+        return (gather_op(table, t).float() * w).sum(-1)
+
+    def single_fn(t):
+        return batch_fn(t[None])[0]
+
+    items = list(torch.as_tensor(np.asarray(ids, np.int64), device=device).unbind(0))
+    prog = _program_embed_score()
+    out = {}
+    for label in ("sync", "transformed", "transformed-padded"):
+        svc = ModelService(single_fn, batch_fn, pad_batches=label.endswith("padded"))
+        inputs = {"items": items, "total": 0.0, "log": ()}
+        _sync(device)
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        if label == "sync":
+            env = Interpreter(svc).run(prog, inputs)
+        else:
+            rt = AsyncQueryRuntime(svc, n_threads=4,
+                                   strategy=GrowingUpperThreshold(initial_upper=8, bt=3))
+            try:
+                env = Interpreter(rt).run(transform_program(prog, overlap=True), inputs)
+            finally:
+                rt.drain()
+                rt.shutdown()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        st = svc.stats.snapshot()
+        out[label] = dict(total=env["total"], log=env["log"], wall=wall,
+                          stats={k: v for k, v in st.items() if k != "busy_time"},
+                          buckets=dict(svc.lane_buckets),
+                          launches=registry.launch_counts()["batched_gather"])
+    return out
+
+
+def _model_service_gates(label, runs, n, device):
+    for name, r in runs.items():
+        st = r["stats"]
+        if st["single_queries"] + st["batched_items"] != n:
+            fail(f"{label} {name}: {st['single_queries']} single queries + "
+                 f"{st['batched_items']} batched items, not {n}")
+        if name != "sync" and st["batches"] < 1:
+            fail(f"{label} {name}: no batch was formed")
+        want = st["single_queries"] + st["batches"] if device == "cuda" else 0
+        if r["launches"] != want:
+            fail(f"{label} {name}: batched_gather launched {r['launches']} times, "
+                 f"expected {want}")
+        tot = runs["sync"]["total"]
+        if abs(r["total"] - tot) > 1e-5 * abs(tot):
+            fail(f"{label} {name}: total {r['total']!r} differs from the synchronous "
+                 f"{tot!r} beyond rtol 1e-5")
+
+
+def phase_model_service(arch, params, device="cuda", n: int = 4096):
+    """``ModelService`` on the card: the service's data is llama3-8b's
+    embedding table (128256 x 4096 bf16), ``w`` a float32 (4096,) vector
+    from ``torch.Generator`` seed 0, the program a loop over 4096 token ids
+    from ``default_rng(0)``.  Every query reaches the card through the
+    hand-written ``batched_gather``: one launch per single query and one
+    per batch, exactly.  Gates: totals equal within rtol 1e-5, every id
+    queried once (``single_queries + batched_items``), at least one batch
+    on the transformed runs.  Returns the summed launch counts."""
+    import torch
+
+    table = params["embed"]["table"]
+    V, D = table.shape
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    w = torch.randn(D, generator=gen).to(device)
+    ids = np.random.default_rng(0).integers(0, V, n)
+    runs = _model_service_runs(table, w, ids, device)
+    scale = float(np.abs(np.asarray(runs["sync"]["log"])).sum())
+    for name, r in runs.items():
+        st = r["stats"]
+        log(f"[model-service] {name}: {n} queries in {r['wall']!r} s; total "
+            f"{r['total']!r} (sum of |s| {scale!r}); single queries "
+            f"{st['single_queries']}, batches {st['batches']}, mean batch size "
+            f"{st['batched_items'] / max(st['batches'], 1)!r}, lane_buckets "
+            f"{r['buckets']}, padded_items {st['padded_items']}; batched_gather "
+            f"launches {r['launches']}")
+    log(f"[model-service] speed-up of the transformed program: "
+        f"{runs['sync']['wall'] / runs['transformed']['wall']!r} "
+        f"(padded {runs['sync']['wall'] / runs['transformed-padded']['wall']!r})")
+    _model_service_gates("model-service", runs, n, device)
+    zero = {"flash_attention": 0, "paged_decode_attention": 0, "decode_attention": 0,
+            "ssd_scan": 0}
+    return dict(zero, batched_gather=sum(r["launches"] for r in runs.values()))
+
+
+def _chaos_engine(arch, params, device, chaos, n_lanes, page_size, rates, max_len=512):
+    """A paged engine with a host spill pool, wrapped in ``ChaosEngine``
+    when ``chaos`` (``rates``: decode and prefill fault rates, seed
+    ``chaos_seed(0)``); its ``_prefill`` calls are counted."""
+    from repro_torch.core.faults import ChaosEngine, ChaosPlan, chaos_seed
+    from repro_torch.serving.engine import HostSpillPool
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+
+    eng = PagedInferenceEngine(arch, params, n_lanes=n_lanes, max_prompt_len=max_len // 2,
+                               max_len=max_len, page_size=page_size, device=device,
+                               kv_spill=HostSpillPool(16))
+    n_prefill = _count_calls(eng, "_prefill")
+    if chaos:
+        eng = ChaosEngine(eng, ChaosPlan(seed=chaos_seed(0), decode_fault_rate=rates[0],
+                                         prefill_fault_rate=rates[1]))
+    return eng, n_prefill
+
+
+# Fault rates of the chaos phase.  Seed 0's prefill schedule draws its
+# first fault at call 8 (hash 0.0998), so a 0.05 prefill rate would inject
+# none over 16 admissions; 0.10 injects that one.
+CHAOS_RATES = (0.05, 0.10)
+
+
+def phase_chaos(arch, params, device="cuda"):
+    """Degraded serving on the paged engine: the main path's 16 requests
+    (32 new tokens) on ``PagedInferenceEngine(n_lanes=8, page_size=16,
+    kv_spill=HostSpillPool(16))``, one request a prefill (``PureAsync``),
+    fault-free, then with the engine inside ``ChaosEngine`` (seeded decode
+    and prefill faults) and ``Resilience(quarantine_ticks=1)``: lane
+    quarantine, KV salvage to the spill pool, requeue, restore and
+    admission retry on real device state.  Gates: every request
+    finishes, faults of both kinds injected, a lane quarantined, a prefill
+    retried, every spill restored, streams equal to the fault-free run's
+    16/16, exact launches (an injected fault raises before the device
+    step and launches nothing).  Returns both runs' launch counts."""
+    from repro_torch.core.resilience import Resilience
+    from repro_torch.core.strategies import PureAsync
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    L = arch.cfg.n_layers
+    out, streams, tps = {}, {}, {}
+    for label, chaos in (("chaos-free", False), ("chaos", True)):
+        eng, n_prefill = _chaos_engine(arch, params, device, chaos, 8, 16, CHAOS_RATES)
+        sched = ContinuousBatchingScheduler(
+            eng, strategy=PureAsync(),
+            resilience=Resilience(quarantine_ticks=1) if chaos else None)
+        reqs = _requests(Request, arch.cfg.vocab_size)
+        out[label], wall = _drive(label, eng, sched, reqs, device)
+        streams[label] = [r.generated for r in reqs]
+        tps[label] = sum(len(g) for g in streams[label]) / wall
+        st = sched.stats
+        log(f"[{label}] injected decode faults {getattr(eng, 'injected_decode_faults', 0)}, "
+            f"prefill faults {getattr(eng, 'injected_prefill_faults', 0)}; quarantined "
+            f"{st.quarantined}, prefill_retries {st.prefill_retries}, kv_spilled "
+            f"{st.kv_spilled}, kv_restored {st.kv_restored}; kv_bytes_moved "
+            f"{eng.kv_bytes_moved}; decode ticks {eng.decode_steps}, prefill dispatches "
+            f"{n_prefill[0]}")
+        _expect(label, out[label], {"paged_decode_attention": eng.decode_steps * L,
+                                    "flash_attention": n_prefill[0] * L,
+                                    "decode_attention": 0, "ssd_scan": 0})
+        if chaos and not (eng.injected_decode_faults >= 1 and eng.injected_prefill_faults >= 1
+                          and st.quarantined >= 1 and st.prefill_retries >= 1):
+            fail("chaos: need a decode fault, a prefill fault, a quarantined lane and a "
+                 "prefill retry")
+        if st.kv_spilled != st.kv_restored:
+            fail(f"{label}: {st.kv_spilled} spills but {st.kv_restored} restores")
+    same = sum(a == b for a, b in zip(streams["chaos"], streams["chaos-free"]))
+    log(f"[chaos] greedy streams equal to the fault-free run in {same}/{len(streams['chaos'])}"
+        f" requests; tokens/s {tps['chaos']!r} against {tps['chaos-free']!r} fault-free")
+    if same != len(streams["chaos"]):
+        fail("chaos: recovery changed a greedy stream")
+    _sync(device)
+    return out
+
+
 def _ssm_requests(Request, vocab: int, max_new: int = 32):
     """16 prompts of 300-2000 tokens from ``default_rng(0)``."""
     rng = np.random.default_rng(0)
@@ -1378,10 +1800,15 @@ def _reduced_run(kind, arch, params, device):
     their own template), "dense-async" (the dense engine under the same
     overlap + chunk traffic), "paged-prefix" (``prefix_share=True``,
     prompts that share a 16-token prefix), "paged-spill" (12 pages, half
-    of full provisioning, with a spill pool) or "paged-ssm" (the paged
-    engine's dense-compute mode with a spill pool and ``lane_timeout``).
-    Returns (per-request streams, counters)."""
-    from repro_torch.core.strategies import GrowingUpperThreshold
+    of full provisioning, with a spill pool), "paged-ssm" (the paged
+    engine's dense-compute mode with a spill pool and ``lane_timeout``) or
+    "paged-chaos" (the chaos phase at 4 lanes and pages of 8: a spill pool,
+    ``ChaosEngine`` at fault rates of 0.25, so that six requests draw
+    faults of both kinds, ``Resilience(quarantine_ticks=1)``, one request
+    a prefill).  Returns (per-request streams, counters)."""
+    from repro_torch.core.faults import ChaosEngine, ChaosPlan, chaos_seed
+    from repro_torch.core.resilience import Resilience
+    from repro_torch.core.strategies import GrowingUpperThreshold, PureAsync
     from repro_torch.serving.engine import HostSpillPool, InferenceEngine
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
@@ -1398,12 +1825,18 @@ def _reduced_run(kind, arch, params, device):
     elif kind == "paged-ssm":
         ekw = dict(kv_spill=HostSpillPool(4))
         skw = dict(lane_timeout=6)
+    elif kind == "paged-chaos":
+        ekw = dict(kv_spill=HostSpillPool(8))
+        skw = dict(resilience=Resilience(quarantine_ticks=1))
     if kind.startswith("dense"):
         eng = InferenceEngine(arch, params, n_lanes=4, max_prompt_len=16, max_len=48,
                               device=device)
     else:
         eng = PagedInferenceEngine(arch, params, n_lanes=4, max_prompt_len=16 + len(prefix),
                                    max_len=48, page_size=8, device=device, **ekw)
+    if kind == "paged-chaos":
+        eng = ChaosEngine(eng, ChaosPlan(seed=chaos_seed(0), decode_fault_rate=0.25,
+                                         prefill_fault_rate=0.25))
     if kind.endswith("async"):
         lens += [21, 30]
         skw = dict(overlap=True, chunk_tokens=8)
@@ -1413,21 +1846,24 @@ def _reduced_run(kind, arch, params, device):
                     template="long" if n > 16 else "default")
             for i, n in enumerate(lens)]
     sched = ContinuousBatchingScheduler(
-        eng, strategy=GrowingUpperThreshold(initial_upper=2), **skw)
+        eng, strategy=PureAsync() if kind == "paged-chaos"
+        else GrowingUpperThreshold(initial_upper=2), **skw)
     for r in reqs:
         sched.submit(r)
     sched.producer_done()
     sched.run_until_drained()
     counters = {a: getattr(eng, a, None) for a in (
         "dispatches", "decode_steps", "prefill_calls", "kv_bytes_moved", "fused_folds",
-        "prefix_hits", "page_evictions")}
-    for a in ("spec_chunks", "kv_spilled", "kv_restored"):
+        "prefix_hits", "page_evictions", "injected_decode_faults",
+        "injected_prefill_faults")}
+    for a in ("spec_chunks", "kv_spilled", "kv_restored", "quarantined", "prefill_retries"):
         counters[a] = getattr(sched.stats, a)
     return {r.rid: r.generated for r in reqs}, counters
 
 
 def phase_reduced_check(name: str = "llama3-8b",
-                        kinds=("paged", "dense", "async", "paged-prefix", "paged-spill")):
+                        kinds=("paged", "dense", "async", "paged-prefix", "paged-spill",
+                               "paged-chaos")):
     """A reduced model in float32: served on the card through the kernels
     and on the CPU through the plain versions, same weights and traffic,
     on each path of ``kinds`` (llama3-8b: the paged synchronous path, the
@@ -1475,6 +1911,72 @@ def phase_reduced_check(name: str = "llama3-8b",
                 c["kv_restored"] == c["kv_spilled"] >= 1
                 and (kind == "paged-ssm" or c["page_evictions"] >= 1)):
             fail(f"reduced {name}, {kind}: no eviction, or a spill without its restore")
+        if kind == "paged-chaos" and not (
+                c["injected_decode_faults"] and c["injected_prefill_faults"]
+                and c["quarantined"] and c["prefill_retries"]
+                and c["kv_restored"] == c["kv_spilled"]):
+            fail("reduced model, paged-chaos: a fault kind never bit, no lane was "
+                 "quarantined, or a salvaged lane was not restored")
+    torch.cuda.synchronize()
+
+
+def phase_reduced_bridge(name: str = "llama3-8b", n: int = 512):
+    """The paper's layer on a reduced model in float32, on the card
+    through the kernels and on the CPU through the plain versions: the
+    three app traces through ``SchedulerQueryService`` (the vocabulary
+    raised to 65536, since the bridge's prompt encoding emits tokens up to
+    50020) and the ``model-service`` program over the embedding table with
+    ``n`` ids.  Per-trace observables, per-query token tuples and drive
+    counts must be equal on the card and on the CPU, synchronous =
+    transformed on each; the service's results equal within rtol 1e-5."""
+    import torch
+    from repro_torch.core.app_traces import all_traces
+    from repro_torch.kernels import registry
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch(name)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg.reduced(),
+                                                             vocab_size=65536))
+    cpu_params = arch.init(seed=0, device="cpu")
+    card_params = _to(cpu_params, "cuda")
+    kw = dict(n_lanes=8, max_prompt_len=8, max_len=16, page_size=8)
+    for tr in all_traces():
+        registry.reset_launches()
+        card = _trace_sides(arch, card_params, "cuda", tr, kw)
+        torch.cuda.synchronize()
+        launched = registry.launch_counts()
+        cpu = _trace_sides(arch, cpu_params, "cpu", tr, kw)
+        keys = ("observe", "log", "drives", "tokens", "prefills", "ticks")
+        same = all(card[s][k] == cpu[s][k] for s in ("sync", "async") for k in keys)
+        inner = all(c["sync"]["observe"] == c["async"]["observe"] and all(
+            c["async"]["log"][q] == c["sync"]["log"][q] for q in c["async"]["log"])
+            for c in (card, cpu))
+        log(f"[check] reduced {name} f32 app trace {tr.name}, card vs CPU: observables, "
+            f"token tuples and drives {'equal' if same else 'DIFFER'}; synchronous = "
+            f"transformed {'on both' if inner else 'NOT on both'} (drives "
+            f"{card['sync']['drives']} / {card['async']['drives']}, observables "
+            f"{card['sync']['observe']}; card launches {launched})")
+        if not (same and inner):
+            fail(f"reduced {name}, app trace {tr.name}: card and CPU or synchronous and "
+                 f"transformed differ")
+        if not (launched["flash_attention"] and launched["paged_decode_attention"]):
+            fail(f"reduced {name}, app trace {tr.name}: an attention kernel never launched")
+    table = {d: p["embed"]["table"] for d, p in (("cuda", card_params), ("cpu", cpu_params))}
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    w = torch.randn(arch.cfg.d_model, generator=gen)
+    ids = np.random.default_rng(0).integers(0, arch.cfg.vocab_size, n)
+    runs = {d: _model_service_runs(table[d], w.to(d), ids, d) for d in ("cuda", "cpu")}
+    for d in runs:
+        _model_service_gates(f"reduced model-service ({d})", runs[d], n, d)
+    card, cpu = runs["cuda"]["sync"], runs["cpu"]["sync"]
+    close = np.allclose(card["log"], cpu["log"], rtol=1e-5, atol=1e-6)
+    log(f"[check] reduced {name} f32 model-service, card vs CPU: totals {card['total']!r} / "
+        f"{cpu['total']!r}, per-query results {'within' if close else 'NOT within'} rtol "
+        f"1e-5; card batched_gather launches "
+        f"{[r['launches'] for r in runs['cuda'].values()]}")
+    if not close or abs(card["total"] - cpu["total"]) > 1e-5 * abs(cpu["total"]):
+        fail(f"reduced {name}, model-service: the card's results differ from the CPU's")
     torch.cuda.synchronize()
 
 
@@ -1715,6 +2217,12 @@ def main() -> None:
     paths.update(phase_prefix(arch, params))
     log(f"[spill] on {smi}")
     paths.update(phase_spill(arch, params))
+    log(f"[app-traces] on {smi}")
+    paths["app-traces"] = phase_app_traces(arch, params)
+    log(f"[model-service] on {smi}")
+    paths["model-service"] = phase_model_service(arch, params)
+    log(f"[chaos] on {smi}")
+    paths.update(phase_chaos(arch, params))
     phase_logits_check(arch, params)
     log(f"[check] on {smi}")
     phase_prefix_check(arch, params)
@@ -1745,6 +2253,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths.update(phase_train(smi))
     phase_reduced_check()
+    phase_reduced_bridge()
     phase_reduced_check("mamba2-1.3b", ("dense", "dense-async", "paged-ssm"))
     log(f"[check] on {smi}")
     phase_train_reduced()

@@ -436,6 +436,19 @@ class InferenceEngine:
         return logits, cache, lengths
 
     # ------------------------------------------------------------- admission
+    def _check_prompts(self, requests: Sequence) -> None:
+        """Refuse a prompt token outside ``[0, vocab_size)`` before any
+        device work.  The reference's embedding gather clamps such a token
+        to the table's edge and serves a wrong stream; here an index out of
+        range is a ``ValueError`` on every device (on the card it would be
+        an illegal read)."""
+        vocab = self.arch.cfg.vocab_size
+        for r in requests:
+            p = np.asarray(r.prompt)
+            if p.size and (int(p.min()) < 0 or int(p.max()) >= vocab):
+                raise ValueError(f"request {getattr(r, 'rid', '?')}: a prompt token lies "
+                                 f"outside the vocabulary [0, {vocab})")
+
     def admit(self, requests: Sequence, template: Optional[str] = None
               ) -> tuple[int, int]:
         """Prefill ``requests`` as ONE padded batch and insert into lanes
@@ -464,6 +477,7 @@ class InferenceEngine:
         :meth:`prefill_resume`; a batch holding such prompts becomes one
         single-request part per prompt under an aggregate parent.  Prompts
         that fit one chunk take the ordinary path."""
+        self._check_prompts(requests)
         if chunk is not None and chunk >= 1:
             cprompts = [np.asarray(r.prompt[-(self.max_len - 1):], np.int32)
                         for r in requests]

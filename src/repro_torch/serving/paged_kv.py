@@ -608,6 +608,7 @@ class PagedInferenceEngine(InferenceEngine):
         joins a last miss batch."""
         if self.prefix_index is None or not requests:
             return super().admit(requests, template)
+        self._check_prompts(requests)  # the hits' tails skip prefill_dispatch
         assert len(requests) <= self.n_free_for(template), \
             "admit() caller must respect n_free_for(template)"
         # A probe index over this batch's own prompts catches sharers whose

@@ -970,3 +970,168 @@ def _clone(tree):
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
+
+
+# ------------------------------------------- the paper's layer on the card
+def _score_program():
+    from repro_torch.core.hir import Assign, Loop, Program, Query
+
+    return Program(inputs=("items", "log"), body=[
+        Loop(item_var="t", iter_var="items", body=[
+            Query(target="s", query_name="embed.score", params=("t",)),
+            Assign(target="log", fn=lambda lg, s: lg + (float(s),), args=("log", "s")),
+        ])])
+
+
+@pytest.mark.parametrize("pad", [False, True])
+def test_model_service_over_batched_gather_on_card_matches_cpu(gen, pad):
+    """``ModelService`` whose query gathers a table row through
+    ``batched_gather`` and scores it: synchronous and transformed runs on
+    the card give the CPU's results (rtol 1e-5), and the kernel launches
+    once per single query and once per batch, exactly."""
+    from repro_torch.core.hir import Interpreter, transform_program
+    from repro_torch.core.runtime import AsyncQueryRuntime
+    from repro_torch.core.services import ModelService
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.kernels.batched_gather.ops import gather_op
+
+    rng = np.random.default_rng(0)
+    table = rng.standard_normal((1000, 64), dtype=np.float32)
+    w = rng.standard_normal(64, dtype=np.float32)
+    ids = rng.integers(0, 1000, 300)
+    out = {}
+    for device in ("cuda", "cpu"):
+        tt, tw = torch.as_tensor(table, device=device), torch.as_tensor(w, device=device)
+
+        def batch_fn(t):
+            return (gather_op(tt, t).float() * tw).sum(-1)
+
+        items = list(torch.as_tensor(ids, device=device).unbind(0))
+        runs = []
+        for transformed in (False, True):
+            svc = ModelService(lambda t: batch_fn(t[None])[0], batch_fn, pad_batches=pad)
+            registry.reset_launches()
+            if transformed:
+                rt = AsyncQueryRuntime(svc, n_threads=4,
+                                       strategy=GrowingUpperThreshold(initial_upper=8, bt=3))
+                try:
+                    env = Interpreter(rt).run(transform_program(_score_program(), overlap=True),
+                                              {"items": items, "log": ()})
+                finally:
+                    rt.drain()
+                    rt.shutdown()
+                assert svc.stats.batches >= 1
+            else:
+                env = Interpreter(svc).run(_score_program(), {"items": items, "log": ()})
+            launched = registry.launch_counts()["batched_gather"]
+            st = svc.stats
+            assert st.single_queries + st.batched_items == len(ids)
+            assert launched == ((st.single_queries + st.batches) if device == "cuda" else 0)
+            runs.append(env["log"])
+        out[device] = runs
+    want = (table[ids] * w).sum(-1)
+    for runs in out.values():
+        for got in runs:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _bridge_arch():
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch("llama3-8b")
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg.reduced(),
+                                                             vocab_size=65536))
+    return arch, arch.init(seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("trace", ["admin_workflow", "user_flow", "rag_pipeline"])
+def test_reduced_app_trace_on_card_matches_cpu(gen, trace):
+    """An app trace through ``SchedulerQueryService`` on reduced llama3-8b
+    in float32 (vocabulary 65536): synchronous and transformed, each
+    query's token tuple, the drives and the observables on the card equal
+    the CPU's, and synchronous = transformed on each."""
+    from repro_torch.core.app_traces import all_traces
+    from repro_torch.core.hir import Interpreter, transform_program
+    from repro_torch.core.runtime import AsyncQueryRuntime
+    from repro_torch.core.strategies import PureBatch
+    from repro_torch.serving.hir_bridge import SchedulerQueryService
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+
+    arch, cpu_params = _bridge_arch()
+    tr = {t.name: t for t in all_traces()}[trace]
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = _to(cpu_params, device)
+        sides, launched = {}, {}
+        for side in ("sync", "async"):
+            eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=8, max_len=16,
+                                       page_size=8, device=device)
+            svc = SchedulerQueryService(eng)
+            registry.reset_launches()
+            if side == "sync":
+                env = Interpreter(svc).run(tr.program, dict(tr.inputs))
+            else:
+                rt = AsyncQueryRuntime(svc, n_threads=4, strategy=PureBatch())
+                try:
+                    env = Interpreter(rt).run(transform_program(tr.program), dict(tr.inputs))
+                finally:
+                    rt.drain()
+                    rt.shutdown()
+            launched[side] = (registry.launch_counts(), eng.dispatches, eng.decode_steps)
+            sides[side] = ({k: env.get(k) for k in tr.observe}, svc.stats.round_trips,
+                           svc.stats.tokens)
+        out[device] = sides
+        assert sides["sync"][0] == sides["async"][0]
+        assert sides["sync"][1] == tr.n_queries > sides["async"][1]
+        if device == "cuda":
+            L = arch.cfg.n_layers
+            for counts, dispatches, ticks in launched.values():
+                assert counts["paged_decode_attention"] == ticks * L
+                assert counts["flash_attention"] == (dispatches - ticks) * L
+    assert out["cuda"] == out["cpu"]
+
+
+def test_reduced_paged_chaos_on_card_matches_cpu(gen):
+    """``ChaosEngine`` over the paged engine with a spill pool, reduced
+    llama3-8b in float32: the seeded faults, the recovery counters and the
+    greedy streams on the card equal the CPU's, and equal a fault-free
+    run's."""
+    from repro_torch.core.faults import ChaosEngine, ChaosPlan, chaos_seed
+    from repro_torch.core.resilience import Resilience
+    from repro_torch.core.strategies import PureAsync
+    from repro_torch.serving.engine import HostSpillPool
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    arch, cpu_params = _reduced("llama3-8b")
+    out = {}
+    for device in ("cuda", "cpu"):
+        for chaos in (False, True):
+            rng = np.random.default_rng(1)
+            eng = PagedInferenceEngine(arch, _to(cpu_params, device), n_lanes=4,
+                                       max_prompt_len=16, max_len=48, page_size=8,
+                                       device=device, kv_spill=HostSpillPool(8))
+            if chaos:
+                eng = ChaosEngine(eng, ChaosPlan(seed=chaos_seed(0), decode_fault_rate=0.25,
+                                                 prefill_fault_rate=0.25))
+            sched = ContinuousBatchingScheduler(
+                eng, strategy=PureAsync(),
+                resilience=Resilience(quarantine_ticks=1) if chaos else None)
+            reqs = [Request(rid=i, prompt=rng.integers(1, 256, size=int(n)).astype(np.int32),
+                            max_new_tokens=24) for i, n in enumerate(rng.integers(3, 17, size=6))]
+            for r in reqs:
+                sched.submit(r)
+            sched.producer_done()
+            sched.run_until_drained()
+            st = sched.stats
+            out[device, chaos] = ({r.rid: r.generated for r in reqs},
+                                  getattr(eng, "injected_decode_faults", 0),
+                                  getattr(eng, "injected_prefill_faults", 0),
+                                  st.quarantined, st.prefill_retries, st.kv_spilled,
+                                  st.kv_restored, eng.decode_steps)
+    assert out["cuda", True] == out["cpu", True]
+    streams, dec, pre, quarantined, retries, spilled, restored, _ = out["cuda", True]
+    assert dec >= 1 and pre >= 1 and quarantined >= 1 and retries >= 1
+    assert spilled == restored
+    assert streams == out["cuda", False][0] == out["cpu", False][0]

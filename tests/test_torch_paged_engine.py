@@ -4,8 +4,9 @@ Twins of the reference's engine tests (``tests/test_prefix_share.py``,
 ``tests/test_paged_kv.py``, ``tests/test_paged_compute.py``): prefix
 sharing with ``_shared_tail``, copy-on-write forks, partial eviction of a
 shared reader, spill/restore with a prefetch tail, oversubscribed pools
-with mid-decode eviction, page quotas, ``paged_view``, and the
-dense-compute mode that pages mamba2's state.  Each test runs the same
+with mid-decode eviction, page quotas, ``paged_view``, the
+dense-compute mode that pages mamba2's state, and ``ChaosEngine``'s
+seeded lane crashes over the paged and the dense engine.  Each test runs the same
 traffic through both packages on the same weights (JAX draws them,
 ``params_from_numpy`` carries them across) in float32: reduced llama3-8b,
 and reduced mamba2 for dense-compute.  Greedy streams and the counters
@@ -26,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import faults as j_faults
+from repro.core import resilience as j_resilience
 from repro.core import strategies as j_strategies
 from repro.models.registry import get_arch as j_get_arch
 from repro.serving.engine import HostSpillPool as JHostSpillPool
@@ -36,7 +39,7 @@ from repro.serving.paged_kv import PagedKVPool as JPagedKVPool
 from repro.serving.paged_kv import PagedKVView as JPagedKVView
 from repro.serving.request import Request as JRequest
 from repro.serving.scheduler import ContinuousBatchingScheduler as JScheduler
-from repro_torch.core import strategies
+from repro_torch.core import faults, resilience, strategies
 from repro_torch.kernels.decode_attention.ref import decode_ref
 from repro_torch.kernels.paged_attention.ops import paged_decode_op
 from repro_torch.models.convert import params_from_numpy
@@ -62,6 +65,8 @@ class Side:
     Request: type
     Spill: type
     strategies: object
+    faults: object
+    resilience: object
     arch: object
     params: object
     kw: dict
@@ -89,9 +94,10 @@ def _make_sides(name: str):
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                                 arch.cfg, device="cpu")
     return (Side("jax", JPagedEngine, JEngine, JScheduler, JRequest, JHostSpillPool,
-                 j_strategies, jarch, jparams, {}),
+                 j_strategies, j_faults, j_resilience, jarch, jparams, {}),
             Side("torch", PagedInferenceEngine, InferenceEngine, ContinuousBatchingScheduler,
-                 Request, HostSpillPool, strategies, arch, tparams, {"device": "cpu"}))
+                 Request, HostSpillPool, strategies, faults, resilience, arch, tparams,
+                 {"device": "cpu"}))
 
 
 @pytest.fixture(scope="module")
@@ -714,4 +720,45 @@ def test_dense_compute_identity_frames_and_tick(ssm_sides):
             eng.retire(r.lane)
         assert eng.pool.n_free_pages == eng.n_pages
         out.append(([r.generated for r in reqs], tables, grown, _counters(eng)))
+    assert out[1] == out[0]
+
+
+# ------------------------------------------------------ ChaosEngine recovery
+@pytest.mark.parametrize("engine", ["paged", "dense"])
+def test_chaos_crash_recovery_bit_identical(sides, engine):
+    """Twin of ``test_prefix_share.py::test_chaos_crash_on_shared_reader_
+    bit_identical``: ``ChaosEngine`` crashes seeded lanes before the device
+    step; the scheduler quarantines the lane, salvages its KV to the spill
+    pool, requeues and restores the request.  On the paged engine with
+    prefix sharing on, the crashes hit shared-prefix readers; on the dense
+    engine, plain lanes.  Every stream equals the fault-free run's (the
+    paged engine's unshared), in each package, and the two packages agree
+    on streams, faults and recovery counters."""
+    prompts = _shared_prompts(np.random.default_rng(71), n_readers=4, tail_tokens=3)
+    out = []
+    for side in sides:
+        def run(chaos, share):
+            kw = dict(n_lanes=3, max_prompt_len=32, max_len=32,
+                      kv_spill=side.Spill(max_entries=16))
+            eng = (side.paged(page_size=8, prefix_share=share, **kw) if engine == "paged"
+                   else side.dense(**kw))
+            if chaos:
+                eng = side.faults.ChaosEngine(eng, side.faults.ChaosPlan(
+                    seed=side.faults.chaos_seed(0), decode_fault_rate=0.25))
+            res = side.resilience.Resilience(quarantine_ticks=1) if chaos else None
+            reqs, sched = _run_sched(side, eng, [p.copy() for p in prompts], max_new=5,
+                                     resilience=res)
+            assert all(len(r.generated) == 5 for r in reqs)
+            return [list(r.generated) for r in reqs], eng, sched
+
+        baseline, _, _ = run(chaos=False, share=False)
+        chaotic, eng, sched = run(chaos=True, share=True)
+        assert eng.injected_decode_faults > 0, "chaos never bit: rate too low"
+        assert sched.stats.quarantined > 0
+        if engine == "paged":
+            assert sched.stats.prefix_hits >= 1  # sharing was exercised
+        assert chaotic == baseline
+        out.append((chaotic, eng.injected_decode_faults, eng.injected_prefill_faults,
+                    sched.stats.quarantined, sched.stats.prefix_hits,
+                    sched.stats.kv_spilled, sched.stats.kv_restored))
     assert out[1] == out[0]
