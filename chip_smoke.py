@@ -21,7 +21,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    at D 16 to 128; ``decode_attention`` at the dense engine's 8 lanes and
    the chunk side's 1; ``paged_decode_attention`` beside
    ``decode_attention`` on the same keys gathered dense, and the host time
-   of one call of each), with the tolerance stated; a repeated call of
+   of one call of each; the three attention kernels again at the head
+   layouts of phases 4l-4o, Hq/Hkv 16/16, 20/20 and 32/2 at D 128, as
+   logged sub-rows), with the tolerance stated; a repeated call of
    any attention kernel must give the same bits; its time, the plain
    version's, one library call's as a yardstick where one exists (never
    called by the port) and the least time the card could take
@@ -79,11 +81,27 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    k. ssm-paged — the ``ssm`` traffic on ``PagedInferenceEngine``'s
       dense-compute mode with a spill pool and ``lane_timeout``: every
       lane spilled and restored whole, streams equal to phase i's;
+   then, the llama3-8b and mamba2 weights freed, deepseek-moe-16b at full
+   width (28 layers: one dense block, then 27 MoE blocks of 64 routed
+   experts top-6 and 2 shared; bf16, router float32; weights from seed 0
+   on the card; two KV stacks):
+   l. moe — phase a's path and traffic on ``PagedInferenceEngine(n_lanes=
+      8)``: ``paged_decode_attention`` = decode steps x 28,
+      ``flash_attention`` = prefill dispatches x 28;
+   m. moe-async — phase b's path and traffic: ``decode_attention`` =
+      tokens fed x 28, no speculation crash;
+   n. moe-dense — phase c's, on ``InferenceEngine``;
+   o. configs — olmo-1b, qwen1.5-4b and chatglm3-6b at full width, one
+      at a time, on phase a's path with 8 requests of 16 new tokens
+      (exact launches by layer count); then the port's serving launcher,
+      ``repro_torch.launch.serve.main(["--arch", "deepseek-moe-16b"])``;
 5. checks — first prefill and first decode tick of the full-width
    llama3-8b, a prefix hit's ``_shared_tail`` logits against a flash
    prefill of the whole prompt, and the first full-width mamba2
    prefill, kernel path against the plain path on the same weights and
-   batch;
+   batch; the same first prefill and tick for deepseek-moe-16b (with the
+   share of (token, k) routes the two paths agree on) and each config of
+   phase o;
 6. profile — ``torch.profiler`` over one full-width llama3-8b prefill
    dispatch, a few decode ticks, one fused tick (a 64-token prompt chunk
    folded into the decode) and one ``_shared_tail`` beside a flash
@@ -91,7 +109,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    few of its decode ticks: host wall time, device busy time, the kernels
    that take the most of it, ``paged_decode_attention``'s device time in
    a decode tick, ``decode_attention``'s in the tail and ``ssd_scan``'s
-   share of the prefill;
+   share of the prefill; then one deepseek-moe-16b decode tick: wall,
+   busy time, kernels, the MoE layers' device time and the routed expert
+   weights' byte bound;
 7. reduced check — the reduced llama3-8b in float32 served on the card
    with the kernels against the same model served on the CPU with the
    plain versions, on the synchronous paged path, the dense engine, the
@@ -100,8 +120,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    three app traces through the bridge (vocabulary raised to 65536) and
    the ``model-service`` program; the reduced mamba2 the same way on the
    dense engine, synchronous and overlap + chunk, and on the paged
-   engine's dense-compute mode with spills (per-request greedy streams
-   and the engine's counters must be equal; synchronous = transformed);
+   engine's dense-compute mode with spills; reduced deepseek-moe-16b,
+   kimi-k2-1t-a32b, olmo-1b, qwen1.5-4b and chatglm3-6b (QKV biases drawn
+   nonzero) on the synchronous paged path, the dense engine, overlap +
+   chunk, prefix sharing and an oversubscribed pool with spill
+   (per-request greedy streams and the engine's counters must be equal;
+   synchronous = transformed);
 8. train — the trainer at full width, after the serving phases: llama3-8b
    (bf16, depth cut to 4 of 32 layers, ``query_embedding=True``,
    ``remat=False``) through ``make_train_step(..., TrainStepConfig(
@@ -141,6 +165,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
+
+# The configurations this script serves reduced in phase 7 beside llama3-8b
+# and mamba2-1.3b.
+NEW_CONFIGS = ("deepseek-moe-16b", "kimi-k2-1t-a32b", "olmo-1b", "qwen1.5-4b", "chatglm3-6b")
 
 
 def log(msg: str) -> None:
@@ -504,7 +532,93 @@ def phase_kernels(timer):
     torch.cuda.synchronize()
     rows["ssd_scan"] = _ssd_scan_kernel(timer, gen)
     rows["batched_gather"] = _batched_gather_kernel(timer, gen)
+    _config_shapes(timer, gen, rng)
     return rows
+
+
+# Head layouts (Hq, Hkv) of the configurations served in phases 4l-4o, all
+# at D 128: deepseek-moe-16b and olmo-1b, qwen1.5-4b, chatglm3-6b.
+CONFIG_HEADS = (("deepseek-moe-16b/olmo-1b", 16, 16), ("qwen1.5-4b", 20, 20),
+                ("chatglm3-6b", 32, 2))
+
+
+def _config_shapes(timer, gen, rng) -> None:
+    """The three attention kernels of the serving paths at the new
+    configurations' head layouts, bf16, D 128, against their plain
+    versions at the tolerances above (1e-2), a repeated call bit for bit,
+    and timed beside the plain version, the bound and the library call
+    (SDPA; the paged kernel has none): a group of 1 (Hq = Hkv) and
+    chatglm's 16 over 2 KV heads (B x 2 = 16 (lane, kv head) items, the
+    decode kernels' largest group).  Logged as sub-rows of the kernels'
+    rows; the JSON line keeps one row per kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention_cuda
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
+
+    d, bf = 128, torch.bfloat16
+    for label, hq, hkv in CONFIG_HEADS:
+        args = _paged_case(gen, rng, 8, hq, hkv, d, 16, 32, bf)
+        out = paged_decode_attention_cuda(*args)
+        err = _compare(f"paged_decode_attention bf16 {label} B=8 Hq={hq} Hkv={hkv} D={d} "
+                       "ps=16 NP=32", out, paged_decode_ref(*args), 1e-2, 1e-2)
+        _repeat(f"paged_decode_attention ({label})",
+                lambda: paged_decode_attention_cuda(*args), out)
+        kv_tokens = int(args[4].sum())
+        bound, by = _bound(args[0].numel() * 2 * 2 + 2 * kv_tokens * hkv * d * 2
+                           + args[3].numel() * 4 + 8 * 4, 4 * hq * d * kv_tokens)
+        log(f"[kernels] paged_decode_attention ({label}, Hq {hq} Hkv {hkv}): " + repr(dict(
+            max_abs_err=err, ms=timer.ms(lambda: paged_decode_attention_cuda(*args)),
+            plain_ms=timer.ms(lambda: paged_decode_ref(*args)), bound_ms=bound,
+            bound_by=by, library_ms=None)))
+        del args, out
+
+        b, sq = 8, 256
+        fq, fk, fv = _flash_case(gen, b, hq, hkv, sq, d, bf)
+        out = flash_attention_cuda(fq, fk, fv, causal=True)
+        err = _compare(f"flash_attention bf16 {label} B={b} Hq={hq} Hkv={hkv} S={sq} D={d} "
+                       "causal", out, attention_ref(fq, fk, fv, causal=True), 1e-2, 1e-2)
+        _repeat(f"flash_attention ({label})",
+                lambda: flash_attention_cuda(fq, fk, fv, causal=True), out)
+        bound, by = _bound(2 * (fq.numel() * 2 + fk.numel() + fv.numel()),
+                           4 * b * hq * d * (sq * (sq + 1) // 2))
+        log(f"[kernels] flash_attention ({label}, Hq {hq} Hkv {hkv}, 8 x 256): " + repr(dict(
+            max_abs_err=err, ms=timer.ms(lambda: flash_attention_cuda(fq, fk, fv, causal=True)),
+            plain_ms=timer.ms(lambda: attention_ref(fq, fk, fv, causal=True)),
+            bound_ms=bound, bound_by=by,
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                fq, fk, fv, is_causal=True, enable_gqa=True)))))
+        del fq, fk, fv, out
+
+        for side, lanes in (("dense engine", 8), ("chunk side", 1)):
+            dq, dk, dv, dlen = _decode_case(gen, rng, lanes, hq, hkv, 512, d, bf)
+            out = decode_attention_cuda(dq, dk, dv, dlen)
+            err = _compare(f"decode_attention bf16 {label} ({side}) B={lanes} Hq={hq} "
+                           f"Hkv={hkv} T=512 D={d} lengths={dlen.tolist()}", out,
+                           decode_ref(dq, dk, dv, dlen), 1e-2, 1e-2)
+            _repeat(f"decode_attention ({label}, {side})",
+                    lambda: decode_attention_cuda(dq, dk, dv, dlen), out)
+            kv_tokens = int(dlen.sum())
+            bound, by = _bound(dq.numel() * 2 * 2 + 2 * kv_tokens * hkv * d * 2 + lanes * 4,
+                               4 * hq * d * kv_tokens)
+            valid = (torch.arange(512, device="cuda")[None, :] < dlen[:, None].long())
+
+            def library(dq=dq, dk=dk, dv=dv, valid=valid):
+                return F.scaled_dot_product_attention(
+                    dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
+                    attn_mask=valid[:, None, None, :], enable_gqa=True)[:, :, 0]
+
+            log(f"[kernels] decode_attention ({label}, Hq {hq} Hkv {hkv}, {side}): "
+                + repr(dict(max_abs_err=err,
+                            ms=timer.ms(lambda: decode_attention_cuda(dq, dk, dv, dlen)),
+                            plain_ms=timer.ms(lambda: decode_ref(dq, dk, dv, dlen)),
+                            bound_ms=bound, bound_by=by, library_ms=timer.ms(library))))
+            del dq, dk, dv, out
+    torch.cuda.synchronize()
 
 
 def _scan_case(gen, shape, dtype):
@@ -711,8 +825,10 @@ def _expect(label, launches, want: dict) -> None:
         fail(f"{label}: a kernel of the path never launched")
 
 
-def phase_main_path(arch, params, device="cuda"):
-    """The synchronous path: ``overlap=False``, paged engine."""
+def phase_main_path(arch, params, device="cuda", label="main", n: int = 16,
+                    max_new: int = 32):
+    """The synchronous path: ``overlap=False``, paged engine, ``n``
+    requests of ``max_new`` tokens."""
     from repro_torch.core.strategies import GrowingUpperThreshold
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
@@ -723,14 +839,14 @@ def phase_main_path(arch, params, device="cuda"):
                                max_len=512, page_size=16, device=device)
     sched = ContinuousBatchingScheduler(
         eng, strategy=GrowingUpperThreshold(initial_upper=2))
-    launches, _wall = _drive("main", eng, sched, _requests(Request, arch.cfg.vocab_size),
-                             device)
+    launches, _wall = _drive(label, eng, sched,
+                             _requests(Request, arch.cfg.vocab_size, n, max_new), device)
     prefills = eng.dispatches - eng.decode_steps
     if eng.decode_steps == 0 or prefills == 0:
-        fail("the main path ran no decode step or no prefill")
+        fail(f"{label}: the path ran no decode step or no prefill")
     # One launch per layer per dispatch: decode ticks run the paged kernel,
     # prefill dispatches the flash kernel; nothing runs the dense decode.
-    _expect("main", launches, {"paged_decode_attention": eng.decode_steps * L,
+    _expect(label, launches, {"paged_decode_attention": eng.decode_steps * L,
                                "flash_attention": prefills * L,
                                "decode_attention": 0, "ssd_scan": 0})
     _sync(device)
@@ -752,7 +868,7 @@ def _count_calls(eng, name: str, weight=lambda *a: 1):
     return box
 
 
-def phase_async(arch, params, device="cuda", chunk: int = 256):
+def phase_async(arch, params, device="cuda", chunk: int = 256, label="async"):
     """The paper's asynchronous path: ``overlap=True`` (prefills
     dispatched on the speculation thread, on the engine's own stream,
     while the main thread decodes), ``chunk_tokens`` (prompts longer than
@@ -777,30 +893,30 @@ def phase_async(arch, params, device="cuda", chunk: int = 256):
     # decode_attention launch per layer (chunks are batch 1).
     fed = _count_calls(eng, "_extend", lambda _c, toks, _l: int(toks.shape[1]))
     reqs = _async_requests(Request, arch.cfg.vocab_size)
-    launches, wall = _drive("async", eng, sched, reqs, device)
+    launches, wall = _drive(label, eng, sched, reqs, device)
     st = sched.stats
     whole = sum(max(0, min(len(r.prompt), eng.max_len - 1) - chunk) for r in reqs)
-    log(f"[async] spec_dispatched {st.spec_dispatched}, spec_committed "
+    log(f"[{label}] spec_dispatched {st.spec_dispatched}, spec_committed "
         f"{st.spec_committed}, spec_aborted {st.spec_aborted}, spec_chunks "
         f"{st.spec_chunks}, spec_crashes {st.spec_crashes}, fused_folds "
         f"{eng.fused_folds}; prefill dispatches {n_prefill[0]}, chunk extends "
         f"{n_extend[0]}, tokens through the decode path {fed[0]} (the long "
         f"prompts past their first chunk: {whole})")
     if st.spec_crashes != 0 or st.spec_chunks < 2 or eng.fused_folds < 1:
-        fail("async: need spec_crashes == 0, spec_chunks >= 2, fused_folds >= 1")
+        fail(f"{label}: need spec_crashes == 0, spec_chunks >= 2, fused_folds >= 1")
     if fed[0] < whole:
-        fail("async: the long prompts were not fed whole through the chunks")
+        fail(f"{label}: the long prompts were not fed whole through the chunks")
     if eng.dispatches != (n_prefill[0] + n_extend[0] + eng.decode_steps
                           - eng.fused_folds):
-        fail("async: dispatches != prefills + extends + ticks - fused folds")
-    _expect("async", launches, {"paged_decode_attention": eng.decode_steps * L,
+        fail(f"{label}: dispatches != prefills + extends + ticks - fused folds")
+    _expect(label, launches, {"paged_decode_attention": eng.decode_steps * L,
                                 "flash_attention": n_prefill[0] * L,
                                 "decode_attention": fed[0] * L, "ssd_scan": 0})
     _sync(device)
     return launches, wall
 
 
-def phase_dense(arch, params, device="cuda"):
+def phase_dense(arch, params, device="cuda", label="dense"):
     """The dense engine as a second entry point: phase 4's requests, each
     decode tick one ``decode_step`` over the stacked lane cache."""
     from repro_torch.core.strategies import GrowingUpperThreshold
@@ -813,9 +929,9 @@ def phase_dense(arch, params, device="cuda"):
                           device=device)
     sched = ContinuousBatchingScheduler(
         eng, strategy=GrowingUpperThreshold(initial_upper=2))
-    launches, _wall = _drive("dense", eng, sched, _requests(Request, arch.cfg.vocab_size),
+    launches, _wall = _drive(label, eng, sched, _requests(Request, arch.cfg.vocab_size),
                              device)
-    _expect("dense", launches, {"decode_attention": eng.decode_steps * L,
+    _expect(label, launches, {"decode_attention": eng.decode_steps * L,
                                 "flash_attention": (eng.dispatches - eng.decode_steps) * L,
                                 "paged_decode_attention": 0, "ssd_scan": 0})
     _sync(device)
@@ -1503,6 +1619,99 @@ def phase_ssm_paged(arch, params, ssm_streams, device="cuda", lane_timeout: int 
     return launches, wall
 
 
+def _init_full(name: str, smi: str):
+    """A config at full width, weights drawn from seed 0 on the card; logs
+    the reference's parameter counts beside the tensors' own."""
+    import torch
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch(name)
+    cfg = arch.cfg
+    t0 = time.perf_counter()
+    params = arch.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(int(a.numel()) for a in _leaves(params))
+    nbytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    # The reference's analytic param_count() leaves out the final norm's
+    # d_model weights (none for olmo's non-parametric norm).
+    final_norm = sum(int(a.numel()) for a in _leaves(params["final_norm"]))
+    log(f"[{name}] on {smi}: full width, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}; {n_params} parameters, "
+        f"{nbytes} bytes (param_count() {cfg.param_count()} + final norm {final_norm}, "
+        f"active per token {cfg.active_param_count()}), drawn from seed 0 in "
+        f"{time.perf_counter() - t0!r} s")
+    if n_params != cfg.param_count() + final_norm:
+        fail(f"{name}: {n_params} parameters drawn, param_count() says {cfg.param_count()}")
+    return arch, params
+
+
+def _warm(arch, params) -> None:
+    """One prefill dispatch of 8 prompts and two decode ticks on a
+    throw-away paged engine before a new model's first timed path, so
+    that path's numbers do not carry the first calls' set-up (library
+    kernels loaded, cuBLAS heuristics); its launches are not counted (the
+    next path zeroes the counts)."""
+    import torch
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    t0 = time.perf_counter()
+    eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256,
+                               max_len=512, page_size=16)
+    with torch.no_grad():
+        eng.commit_prefill(eng.prefill_dispatch(_requests(Request, arch.cfg.vocab_size, n=8)))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            eng.decode_tick()
+    torch.cuda.synchronize()
+    log(f"[{arch.cfg.name}] warm-up: the first prefill dispatch {t1 - t0!r} s, two "
+        f"decode ticks {time.perf_counter() - t1!r} s")
+
+
+def phase_configs(smi, names=("olmo-1b", "qwen1.5-4b", "chatglm3-6b")):
+    """The dense configs at full width, one at a time, each on the
+    synchronous paged path with 8 requests of 16 new tokens (exact launch
+    counts by layer count), then phase 5's kernel-vs-plain check of its
+    first prefill and decode tick.  Returns the summed launch counts."""
+    import torch
+
+    total = {}
+    for name in names:
+        arch, params = _init_full(name, smi)
+        _warm(arch, params)
+        launches = phase_main_path(arch, params, label=f"configs {name}", n=8, max_new=16)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        phase_logits_check(arch, params)
+        del arch, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_launcher(smi, name: str = "deepseek-moe-16b"):
+    """The port's serving entry point, ``repro_torch.launch.serve.main``,
+    once on the card at full width (its own weights, the dense engine, 32
+    requests of 16 tokens).  Returns its launch counts."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    serve.main(["--arch", name])
+    torch.cuda.synchronize()
+    launches = registry.launch_counts()
+    log(f"[launcher] {name} on {smi}: repro_torch.launch.serve.main in "
+        f"{time.perf_counter() - t0!r} s, launches {launches}")
+    if not (launches["flash_attention"] and launches["decode_attention"]):
+        fail("launcher: the dense engine's kernels never launched")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ----------------------------------------------------------------- phase 5
 def _plain_ops():
     """Patch the model's two kernel ops with their plain versions (the
@@ -1519,7 +1728,89 @@ def _plain_ops():
             mock.patch.object(pd_mod, "paged_decode_op", paged_decode_ref))
 
 
+class _Routes:
+    """Instrumentation of this script's checks (the port has no such
+    switch): ``record()`` keeps the experts ``moe._route`` picks, call by
+    call; ``replay(calls)`` makes ``_route`` take those experts instead of
+    its own top-k, with the gates and positions computed as ``_route``
+    computes them from the current input, so a second path can run on the
+    first path's routes."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_mod
+        self.mod, self.inner, self.calls = moe_mod, moe_mod._route, []
+
+    def _record(self, *args):
+        out = self.inner(*args)
+        self.calls.append(out[1])
+        return out
+
+    def _replay(self, router_w, cfg, x, C):
+        import torch
+        idx = self.calls.pop(0)
+        probs = torch.softmax(torch.matmul(x.float(), router_w.float()), dim=-1)
+        gate = probs.gather(-1, idx)
+        gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+        pos = self.mod._positions(idx, cfg.n_experts)
+        return probs, idx, gate * (pos < C).float(), pos
+
+    def record(self):
+        self.calls = []
+        return mock.patch.object(self.mod, "_route", self._record)
+
+    def replay(self, calls):
+        self.calls = list(calls)
+        return mock.patch.object(self.mod, "_route", self._replay)
+
+
+def _route_agreement(label, kern_calls, plain_calls) -> None:
+    """Share of (token, k) routes of the kernel path that the plain path
+    also took, over every MoE layer of one dispatch: bf16 hidden states
+    that differ in their last bits can flip a near-tie in the top-k."""
+    if len(kern_calls) != len(plain_calls) or not kern_calls:
+        fail(f"{label}: the two paths routed {len(kern_calls)} and {len(plain_calls)} layers")
+    same = total = 0
+    for a, b in zip(kern_calls, plain_calls):
+        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        hit = (a[:, :, None] == b[:, None, :]).any(-1)
+        same += int(hit.sum())
+        total += hit.numel()
+    log(f"[check] {label}: {same}/{total} (token, k) routes agree between the kernel "
+        f"path and the plain path ({same / total!r}) over {len(kern_calls)} MoE layers")
+
+
+def _check_paths(label, cfg, run) -> None:
+    """``run(plain)`` → logits (B, V) of one dispatch, through the kernels
+    or, with ``plain``, their plain versions (``_plain_ops``).  A dense
+    config is gated on the two directly.  For a MoE config a flipped
+    near-tie in some layer's top-k sends a token through other experts,
+    which moves its logits by far more than the attention paths' rounding:
+    the free-routed comparison and the share of routes the paths agree on
+    are logged, and the gate holds the plain path run on the kernel path's
+    routes against the kernel path."""
+    routes = _Routes()
+    with routes.record():
+        kern = run(False)
+    kern_routes = routes.calls
+    p1, p2 = _plain_ops()
+    with p1, p2, routes.record():
+        plain = run(True)
+    if not cfg.is_moe:
+        _report_logits(label, kern, plain)
+        return
+    _route_agreement(label, kern_routes, routes.calls)
+    _report_logits(f"{label}, routed freely (logged, not gated)", kern, plain, gate=False)
+    p1, p2 = _plain_ops()
+    with p1, p2, routes.replay(kern_routes):
+        pinned = run(True)
+    _report_logits(f"{label}, the plain path on the kernel path's routes", kern, pinned)
+
+
 def phase_logits_check(arch, params, device="cuda"):
+    """First prefill and first decode tick at full width, kernel path
+    against the plain path on the same weights and batch (``_check_paths``:
+    for a MoE config on the same routes, with the share of routes the two
+    paths agree on when each routes freely)."""
     import torch
     from repro_torch.models import transformer as tf
     from repro_torch.models.paged_decode import paged_decode_step
@@ -1527,6 +1818,7 @@ def phase_logits_check(arch, params, device="cuda"):
     from repro_torch.serving.request import Request
 
     cfg = arch.cfg
+    name = f"{cfg.name}: " if cfg.name != "llama3-8b" else ""
     eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256,
                                max_len=512, page_size=16, device=device)
     reqs = _requests(Request, cfg.vocab_size, n=8)
@@ -1537,11 +1829,9 @@ def phase_logits_check(arch, params, device="cuda"):
     rows = torch.arange(len(reqs), device=device)
     last = torch.as_tensor(staged.plens - 1, device=device).long()
     with torch.no_grad():
-        kern = tf.prefill(cfg, params, toks, return_all_logits=True)[0][rows, last]
-        p1, p2 = _plain_ops()
-        with p1, p2:
-            plain = tf.prefill(cfg, params, toks, return_all_logits=True)[0][rows, last]
-    _report_logits("first prefill (flash kernel vs plain attention)", kern, plain)
+        _check_paths(f"{name}first prefill (flash kernel vs plain attention)", cfg,
+                     lambda _plain: tf.prefill(cfg, params, toks,
+                                               return_all_logits=True)[0][rows, last])
 
     eng.commit_prefill(staged)
     for lane in range(eng.n_lanes):  # the first tick's write page
@@ -1549,19 +1839,21 @@ def phase_logits_check(arch, params, device="cuda"):
     token = torch.as_tensor(eng.last_token, device=device)
     args = (eng._device_tables(), torch.as_tensor(eng.lengths, device=device),
             torch.as_tensor(eng.active, device=device))
+    pages = {}
 
-    def clone(cache):
-        return {n: {k: a.clone() for k, a in st.items()} for n, st in cache.items()}
+    def tick(plain):
+        cache = {n: {k: a.clone() for k, a in st.items()} for n, st in eng.cache.items()}
+        logits, pages[plain] = paged_decode_step(cfg, params, token, cache, *args)
+        return logits
 
     with torch.no_grad():
-        kern, kc = paged_decode_step(cfg, params, token, clone(eng.cache), *args)
-        p1, p2 = _plain_ops()
-        with p1, p2:
-            plain, pc = paged_decode_step(cfg, params, token, clone(eng.cache), *args)
-    _report_logits("first decode tick (paged kernel vs plain paged attention)", kern, plain)
+        _check_paths(f"{name}first decode tick (paged kernel vs plain paged attention)",
+                     cfg, tick)
+    kc, pc = pages[False], pages[True]
     diff = max(float((kc[n][k].float() - pc[n][k].float()).abs().max())
                for n in kc for k in kc[n])
-    log(f"[check] first decode tick: page arrays max abs diff {diff!r}")
+    log(f"[check] {name}first decode tick: page arrays max abs diff {diff!r}")
+    del eng, kc, pc, pages
     _sync(device)
 
 
@@ -1668,7 +1960,7 @@ def phase_ssm_logits_check(arch, params, device="cuda"):
     _sync(device)
 
 
-def _report_logits(label, kern, plain):
+def _report_logits(label, kern, plain, gate: bool = True):
     import torch
     if not bool(torch.isfinite(kern).all()):
         fail(f"{label}: non-finite logits")
@@ -1682,7 +1974,7 @@ def _report_logits(label, kern, plain):
     # closer together than that rounding, so exact agreement is not
     # expected.  On the H100 the difference reads about 0.017 x max |logit|;
     # a broken kernel moves every row well past the 0.05 gate.
-    if agree < kern.shape[0] - 2 or diff > 0.05 * scale:
+    if gate and (agree < kern.shape[0] - 2 or diff > 0.05 * scale):
         fail(f"{label}: kernel path and plain path disagree")
 
 
@@ -1793,6 +2085,74 @@ def phase_ssm_profile(arch, params, ticks: int = 4):
     torch.cuda.synchronize()
 
 
+def phase_moe_profile(arch, params, ticks: int = 4):
+    """One full-width deepseek-moe-16b decode tick of 8 lanes under the
+    profiler: host wall time, device busy time, kernel count, the device
+    time of the MoE layers (kernels launched inside ``moe``, through a
+    ``record_function`` range around each call) and the least time that
+    reading every routed expert's weights once takes (the capacity form
+    runs every expert over its slots each tick)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    cfg = arch.cfg
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    expert_bytes = n_moe * cfg.n_experts * 3 * cfg.d_model * cfg.moe_d_ff * 2
+    all_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256,
+                               max_len=512, page_size=16)
+    inner = tf.moe
+
+    def moe_range(*args):
+        with record_function("moe_layer"):
+            return inner(*args)
+
+    with torch.no_grad():
+        eng.commit_prefill(eng.prefill_dispatch(_requests(Request, cfg.vocab_size, n=8)))
+        for _ in range(2):
+            eng.decode_tick()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.decode_tick()
+        torch.cuda.synchronize()
+        log(f"[profile] {cfg.name} decode tick, 8 lanes, no profiler: "
+            f"{(time.perf_counter() - t0) / ticks * 1e3!r} ms wall (mean of {ticks})")
+        with mock.patch.object(tf, "moe", moe_range), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.decode_tick()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    # The range is a CPU op whose device_time_total is its kernels' time,
+    # and a device-side annotation whose time is the span the 27 ranges
+    # cover on the device's timeline (kernels and the gaps between them).
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"
+               and e.self_device_time_total > 0 and e.key != "moe_layer"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    moe_ms = sum(e.device_time_total for e in events
+                 if e.key == "moe_layer" and e.device_type.name == "CPU") / 1e3
+    span = sum(e.self_device_time_total for e in events
+               if e.key == "moe_layer" and e.device_type.name == "CUDA") / 1e3
+    log(f"[profile] {cfg.name} decode tick under the profiler: {wall!r} ms wall, "
+        f"{busy!r} ms device busy ({busy / wall!r} busy share), "
+        f"{sum(e.count for e in kernels)} kernels")
+    log(f"[profile]   MoE layers ({n_moe}): "
+        + (f"{moe_ms!r} ms of kernels ({moe_ms / busy!r} of the busy time), spanning "
+           f"{span!r} ms of the device's timeline"
+           if moe_ms else "device time not measured (no device time under the range)"))
+    log(f"[profile]   byte bound: the routed experts' weights {expert_bytes} bytes, "
+        f"{expert_bytes / HBM_BYTES_PER_S * 1e3!r} ms at {HBM_BYTES_PER_S:.3g} B/s; "
+        f"every weight once, {all_bytes} bytes, {all_bytes / HBM_BYTES_PER_S * 1e3!r} ms")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile]   {e.self_device_time_total / 1e3!r} ms  x{e.count}  {e.key[:90]}")
+    torch.cuda.synchronize()
+
+
 def _reduced_run(kind, arch, params, device):
     """One reduced-model serving run: ``kind`` is "paged" (phase 4's
     synchronous path), "dense" (the dense engine), "async" (paged,
@@ -1881,6 +2241,11 @@ def phase_reduced_check(name: str = "llama3-8b",
     arch = get_arch(name)
     arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
     cpu_params = arch.init(seed=0, device="cpu")
+    if arch.cfg.qkv_bias:  # the init's zeros would hide a missing add
+        gen = torch.Generator().manual_seed(1)
+        for b in ("bq", "bk", "bv"):
+            a = cpu_params["layers"]["attn"][b]
+            a.copy_(0.5 * torch.randn(a.shape, generator=gen))
     card_params = _to(cpu_params, "cuda")
     for kind in kinds:
         registry.reset_launches()
@@ -2190,7 +2555,7 @@ def _clone(tree):
 # -------------------------------------------------------------------- main
 def main() -> None:
     t_start = time.perf_counter()
-    smi, name = phase_card()
+    smi, kind = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.models.registry import get_arch
@@ -2251,10 +2616,29 @@ def main() -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    arch, params = _init_full("deepseek-moe-16b", smi)
+    _warm(arch, params)
+    paths["moe"] = phase_main_path(arch, params, label="moe")
+    log(f"[moe-async] on {smi}")
+    paths["moe-async"], moe_async_wall = phase_async(arch, params, label="moe-async")
+    log(f"[moe-dense] on {smi}")
+    paths["moe-dense"] = phase_dense(arch, params, label="moe-dense")
+    log(f"[check] on {smi}")
+    phase_logits_check(arch, params)
+    log(f"[profile] on {smi}")
+    phase_moe_profile(arch, params)
+    del arch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["configs"] = phase_configs(smi)
+    paths["launcher"] = phase_launcher(smi)
     paths.update(phase_train(smi))
     phase_reduced_check()
     phase_reduced_bridge()
     phase_reduced_check("mamba2-1.3b", ("dense", "dense-async", "paged-ssm"))
+    for config in NEW_CONFIGS:
+        phase_reduced_check(config, ("paged", "dense", "async", "paged-prefix", "paged-spill"))
     log(f"[check] on {smi}")
     phase_train_reduced()
     log(f"[fission] on {smi}")
@@ -2265,14 +2649,14 @@ def main() -> None:
     launches = {n: sum(p[n] for p in paths.values()) for n in rows}
     log(f"[paths] launches by path {paths}; async wall {async_wall!r} s, ssm wall "
         f"{ssm_wall!r} s, ssm-async wall {ssm_async_wall!r} s, ssm-paged wall "
-        f"{ssm_paged_wall!r} s")
+        f"{ssm_paged_wall!r} s, moe-async wall {moe_async_wall!r} s")
     kernels = [dict(name=n, launches=launches[n], **rows[n]) for n in sorted(rows)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[total] {time.perf_counter() - t_start!r} s, kernel builds included")
     log(smi)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
 

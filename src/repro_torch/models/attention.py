@@ -1,8 +1,9 @@
 """Grouped-query attention with RoPE and the stacked KV cache.
 
-Port of :mod:`repro.models.attention` (``_project_qkv`` ``:52``, ``_rope``,
-``attention`` ``:94``, ``init_kv_cache`` ``:176``, ``decode_attention``
-``:186``).  The reference computes attention in plain jnp; here causal
+Port of :mod:`repro.models.attention` (``_project_qkv`` ``:52``, with the
+QKV biases added in the compute dtype after the projection's cast,
+``_rope`` with the standard and ChatGLM's half RoPE, ``attention``
+``:94``, ``init_kv_cache`` ``:176``, ``decode_attention`` ``:186``).  The reference computes attention in plain jnp; here causal
 self-attention goes through the ``flash_attention`` op and one-token
 decode through the ``decode_attention`` op, i.e. the hand-written CUDA
 kernels on the card and their plain versions on the CPU.  The model keeps
@@ -37,24 +38,28 @@ from repro_torch.kernels.decode_attention.ops import decode_op
 from repro_torch.kernels.flash_attention.ops import attention_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, apply_rope_half, dense_init
 
 __all__ = ["attn_params", "attention", "decode_attention", "init_kv_cache"]
 
 
 def attn_params(gen: torch.Generator, cfg: ModelConfig, device,
                 lead: tuple = ()) -> dict:
-    """wq (d, H, hd), wk/wv (d, Hkv, hd), wo (H, hd, d), stacked on ``lead``."""
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported yet")
+    """wq (d, H, hd), wk/wv (d, Hkv, hd), wo (H, hd, d), stacked on ``lead``;
+    with ``cfg.qkv_bias`` also bq (H, hd) and bk/bv (Hkv, hd), zeros as in
+    the reference."""
     d, hd, h, hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     pd = cfg.pdtype
-    return {
+    p = {
         "wq": dense_init(gen, d, h * hd, pd, device, lead=lead).reshape(lead + (d, h, hd)),
         "wk": dense_init(gen, d, hkv * hd, pd, device, lead=lead).reshape(lead + (d, hkv, hd)),
         "wv": dense_init(gen, d, hkv * hd, pd, device, lead=lead).reshape(lead + (d, hkv, hd)),
         "wo": dense_init(gen, h * hd, d, pd, device, lead=lead).reshape(lead + (h, hd, d)),
     }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", h), ("bk", hkv), ("bv", hkv)):
+            p[name] = torch.zeros(lead + (heads, hd), dtype=pd, device=device)
+    return p
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
@@ -66,12 +71,19 @@ def _proj(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_x=None):
     cd = cfg.cdtype
     kv_x = x if kv_x is None else kv_x
-    return _proj(x, p["wq"], cd), _proj(kv_x, p["wk"], cd), _proj(kv_x, p["wv"], cd)
+    q, k, v = _proj(x, p["wq"], cd), _proj(kv_x, p["wk"], cd), _proj(kv_x, p["wv"], cd)
+    if "bq" in p:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    return q, k, v
 
 
 def _rope(cfg: ModelConfig, q, k, positions):
     if cfg.rope == "standard":
         return apply_rope(q, k, positions, cfg.rope_theta)
+    if cfg.rope == "half":
+        return apply_rope_half(q, k, positions, cfg.rope_theta)
     if cfg.rope == "none":
         return q, k
     raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet")

@@ -1,7 +1,8 @@
 """ModelConfig — the port's copy of :mod:`repro.models.config`.
 
-The fields and ``reduced()`` are the reference's, so one config describes
-the same model in both packages; ``pdtype``/``cdtype`` return
+The fields, ``param_count()``, ``active_param_count()`` and ``reduced()``
+are the reference's, so one config describes the same model, with the
+same counts, in both packages; ``pdtype``/``cdtype`` return
 :class:`torch.dtype` instead of JAX dtypes.  The dry-run shape table
 (``ShapeSpec``/``SHAPES``) is not ported: nothing in the port lowers cells.
 """
@@ -99,6 +100,62 @@ class ModelConfig:
     @property
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+    # ----------------------------------------------------------- param count
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks + head)."""
+        d, v = self.d_model, self.vocab_size
+        n = v * d  # embedding
+        if not self.tie_embeddings:
+            n += v * d
+        hd, nh, nkv = self.hd, self.n_heads, self.n_kv_heads
+        att = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+        if self.qkv_bias:
+            att += (nh + 2 * nkv) * hd
+        per_layer = 0
+        n_attn_layers = self.n_layers if self.family != "ssm" else 0
+        n_moe_layers = max(0, self.n_layers - self.first_dense_layers) if self.is_moe else 0
+        n_dense_ff_layers = self.n_layers - n_moe_layers if not self.is_ssm else 0
+        # attention + norms
+        if self.family != "ssm":
+            per_layer += att + 2 * (d if self.norm != "nonparam_ln" else 0)
+        # dense FFN
+        ff_params = 3 * d * self.d_ff if self.act in ("swiglu", "geglu") else 2 * d * self.d_ff
+        n_total = n + n_attn_layers * (att + (2 * d if self.norm != "nonparam_ln" else 0))
+        n_total += n_dense_ff_layers * ff_params
+        if self.is_moe:
+            e_ff = 3 * d * self.moe_d_ff
+            n_total += n_moe_layers * (
+                self.n_experts * e_ff
+                + self.n_shared_experts * e_ff
+                + d * self.n_experts  # router
+            )
+        if self.family in ("ssm", "hybrid"):
+            sh, sp, ns = self.ssm_heads, self.ssm_head_dim, self.ssm_state
+            d_inner = sh * sp
+            ssm = (
+                d * (2 * d_inner + 2 * ns + sh)  # in_proj (x, z, B, C, dt)
+                + d_inner * d  # out_proj
+                + self.ssm_conv * (d_inner + 2 * ns)  # conv
+                + 2 * sh  # A_log, D
+            )
+            n_total += self.n_layers * ssm
+        if self.is_encoder_decoder:
+            # encoder layers + cross attention in decoder
+            enc = self.n_enc_layers * (att + ff_params + 2 * d)
+            cross = self.n_layers * att
+            n_total += enc + cross
+        return int(n_total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if not self.is_moe:
+            return self.param_count()
+        full = self.param_count()
+        n_moe_layers = max(0, self.n_layers - self.first_dense_layers)
+        e_ff = 3 * self.d_model * self.moe_d_ff
+        inactive = n_moe_layers * (self.n_experts - self.top_k) * e_ff
+        return int(full - inactive)
 
     # ------------------------------------------------------------- reduction
     def reduced(self) -> "ModelConfig":

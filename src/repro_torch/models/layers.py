@@ -1,10 +1,10 @@
-"""Shared layers: RMSNorm, standard RoPE, initializers, ``linear``.
+"""Shared layers: norms, RoPE variants, initializers, ``linear``.
 
-Port of :mod:`repro.models.layers` (``rmsnorm`` ``:64``, ``apply_norm``,
-``apply_rope`` ``:125``).  Norms and RoPE run in float32 whatever the
-compute dtype, as in the reference.  The other norms and RoPE variants
-(layernorm, ChatGLM's half RoPE, M-RoPE) belong to later slices and raise
-``NotImplementedError``.
+Port of :mod:`repro.models.layers` (``rmsnorm`` ``:64``, ``layernorm``
+``:71``, ``nonparam_ln`` ``:80``, ``norm_params``, ``apply_norm``,
+``apply_rope`` ``:125``, ``apply_rope_half`` ``:141``).  Norms and RoPE
+run in float32 whatever the compute dtype, as in the reference.  M-RoPE
+(qwen2-vl) belongs to a later slice (``attention._rope`` raises for it).
 """
 from __future__ import annotations
 
@@ -17,9 +17,13 @@ __all__ = [
     "dense_init",
     "embed_init",
     "rmsnorm",
+    "layernorm",
+    "nonparam_ln",
+    "norm_params",
     "apply_norm",
     "rope_freqs",
     "apply_rope",
+    "apply_rope_half",
     "linear",
 ]
 
@@ -55,10 +59,47 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (nrm * weight.float()).to(dt)
 
 
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
+def nonparam_ln(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm (no scale/bias) [arXiv:2402.00838]."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt)
+
+
+def norm_params(kind: str, dim: int, dtype, device, lead: tuple = ()) -> dict:
+    """A norm's leaves, stacked along ``lead``: ``{"w"}`` of ones for
+    RMSNorm, ``{"w", "b"}`` (ones, zeros) for LayerNorm, none for OLMo's."""
+    shape = lead + (dim,)
+    if kind == "rmsnorm":
+        return {"w": torch.ones(shape, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"w": torch.ones(shape, dtype=dtype, device=device),
+                "b": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "nonparam_ln":
+        return {}
+    raise ValueError(kind)
+
+
 def apply_norm(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
     if kind == "rmsnorm":
         return rmsnorm(x, p["w"])
-    raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    if kind == "layernorm":
+        return layernorm(x, p["w"], p["b"])
+    if kind == "nonparam_ln":
+        return nonparam_ln(x)
+    raise ValueError(kind)
 
 
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
@@ -86,3 +127,15 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
     sin = torch.sin(ang)[:, :, None, :]
     return (_rotate(q.float(), cos, sin).to(q.dtype),
             _rotate(k.float(), cos, sin).to(k.dtype))
+
+
+def apply_rope_half(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+                    theta: float):
+    """ChatGLM's 2D RoPE: rotary on the first half of the head dim only,
+    with the frequencies of that half (``rope_freqs(d // 2)``, as the
+    reference calls ``apply_rope`` on the slices); the second half passes
+    through unchanged."""
+    rot = q.shape[-1] // 2
+    q1, k1 = apply_rope(q[..., :rot], k[..., :rot], positions, theta)
+    return (torch.cat([q1, q[..., rot:]], dim=-1),
+            torch.cat([k1, k[..., rot:]], dim=-1))

@@ -13,7 +13,12 @@ Two differences from the reference, neither visible in the results:
   reference returns new arrays from ``.at[].set`` and relies on buffer
   donation.  ``paged_decode_step`` returns the same cache dict it got;
 * the write slot, physical page and attention length are the same for
-  every layer, so they are computed once per step instead of per layer.
+  every layer of every stack, so they are computed once per step instead
+  of per layer.
+
+A MoE config runs its stacks in order (``dense_layers``, then ``layers``,
+whose blocks hold ``moe``); each stack has its own page arrays, and all
+share the block tables and the write slots.
 
 Physical page ``P - 1`` is a **trash page**: inactive lanes' KV writes go
 there, so a batched step never touches a page an active request owns.
@@ -29,9 +34,9 @@ from repro_torch.kernels.paged_attention.ops import paged_decode_op
 from repro_torch.models.attention import _out_proj, _project_qkv, _rope
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm
-from repro_torch.models.mlp import mlp
 from repro_torch.models.transformer import (
     _embed,
+    _ffn,
     _head,
     _layer_stacks,
     _stack_names,
@@ -133,24 +138,26 @@ def paged_decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     """Batched one-token decode over paged KV.
 
     ``token``/``lengths`` (B,) int32, ``active`` (B,) bool; ``cache`` is
-    ``{stack: {"k": (L, P, ps, Hkv, hd), "v": ...}}`` and ``block_tables``
-    (B, max_pages) int32, shared by every layer.  Updates ``cache`` in
-    place and returns ``(logits (B, V) float32, cache)``.
+    ``{stack: {"k": (L, P, ps, Hkv, hd), "v": ...}}`` for each stack, and
+    ``block_tables`` (B, max_pages) int32, shared by every layer of every
+    stack.  Updates ``cache`` in place and returns ``(logits (B, V)
+    float32, cache)``.
     """
+    if not supports_paged_decode(cfg):
+        raise NotImplementedError(f"{cfg.name}: paged decode covers full-context "
+                                  "dense and MoE stacks only")
     x = _embed(cfg, params, token[:, None])
+    first = cache[_stack_names(cfg)[0][0]]["k"]
+    phys, off, att_len = _write_slots(block_tables, lengths, active,
+                                      first.shape[1], first.shape[2])
     for (name, kind, n), (stacked, _k2, _n2) in zip(
             _stack_names(cfg), _layer_stacks(cfg, params)):
-        if kind != "dense":
-            raise NotImplementedError(f"paged decode of {kind!r} blocks is "
-                                      "not ported yet")
         k_all, v_all = cache[name]["k"], cache[name]["v"]
-        phys, off, att_len = _write_slots(block_tables, lengths, active,
-                                          k_all.shape[1], k_all.shape[2])
         for i in range(n):
             lp = layer_slice(stacked, i)
             h = apply_norm(cfg.norm, lp["ln1"], x)
             x = x + _paged_attention(lp["attn"], cfg, h, k_all[i], v_all[i],
                                      block_tables, lengths, phys, off, att_len)
-            x = x + mlp(lp["mlp"], cfg, apply_norm(cfg.norm, lp["ln2"], x))
+            x = x + _ffn(lp, cfg, kind, apply_norm(cfg.norm, lp["ln2"], x))[0]
     x = apply_norm(cfg.norm, params["final_norm"], x)
     return _head(cfg, params, x)[:, 0], cache

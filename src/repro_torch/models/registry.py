@@ -1,10 +1,11 @@
-"""Architecture registry for the port (dense and SSM families so far).
+"""Architecture registry for the port (dense, MoE and SSM families so far).
 
 Port of :mod:`repro.models.registry`: ``get_arch(name)`` returns an
 :class:`Arch` bundling the config with its init, training forward, cache
 and one-token decode functions (the serving engine calls
 ``transformer.prefill`` itself, as in the reference).  ``forward`` runs
-the dense family; SSM, MoE, encoder-decoder and frontend archs raise
+the dense and MoE families (for MoE a forward only: MoE training is not
+ported); SSM, encoder-decoder and frontend archs raise
 ``NotImplementedError`` there (training mamba2 needs a gradient for
 ``ssd_scan``).  The dry-run ``input_specs`` and the other families come
 with later slices.
@@ -30,10 +31,11 @@ class Arch:
     def forward(self, params: dict, batch: dict):
         """Training forward → (logits, aux)."""
         cfg = self.cfg
-        if (cfg.family != "dense" or cfg.is_moe or cfg.is_encoder_decoder
+        if (cfg.family not in ("dense", "moe") or cfg.is_encoder_decoder
                 or cfg.frontend != "none"):
             raise NotImplementedError(
-                f"{cfg.name}: the training forward is ported for the dense family only")
+                f"{cfg.name}: the training forward is ported for the dense and "
+                "MoE families only")
         return _tf.forward(cfg, params, batch["tokens"])
 
     def labels_of(self, batch: dict):
@@ -48,10 +50,11 @@ class Arch:
 
 def get_arch(name: str) -> Arch:
     """The :class:`Arch` of a ported configuration (``repro_torch.configs``);
-    configurations outside the dense and SSM families raise
+    configurations outside the dense, MoE and SSM families raise
     ``NotImplementedError``."""
     mod_name = name.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
-    if mod.CONFIG.family not in ("dense", "ssm"):
-        raise NotImplementedError(f"{name}: only the dense and SSM families are ported")
+    if mod.CONFIG.family not in ("dense", "moe", "ssm"):
+        raise NotImplementedError(
+            f"{name}: only the dense, MoE and SSM families are ported")
     return Arch(cfg=mod.CONFIG)

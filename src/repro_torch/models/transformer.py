@@ -1,7 +1,7 @@
-"""Decoder-only LM, dense and SSM paths: parameters, embedding, forward,
-prefill, head.
+"""Decoder-only LM, dense, MoE and SSM paths: parameters, embedding,
+forward, prefill, head.
 
-Port of the dense and SSM paths of :mod:`repro.models.transformer`
+Port of the dense, MoE and SSM paths of :mod:`repro.models.transformer`
 (``_embed``, ``_head``, ``_stack_names``, ``_layer_stacks``,
 ``_block_params`` ``:66``, ``_block_forward`` ``:87``, ``_block_decode``
 ``:138``, ``_run_stack`` ``:228``, ``forward`` ``:268``, ``prefill``
@@ -10,14 +10,21 @@ keep the reference's stacked leading layer axis and keys, so a JAX params
 pytree converts leaf for leaf (:mod:`repro_torch.models.convert`); the
 reference's ``lax.scan`` over layers is a Python loop over that axis.  An
 SSM block is ``ln1`` and the mamba2 mixer (:mod:`repro_torch.models.ssm`);
-its cache is ``{"ssm", "conv"}`` per stack.  Tied embeddings use the
+its cache is ``{"ssm", "conv"}`` per stack.  A MoE config keeps its
+``first_dense_layers`` dense blocks in a stack of their own,
+``dense_layers``, which runs before ``layers``, whose blocks hold ``moe``
+(:mod:`repro_torch.models.moe`) in place of ``mlp``; each stack has its
+own KV cache.  Norms follow ``cfg.norm`` (RMSNorm, LayerNorm or OLMo's
+non-parametric LayerNorm, which holds no leaves).  Tied embeddings use the
 embedding table as the head.  With ``cfg.query_embedding`` the embedding
 lookup is the ``table_gather`` query (``async_query``), which a fissioned
-microbatch loop batches.  The training ``forward`` runs dense stacks only:
-an SSM stack raises ``NotImplementedError`` there (``ssd_scan`` has no
-gradient yet).  ``cfg.remat`` recomputes each block in the backward
-through ``torch.utils.checkpoint``.  MoE and hybrid stacks and norms other
-than RMSNorm belong to later slices and raise ``NotImplementedError``.
+microbatch loop batches.  The training ``forward`` runs dense and MoE
+stacks and sums the MoE blocks' auxiliary losses (MoE training itself is
+not ported: nothing checks its gradient); an SSM stack raises
+``NotImplementedError`` there (``ssd_scan`` has no gradient yet).
+``cfg.remat`` recomputes each block in the backward through
+``torch.utils.checkpoint``.  Hybrid stacks belong to a later slice and
+raise ``NotImplementedError``.
 
 Entry points:
   init_params(cfg, seed, device)              → params dict
@@ -45,8 +52,9 @@ from repro_torch.models.attention import (
     init_kv_cache,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_norm, dense_init, embed_init
+from repro_torch.models.layers import apply_norm, dense_init, embed_init, norm_params
 from repro_torch.models.mlp import mlp, mlp_params
+from repro_torch.models.moe import moe, moe_params
 from repro_torch.models.ssm import (
     init_ssm_state,
     ssm_decode_step,
@@ -69,43 +77,51 @@ def block_kind(cfg: ModelConfig, moe_stack: bool) -> str:
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet:
-    MoE and hybrid stacks, norms other than RMSNorm.  Dense and SSM stacks,
-    tied embeddings and the async_query embedding pass."""
-    if any(kind not in ("dense", "ssm") for _n, kind, _c in _stack_names(cfg)):
+    hybrid stacks.  Dense, MoE and SSM stacks, the three norms, tied
+    embeddings and the async_query embedding pass."""
+    if any(kind not in ("dense", "moe", "ssm") for _n, kind, _c in _stack_names(cfg)):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and SSM families are ported so far")
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"{cfg.name}: norm {cfg.norm!r} is not ported yet")
+            f"{cfg.name}: only the dense, MoE and SSM families are ported so far")
 
 
 def _norm_params(cfg: ModelConfig, device, lead: tuple = ()) -> dict:
-    return {"w": torch.ones(lead + (cfg.d_model,), dtype=cfg.pdtype, device=device)}
+    return norm_params(cfg.norm, cfg.d_model, cfg.pdtype, device, lead)
+
+
+def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str, device,
+                  n: int) -> dict:
+    """``n`` stacked blocks of ``kind``: an SSM block holds ``ln1`` and
+    ``ssm``; a dense or MoE block ``ln1``, ``attn``, ``ln2`` and ``mlp`` or
+    ``moe``."""
+    lead = (n,)
+    if kind == "ssm":
+        return {"ln1": _norm_params(cfg, device, lead),
+                "ssm": ssm_params(gen, cfg, device, lead)}
+    p = {"ln1": _norm_params(cfg, device, lead),
+         "attn": attn_params(gen, cfg, device, lead),
+         "ln2": _norm_params(cfg, device, lead)}
+    if kind == "moe":
+        p["moe"] = moe_params(gen, cfg, device, lead)
+    else:
+        p["mlp"] = mlp_params(gen, cfg, device, lead)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random weights drawn from ``torch.Generator(seed)`` on ``device``
     (same shapes, keys, scales and dtypes as the reference's
-    ``init_params``; different numbers, since the generators differ).  An
-    SSM block holds ``ln1`` and ``ssm`` only; a tied config has no
+    ``init_params``; different numbers, since the generators differ), one
+    entry per stack of :func:`_stack_names`; a tied config has no
     ``lm_head``."""
     _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    lead = (cfg.n_layers,)
-    # Draw order: embedding, layers, head.
+    # Draw order: embedding, the stacks in execution order, head.
     params = {"embed": {"table": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                             cfg.pdtype, dev)}}
-    if block_kind(cfg, True) == "ssm":
-        params["layers"] = {"ln1": _norm_params(cfg, dev, lead),
-                            "ssm": ssm_params(gen, cfg, dev, lead)}
-    else:
-        params["layers"] = {
-            "ln1": _norm_params(cfg, dev, lead),
-            "attn": attn_params(gen, cfg, dev, lead),
-            "ln2": _norm_params(cfg, dev, lead),
-            "mlp": mlp_params(gen, cfg, dev, lead),
-        }
+    for name, kind, n in _stack_names(cfg):
+        params[name] = _block_params(gen, cfg, kind, dev, n)
     params["final_norm"] = _norm_params(cfg, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(gen, cfg.d_model, cfg.vocab_size,
@@ -191,30 +207,43 @@ def layer_slice(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
-def _block_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-    """One dense block over the full sequence (training): attention through
-    the flash op, then the MLP, each with its residual."""
+def _ffn(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor):
+    """The block's second half on the normed residual ``x``: the MLP, or
+    the MoE layer → ``(y, aux)`` (aux is ``None`` for a dense block)."""
+    if kind == "moe":
+        return moe(p["moe"], cfg, x)
+    return mlp(p["mlp"], cfg, x), None
+
+
+def _block_forward(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                   positions: torch.Tensor):
+    """One dense or MoE block over the full sequence (training): attention
+    through the flash op, then the MLP or MoE, each with its residual →
+    ``(x, aux)``."""
     h = apply_norm(cfg.norm, p["ln1"], x)
     x = x + attention(p["attn"], cfg, h, positions, causal=True)
-    return x + mlp(p["mlp"], cfg, apply_norm(cfg.norm, p["ln2"], x))
+    y, aux = _ffn(p, cfg, kind, apply_norm(cfg.norm, p["ln2"], x))
+    return x + y, (aux if aux is not None
+                   else torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _run_stack(cfg: ModelConfig, stacked: dict, kind: str, n: int, x: torch.Tensor,
                positions: torch.Tensor):
     """The reference's ``_run_stack`` in ``"forward"`` mode: ``n`` blocks
-    over ``x`` → ``(x, aux)``.  A dense block has no auxiliary loss."""
-    if kind != "dense":
+    over ``x`` → ``(x, summed aux)``.  A dense block's aux is 0."""
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(
             f"training forward of {kind!r} blocks is not ported yet")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
         lp = layer_slice(stacked, i)
         if cfg.remat:
-            x = checkpoint(_block_forward, lp, cfg, x, positions, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(_block_forward, lp, cfg, kind, x, positions,
+                                use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _block_forward(lp, cfg, x, positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = _block_forward(lp, cfg, kind, x, positions)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -286,7 +315,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             ck[i, :, :S] = k
             cv[i, :, :S] = v
             x = x + a
-            x = x + mlp(lp["mlp"], cfg, apply_norm(cfg.norm, lp["ln2"], x))
+            x = x + _ffn(lp, cfg, kind, apply_norm(cfg.norm, lp["ln2"], x))[0]
         caches[name] = {"k": ck, "v": cv}
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if return_all_logits:
@@ -312,20 +341,21 @@ def _block_decode(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     """One block's one-token decode.  ``cache`` holds this layer's slices
     (views into the stacked cache), written in place: ``k``/``v`` (B,
     S_max, Hkv, hd) for a dense block, ``ssm`` (B, H, P, N) and ``conv``
-    (B, K-1, Ch) for an SSM block."""
+    (B, K-1, Ch) for an SSM block; a MoE block routes its one token per
+    lane (capacity 4 per expert, so nothing is dropped)."""
     h = apply_norm(cfg.norm, p["ln1"], x)
     if kind == "ssm":
         y, state, conv = ssm_decode_step(p["ssm"], cfg, h, cache["ssm"], cache["conv"])
         cache["ssm"].copy_(state)
         cache["conv"].copy_(conv)
         return x + y
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"decode of {kind!r} blocks is not ported yet")
     window = cfg.attn_window if cfg.attn_window > 0 else None
     a, _k, _v = decode_attention(p["attn"], cfg, h, cache["k"], cache["v"], lengths,
                                  window=window)
     x = x + a
-    return x + mlp(p["mlp"], cfg, apply_norm(cfg.norm, p["ln2"], x))
+    return x + _ffn(p, cfg, kind, apply_norm(cfg.norm, p["ln2"], x))[0]
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,

@@ -36,6 +36,10 @@ VERBATIM = [
     # the paper's transformation and runtime layer
     "core/hir.py", "core/runtime.py", "core/runtime_baseline.py", "core/faults.py",
     "core/equivalence.py", "core/app_traces.py", "serving/hir_bridge.py",
+    # the model configurations
+    "configs/llama3_8b.py", "configs/mamba2_1_3b.py", "configs/deepseek_moe_16b.py",
+    "configs/kimi_k2_1t_a32b.py", "configs/olmo_1b.py", "configs/qwen1_5_4b.py",
+    "configs/chatglm3_6b.py",
 ]
 
 

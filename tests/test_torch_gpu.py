@@ -1135,3 +1135,112 @@ def test_reduced_paged_chaos_on_card_matches_cpu(gen):
     assert dec >= 1 and pre >= 1 and quarantined >= 1 and retries >= 1
     assert spilled == restored
     assert streams == out["cuda", False][0] == out["cpu", False][0]
+
+
+# ------------------------------------------------- the decoder family (MoE)
+
+def _moe_layer(name: str, dtype, capacity_factor: float = 1.25):
+    from repro_torch.models.moe import moe_params
+    from repro_torch.models.registry import get_arch
+    cfg = dataclasses.replace(get_arch(name).cfg.reduced(), param_dtype=dtype,
+                              compute_dtype=dtype, capacity_factor=capacity_factor)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    return cfg, moe_params(gen, cfg, "cpu")
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "kimi-k2-1t-a32b"])
+def test_moe_on_card_matches_cpu(gen, name, dtype, cf):
+    """``moe`` on the card against its CPU result on the same weights and
+    input, with and without dropped routes: float32 1e-4, bf16 2e-2 x max
+    |y| (the card's bf16 products round their own float32 sums)."""
+    from repro_torch.models.moe import moe
+    cfg, p = _moe_layer(name, dtype, cf)
+    x = torch.randn((3, 16, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    x = x.to(cfg.cdtype)
+    y_cpu, aux_cpu = moe(p, cfg, x)
+    y, aux = moe(_to(p, "cuda"), cfg, x.cuda())
+    torch.cuda.synchronize()
+    assert y.dtype == cfg.cdtype and p["router"]["w"].dtype == torch.float32
+    tol = 1e-4 if dtype == "float32" else 2e-2 * float(y_cpu.float().abs().max())
+    torch.testing.assert_close(y.float().cpu(), y_cpu.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_on_card_is_bit_repeatable(gen, dtype):
+    """Two calls on the same input give the same bits: the dispatch writes
+    each slot once and the combine sums over k in a fixed order (no atomic
+    scatter-add), at a prefill shape with drops and at a decode shape."""
+    from repro_torch.models.moe import moe
+    cfg, p = _moe_layer("deepseek-moe-16b", dtype, 0.5)
+    p = _to(p, "cuda")
+    for b, s in ((8, 64), (8, 1)):
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(cfg.cdtype)
+        first = moe(p, cfg, x)[0]
+        assert all(torch.equal(first, moe(p, cfg, x)[0]) for _ in range(3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq, hkv", [(16, 16), (20, 20), (32, 2)])
+def test_attention_kernels_at_the_new_configs_groups(gen, dtype, hq, hkv):
+    """The three attention kernels against their plain versions at the
+    head layouts of deepseek-moe-16b and olmo-1b (16/16, G 1), qwen1.5-4b
+    (20/20, G 1) and chatglm3-6b (32/2, G 16, the decode kernels' largest
+    group), D 128: flash over a 256-token bucket, dense decode at 8 lanes
+    and 1 (a chunk), paged decode at 8 lanes of 32 pages of 16."""
+    tol = TOLS[dtype]
+    b, s, d = 8, 256, 128
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+               for h in (hq, hkv, hkv))
+    torch.testing.assert_close(flash_attention_cuda(q, k, v, causal=True).float(),
+                               attention_ref(q, k, v, causal=True).float(), rtol=tol, atol=tol)
+    for lanes, t in ((8, 512), (1, 300)):
+        qd = torch.randn((lanes, hq, d), generator=gen, device="cuda").to(dtype)
+        kd, vd = (torch.randn((lanes, t, hkv, d), generator=gen, device="cuda").to(dtype)
+                  for _ in range(2))
+        lens = torch.as_tensor(np.linspace(1, t, lanes).astype(np.int32) if lanes > 1
+                               else np.array([t - 5], np.int32), device="cuda")
+        torch.testing.assert_close(decode_attention_cuda(qd, kd, vd, lens).float(),
+                                   decode_ref(qd, kd, vd, lens).float(), rtol=tol, atol=tol)
+    lengths = [0] + [int(x) for x in np.linspace(1, 32 * 16, b - 1)]
+    args = _paged(gen, b, hq, hkv, d, 16, 32, dtype, lengths)
+    torch.testing.assert_close(paged_decode_attention_cuda(*args).float(),
+                               paged_decode_ref(*args).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "olmo-1b", "qwen1.5-4b", "chatglm3-6b"])
+def test_reduced_config_served_on_card_matches_cpu(gen, name):
+    """A reduced config in float32 on the paged engine: the card (kernels)
+    and the CPU (plain versions) give the same greedy streams and counters;
+    qwen's and chatglm's QKV biases drawn nonzero."""
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.models.registry import get_arch
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    arch = get_arch(name)
+    arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
+    cpu_params = arch.init(seed=0, device="cpu")
+    if arch.cfg.qkv_bias:
+        g = torch.Generator().manual_seed(2)
+        for b in ("bq", "bk", "bv"):
+            a = cpu_params["layers"]["attn"][b]
+            a.copy_(0.5 * torch.randn(a.shape, generator=g))
+    out = {}
+    for device in ("cuda", "cpu"):
+        rng = np.random.default_rng(1)
+        eng = PagedInferenceEngine(arch, _to(cpu_params, device), n_lanes=4,
+                                   max_prompt_len=16, max_len=48, page_size=8, device=device)
+        sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2))
+        reqs = [Request(rid=i, prompt=rng.integers(1, 256, size=int(n)).astype(np.int32),
+                        max_new_tokens=16) for i, n in enumerate(rng.integers(3, 17, size=6))]
+        for r in reqs:
+            sched.submit(r)
+        sched.producer_done()
+        sched.run_until_drained()
+        out[device] = ({r.rid: r.generated for r in reqs}, eng.dispatches, eng.decode_steps)
+    assert out["cuda"] == out["cpu"]
