@@ -23,7 +23,15 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    ``decode_attention`` on the same keys gathered dense, and the host time
    of one call of each; the three attention kernels again at the head
    layouts of phases 4l-4o, Hq/Hkv 16/16, 20/20 and 32/2 at D 128, as
-   logged sub-rows), with the tolerance stated; a repeated call of
+   logged sub-rows; and at the layouts of phases 4p-4r, as sub-rows that
+   the JSON line carries: the banded flash of hymba's prefill, B 8, S
+   2048, 25/5, D 64, W 1024, against SDPA with a boolean band mask, the
+   band's edges W = S (the causal bits) and W = 1 (each query's own value
+   row) and ragged bands on both instances, unmasked flash at seamless's
+   encoder (S = T = 512) and cross attention (S 64, T 512), decode at
+   groups 5 (T 1024), 6 (D 128) and 1 (self and cross), paged decode at
+   12/2 and ``ssd_scan`` at hymba's H 25, N 16), with the tolerance
+   stated; a repeated call of
    any attention kernel must give the same bits; its time, the plain
    version's, one library call's as a yardstick where one exists (never
    called by the port) and the least time the card could take
@@ -95,13 +103,34 @@ Phases, each ending in ``torch.cuda.synchronize()``:
       at a time, on phase a's path with 8 requests of 16 new tokens
       (exact launches by layer count); then the port's serving launcher,
       ``repro_torch.launch.serve.main(["--arch", "deepseek-moe-16b"])``;
+   then the last three families at full width, bf16, weights from seed 0:
+   p. hymba — hymba-1.5b (32 hybrid layers, window 1024) on
+      ``InferenceEngine(n_lanes=8, max_prompt_len=2048, max_len=2112)``:
+      8 prompts of 2048 tokens and 8 of 40-256, 32 new tokens each:
+      ``flash_attention`` (banded) = ``ssd_scan`` = prefill dispatches x
+      32, ``decode_attention`` (over the rings) = ticks x 32; the same
+      traffic on the paged engine's dense-compute mode, streams equal
+      token for token; one 600-token prompt under ``overlap=True,
+      chunk_tokens=512`` (88 tokens through ``_extend``);
+   q. vlm — qwen2-vl-2b (28 layers, M-RoPE) on phase a's path and
+      traffic; then ``Arch.prefill`` of 8 stub sequences of 256 patch
+      embeddings on a 16 x 16 grid and 32 text tokens (the flash kernel
+      masking on the grid's positions) and 32 greedy decode steps on a
+      dense cache: flash 28, ``decode_attention`` 28 a token;
+   r. encdec — seamless-m4t-medium (12 + 12 layers) through
+      ``Arch.prefill`` of 8 sources of 512 stub frames and 8-token
+      targets, then 32 greedy tokens: flash 12 + 2 x 12, decode 2 x 12 a
+      token;
 5. checks — first prefill and first decode tick of the full-width
    llama3-8b, a prefix hit's ``_shared_tail`` logits against a flash
    prefill of the whole prompt, and the first full-width mamba2
    prefill, kernel path against the plain path on the same weights and
    batch; the same first prefill and tick for deepseek-moe-16b (with the
    share of (token, k) routes the two paths agree on) and each config of
-   phase o;
+   phase o; hymba's prefill of 8 x 2048 (band, rings, ``ssd_scan``) and
+   a decode step from it, qwen2-vl's stub prefill and a step and its
+   text path's prefill and paged tick, seamless-m4t's prefill and a
+   step;
 6. profile — ``torch.profiler`` over one full-width llama3-8b prefill
    dispatch, a few decode ticks, one fused tick (a 64-token prompt chunk
    folded into the decode) and one ``_shared_tail`` beside a flash
@@ -121,9 +150,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    the ``model-service`` program; the reduced mamba2 the same way on the
    dense engine, synchronous and overlap + chunk, and on the paged
    engine's dense-compute mode with spills; reduced deepseek-moe-16b,
-   kimi-k2-1t-a32b, olmo-1b, qwen1.5-4b and chatglm3-6b (QKV biases drawn
-   nonzero) on the synchronous paged path, the dense engine, overlap +
-   chunk, prefix sharing and an oversubscribed pool with spill
+   kimi-k2-1t-a32b, olmo-1b, qwen1.5-4b, chatglm3-6b and qwen2-vl-2b (QKV
+   biases drawn nonzero) on the synchronous paged path, the dense engine,
+   overlap + chunk, prefix sharing and an oversubscribed pool with spill,
+   reduced hymba on the dense engine (synchronous and overlap + chunk)
+   and the paged engine's dense-compute mode with spills, and the three
+   new families' prefill and 24 greedy steps (logits within 1e-4, tokens
+   equal)
    (per-request greedy streams and the engine's counters must be equal;
    synchronous = transformed);
 8. train — the trainer at full width, after the serving phases: llama3-8b
@@ -147,6 +180,7 @@ limit, the kernels' JSON line, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -217,7 +251,7 @@ def phase_build():
 
 # The instances whose SASS phase 2 summarises: the main path's ones (bf16;
 # the gather's slices copy of int32 ids, as the trainer's tokens come).
-_SASS_OF = {"flash_attention": "flash_wgmma_kernelILi128EE",
+_SASS_OF = {"flash_attention": "flash_wgmma_kernelILi128ELb0EE",
             "decode_attention": "decode_cluster_kernelI13__nv_bfloat16Li4ELi8E",
             "paged_decode_attention": "paged_cluster_kernelI13__nv_bfloat16Li4ELi8E",
             "batched_gather": "gather_slicesIiE"}
@@ -533,6 +567,8 @@ def phase_kernels(timer):
     rows["ssd_scan"] = _ssd_scan_kernel(timer, gen)
     rows["batched_gather"] = _batched_gather_kernel(timer, gen)
     _config_shapes(timer, gen, rng)
+    for name, sub in _new_layouts(timer, gen, rng).items():
+        rows[name]["sub_rows"] = sub
     return rows
 
 
@@ -619,6 +655,167 @@ def _config_shapes(timer, gen, rng) -> None:
                             bound_ms=bound, bound_by=by, library_ms=timer.ms(library))))
             del dq, dk, dv, out
     torch.cuda.synchronize()
+
+
+def _sub_row(label, err, ms, plain_ms, bound, library_ms=None):
+    """One logged sub-row of a kernel's row: a layout of the new families."""
+    row = dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+               bound_by=bound[1], library_ms=library_ms)
+    log(f"[kernels] sub-row {row}")
+    return row
+
+
+def _band_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal band of ``window`` keeps over S tokens:
+    sum over i of min(i + 1, W)."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def _new_layouts(timer, gen, rng) -> dict:
+    """The kernels at the layouts of hymba-1.5b, qwen2-vl-2b and
+    seamless-m4t-medium (phases 4p-4r), each against its plain version at
+    the tolerances above, a repeated call bit for bit, and timed beside
+    the plain version, the bound and SDPA where it computes the same
+    function: the banded flash (B 8, S 2048, 25/5, D 64, W 1024; its bound
+    and SDPA's boolean band mask count the band's pairs, 0.75 of the causal
+    ones), the window's edges (W >= S is the causal kernel's bits, W = 1
+    each query's own value row) and a ragged float32 window on the CUDA
+    cores; flash without a mask at the encoder's S = T = 512 and the cross
+    attention's S 64 over T 512 (16/16, D 64); decode at group 5 over the
+    1024-row ring, group 6 at D 128, group 1 (self and cross, T 512); paged
+    decode at 12/2, D 128; ``ssd_scan`` at hymba's prefill (H 25, P 64, N
+    16).  Returns ``{kernel: [sub-row, ...]}`` for the JSON line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention_cuda
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    bf = torch.bfloat16
+    out = {"flash_attention": [], "decode_attention": [], "paged_decode_attention": [],
+           "ssd_scan": []}
+
+    # -- the band: hymba's prefill of 8 prompts of 2048 tokens.
+    b, s, hq, hkv, d, w = 8, 2048, 25, 5, 64, 1024
+    fq, fk, fv = _flash_case(gen, b, hq, hkv, s, d, bf)
+    kern = lambda: flash_attention_cuda(fq, fk, fv, causal=True, window=w)  # noqa: E731
+    plain = lambda: attention_ref(fq, fk, fv, causal=True, window=w)  # noqa: E731
+    got = kern()
+    err = _compare(f"flash_attention bf16 hymba band B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+                   f"W={w}", got, plain(), 1e-2, 1e-2)
+    _repeat("flash_attention (band)", kern, got)
+    idx = torch.arange(s, device="cuda")
+    band = (idx[None, :] <= idx[:, None]) & (idx[:, None] - idx[None, :] < w)
+
+    def library():
+        return F.scaled_dot_product_attention(fq, fk, fv, attn_mask=band, enable_gqa=True)
+
+    _compare("scaled_dot_product_attention (yardstick, band) vs plain", library(), plain(),
+             1e-2, 1e-2)
+    pairs = _band_pairs(s, w)
+    log(f"[kernels] flash_attention band: {pairs} of {s * (s + 1) // 2} causal (query, key) "
+        f"pairs ({pairs / (s * (s + 1) // 2)!r})")
+    causal_ms = timer.ms(lambda: flash_attention_cuda(fq, fk, fv, causal=True))
+    out["flash_attention"].append(_sub_row(
+        f"hymba band B {b} S {s} {hq}/{hkv} D {d} W {w}", err, timer.ms(kern),
+        timer.ms(plain), _bound(2 * (fq.numel() * 2 + fk.numel() + fv.numel()),
+                                4 * b * hq * d * pairs), timer.ms(library)))
+    log(f"[kernels] flash_attention at the same shape, causal (no window): {causal_ms!r} ms")
+    if not torch.equal(flash_attention_cuda(fq, fk, fv, causal=True, window=s),
+                       flash_attention_cuda(fq, fk, fv, causal=True)):
+        fail("flash_attention: a window of S is not the causal kernel's bits")
+    one = flash_attention_cuda(fq, fk, fv, causal=True, window=1)
+    if not torch.equal(one, fv.repeat_interleave(hq // hkv, dim=1)):
+        fail("flash_attention: a window of 1 is not each query's own value row")
+    log("[kernels] flash_attention band edges: W = S gives the causal bits, W = 1 the "
+        "diagonal's value rows exactly: ok")
+    del fq, fk, fv, got, band
+    for dtype, tol, shape, win in ((torch.float32, 1e-4, (3, 10, 2, 77, 64), 7),
+                                   (bf, 1e-2, (2, 10, 2, 130, 32), 7),
+                                   (bf, 1e-2, (2, 10, 2, 200, 128), 64)):
+        sb, shq, shkv, ss, sd = shape
+        sq, sk, sv = _flash_case(gen, sb, shq, shkv, ss, sd, dtype)
+        _compare(f"flash_attention {str(dtype)[6:]} ragged band B={sb} Hq={shq} Hkv={shkv} "
+                 f"S={ss} D={sd} W={win}", flash_attention_cuda(sq, sk, sv, window=win),
+                 attention_ref(sq, sk, sv, window=win), tol, tol)
+
+    # -- no mask: seamless's encoder and its cross attention.
+    for label, sq_len, t in (("seamless encoder", 512, 512), ("seamless cross", 64, 512)):
+        q = _flash_case(gen, 8, 16, 16, sq_len, 64, bf)[0]
+        k, v = _flash_case(gen, 8, 16, 16, t, 64, bf)[1:]
+        kern = lambda q=q, k=k, v=v: flash_attention_cuda(q, k, v, causal=False)  # noqa: E731
+        plain = lambda q=q, k=k, v=v: attention_ref(q, k, v, causal=False)  # noqa: E731
+        got = kern()
+        err = _compare(f"flash_attention bf16 {label} B=8 16/16 S={sq_len} T={t} D=64 no mask",
+                       got, plain(), 1e-2, 1e-2)
+        _repeat(f"flash_attention ({label})", kern, got)
+        out["flash_attention"].append(_sub_row(
+            f"{label} B 8 S {sq_len} T {t} 16/16 D 64", err, timer.ms(kern), timer.ms(plain),
+            _bound(2 * (q.numel() * 2 + k.numel() + v.numel()), 4 * 8 * 16 * 64 * sq_len * t),
+            timer.ms(lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v,
+                                                                          enable_gqa=True))))
+
+    # -- decode: hymba's ring (G 5), qwen2-vl (G 6, D 128), seamless (G 1).
+    for label, hq, hkv, t, d, full in (("hymba ring G 5", 25, 5, 1024, 64, False),
+                                       ("qwen2-vl G 6", 12, 2, 320, 128, False),
+                                       ("seamless self G 1", 16, 16, 512, 64, False),
+                                       ("seamless cross G 1", 16, 16, 512, 64, True)):
+        dq, dk, dv, dlen = _decode_case(gen, rng, 8, hq, hkv, t, d, bf)
+        if full:
+            dlen = torch.full((8,), t, dtype=torch.int32, device="cuda")
+        kern = lambda a=(dq, dk, dv, dlen): decode_attention_cuda(*a)  # noqa: E731
+        plain = lambda a=(dq, dk, dv, dlen): decode_ref(*a)  # noqa: E731
+        got = kern()
+        err = _compare(f"decode_attention bf16 {label} B=8 Hq={hq} Hkv={hkv} T={t} D={d} "
+                       f"lengths={dlen.tolist()}", got, plain(), 1e-2, 1e-2)
+        _repeat(f"decode_attention ({label})", kern, got)
+        kv_tokens = int(dlen.sum())
+        valid = (torch.arange(t, device="cuda")[None, :] < dlen[:, None].long())
+
+        def library(dq=dq, dk=dk, dv=dv, valid=valid):
+            return F.scaled_dot_product_attention(
+                dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
+                attn_mask=valid[:, None, None, :], enable_gqa=True)[:, :, 0]
+
+        out["decode_attention"].append(_sub_row(
+            f"{label} B 8 T {t} {hq}/{hkv} D {d}", err, timer.ms(kern), timer.ms(plain),
+            _bound(dq.numel() * 2 * 2 + 2 * kv_tokens * hkv * d * 2 + 8 * 4,
+                   4 * hq * d * kv_tokens), timer.ms(library)))
+
+    args = _paged_case(gen, rng, 8, 12, 2, 128, 16, 32, bf)
+    got = paged_decode_attention_cuda(*args)
+    err = _compare("paged_decode_attention bf16 qwen2-vl B=8 Hq=12 Hkv=2 D=128 ps=16 NP=32",
+                   got, paged_decode_ref(*args), 1e-2, 1e-2)
+    _repeat("paged_decode_attention (qwen2-vl)", lambda: paged_decode_attention_cuda(*args), got)
+    kv_tokens = int(args[4].sum())
+    out["paged_decode_attention"].append(_sub_row(
+        "qwen2-vl B 8 12/2 D 128 ps 16 NP 32", err,
+        timer.ms(lambda: paged_decode_attention_cuda(*args)),
+        timer.ms(lambda: paged_decode_ref(*args)),
+        _bound(args[0].numel() * 2 * 2 + 2 * kv_tokens * 2 * 128 * 2 + args[3].numel() * 4
+               + 8 * 4, 4 * 12 * 128 * kv_tokens)))
+
+    shape = (8, 8, 25, 64, 16)  # 8 prompts of 2048 tokens, chunks of 256
+    states, decay = _scan_case(gen, shape, torch.float32)
+    prev, final = ssd_scan_cuda(states, decay)
+    rprev, rfinal = ssd_scan_ref(states, decay)
+    err = max(_compare(f"ssd_scan f32 hymba prefill B,C,H,P,N={shape} prev", prev, rprev,
+                       1e-6, 1e-6),
+              _compare(f"ssd_scan f32 hymba prefill B,C,H,P,N={shape} final", final, rfinal,
+                       1e-6, 1e-6))
+    out["ssd_scan"].append(_sub_row(
+        f"hymba prefill B,C,H,P,N {shape}", err, timer.ms(lambda: ssd_scan_cuda(states, decay)),
+        timer.ms(lambda: ssd_scan_ref(states, decay)),
+        _bound(4 * (2 * states.numel() + decay.numel() + states.numel() // shape[1]),
+               2 * states.numel(), F32_FLOPS_PER_S)))
+    torch.cuda.synchronize()
+    return out
 
 
 def _scan_case(gen, shape, dtype):
@@ -1633,31 +1830,53 @@ def _init_full(name: str, smi: str):
     n_params = sum(int(a.numel()) for a in _leaves(params))
     nbytes = sum(a.numel() * a.element_size() for a in _leaves(params))
     # The reference's analytic param_count() leaves out the final norm's
-    # d_model weights (none for olmo's non-parametric norm).
+    # d_model weights (none for olmo's non-parametric norm), and the leaves
+    # _uncounted names.
     final_norm = sum(int(a.numel()) for a in _leaves(params["final_norm"]))
+    extra = _uncounted(cfg, params)
     log(f"[{name}] on {smi}: full width, {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}; {n_params} parameters, "
-        f"{nbytes} bytes (param_count() {cfg.param_count()} + final norm {final_norm}, "
-        f"active per token {cfg.active_param_count()}), drawn from seed 0 in "
-        f"{time.perf_counter() - t0!r} s")
-    if n_params != cfg.param_count() + final_norm:
+        f"{nbytes} bytes (param_count() {cfg.param_count()} + final norm {final_norm} + "
+        f"uncounted leaves {extra}, active per token {cfg.active_param_count()}), drawn "
+        f"from seed 0 in {time.perf_counter() - t0!r} s")
+    if n_params != cfg.param_count() + final_norm + extra:
         fail(f"{name}: {n_params} parameters drawn, param_count() says {cfg.param_count()}")
     return arch, params
 
 
-def _warm(arch, params) -> None:
+def _uncounted(cfg, params) -> int:
+    """Elements of the leaves ``param_count()`` leaves out besides the final
+    norm: a hybrid block's conv and dt biases, gate-norm weights and two
+    branch norms; an encoder-decoder's LayerNorm biases, ``ln_cross`` and
+    ``enc_norm`` (it counts one weight vector per norm it counts)."""
+    n = 0
+    if cfg.hybrid:
+        ssm = params["layers"]["ssm"]
+        n += sum(ssm[k].numel() for k in ("conv_b", "dt_bias", "norm_w"))
+        n += sum(params["layers"][k]["w"].numel()
+                 for k in ("attn_branch_norm", "ssm_branch_norm"))
+    if cfg.is_encoder_decoder:
+        for stack in ("enc_layers", "layers"):
+            n += sum(params[stack][k]["b"].numel() for k in ("ln1", "ln2"))
+        n += sum(a.numel() for a in _leaves(params["layers"]["ln_cross"]))
+        n += sum(a.numel() for a in _leaves(params["enc_norm"]))
+    return int(n)
+
+
+def _warm(arch, params, eng=None) -> None:
     """One prefill dispatch of 8 prompts and two decode ticks on a
-    throw-away paged engine before a new model's first timed path, so
-    that path's numbers do not carry the first calls' set-up (library
-    kernels loaded, cuBLAS heuristics); its launches are not counted (the
-    next path zeroes the counts)."""
+    throw-away engine (a paged one unless ``eng`` is given) before a new
+    model's first timed path, so that path's numbers do not carry the
+    first calls' set-up (library kernels loaded, cuBLAS heuristics); its
+    launches are not counted (the next path zeroes the counts)."""
     import torch
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
 
     t0 = time.perf_counter()
-    eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256,
-                               max_len=512, page_size=16)
+    if eng is None:
+        eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256,
+                                   max_len=512, page_size=16)
     with torch.no_grad():
         eng.commit_prefill(eng.prefill_dispatch(_requests(Request, arch.cfg.vocab_size, n=8)))
         torch.cuda.synchronize()
@@ -1712,20 +1931,280 @@ def phase_launcher(smi, name: str = "deepseek-moe-16b"):
     return launches
 
 
+# hymba-1.5b's dense engine: lanes of 2112 rows, so a 2048-token prompt
+# and its 32 new tokens fit; the ring holds min(2112, W 1024) rows.
+HYMBA_ENGINE = dict(n_lanes=8, max_prompt_len=2048, max_len=2112)
+
+
+def _hymba_requests(Request, vocab: int, max_new: int = 32):
+    """8 prompts of exactly 2048 tokens (template "long": the band
+    engaged, the ring full at the prefill and wrapping in decode), then 8
+    of 40-256 (template "short", so their batches keep their own bucket,
+    below the window: a right-padded bucket that reaches W would leave
+    them pad KV in their rings, the reference's fault), from
+    ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    lens = [2048] * 8 + [int(n) for n in rng.integers(40, 257, size=8)]
+    return [Request(rid=i, prompt=rng.integers(0, vocab, size=n).astype(np.int32),
+                    max_new_tokens=max_new, template="long" if n == 2048 else "short")
+            for i, n in enumerate(lens)]
+
+
+def phase_hymba(arch, params, device="cuda", paged=False, streams=None):
+    """hymba on the dense engine, or (``paged``) on the paged engine's
+    dense-compute mode with the same traffic, whose greedy streams must
+    equal the dense engine's (``streams``) token for token.  Every prefill
+    dispatch runs the banded flash kernel and ``ssd_scan`` once a layer,
+    every decode tick the dense decode kernel once a layer over the rings."""
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    label = "hymba-paged" if paged else "hymba"
+    L = arch.cfg.n_layers
+    if paged:
+        eng = PagedInferenceEngine(arch, params, page_size=16, device=device, **HYMBA_ENGINE)
+        if eng.paged_compute:
+            fail("hymba-paged: a windowed hybrid should run the dense-compute mode")
+    else:
+        eng = InferenceEngine(arch, params, device=device, **HYMBA_ENGINE)
+    sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2))
+    shapes = []
+    n_prefill = _count_calls(eng, "_prefill",
+                             lambda toks, _p: shapes.append(tuple(toks.shape)) or 1)
+    reqs = _hymba_requests(Request, arch.cfg.vocab_size)
+    launches, wall = _drive(label, eng, sched, reqs, device)
+    log(f"[{label}] prefill dispatches {n_prefill[0]}, padded buckets {shapes}; "
+        f"kv_bytes_moved {eng.kv_bytes_moved}")
+    if eng.decode_steps == 0 or n_prefill[0] == 0:
+        fail(f"{label}: the path ran no decode step or no prefill")
+    if eng.dispatches != n_prefill[0] + eng.decode_steps:
+        fail(f"{label}: dispatches != prefills + decode ticks")
+    if not any(p >= arch.cfg.attn_window for _b, p in shapes):
+        fail(f"{label}: no prefill reached the window")
+    _expect(label, launches, {"flash_attention": n_prefill[0] * L, "ssd_scan": n_prefill[0] * L,
+                              "decode_attention": eng.decode_steps * L,
+                              "paged_decode_attention": 0})
+    mine = [r.generated for r in reqs]
+    if streams is not None:
+        same = sum(a == b for a, b in zip(mine, streams))
+        log(f"[{label}] greedy streams equal to the dense engine's in {same}/{len(reqs)} "
+            "requests")
+        if same != len(reqs):
+            fail(f"{label}: a greedy stream differs from the dense engine's")
+    _sync(device)
+    return launches, wall, mine
+
+
+def phase_hymba_chunked(arch, params, device="cuda", chunk: int = 512, n: int = 600):
+    """One ``n``-token prompt on the dense engine under ``overlap=True,
+    chunk_tokens=chunk``: the first chunk prefills (flash and ``ssd_scan``
+    once a layer), the rest goes through ``_extend``, one decode step a
+    token (the decode kernel once a layer)."""
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    L = arch.cfg.n_layers
+    eng = InferenceEngine(arch, params, device=device, **HYMBA_ENGINE)
+    sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2),
+                                        overlap=True, chunk_tokens=chunk)
+    n_prefill = _count_calls(eng, "_prefill")
+    fed = _count_calls(eng, "_extend", lambda _c, toks, _l: int(toks.shape[1]))
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=0, prompt=rng.integers(0, arch.cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=32)]
+    launches, wall = _drive("hymba-chunked", eng, sched, reqs, device)
+    log(f"[hymba-chunked] spec_chunks {sched.stats.spec_chunks}, spec_crashes "
+        f"{sched.stats.spec_crashes}; prefill dispatches {n_prefill[0]}, tokens through the "
+        f"decode path {fed[0]} (past the first chunk: {n - chunk})")
+    if sched.stats.spec_crashes or fed[0] != n - chunk or n_prefill[0] != 1:
+        fail("hymba-chunked: need no speculation crash, one prefill and the prompt's tail "
+             "fed through the decode path")
+    _expect("hymba-chunked", launches, {"flash_attention": L, "ssd_scan": L,
+                                        "decode_attention": (fed[0] + eng.decode_steps) * L,
+                                        "paged_decode_attention": 0})
+    _sync(device)
+    return launches, wall
+
+
+def _check_steps(label, cfg, prefill, step) -> None:
+    """The kernel path against the plain path (``_plain_ops``) on the same
+    weights and inputs at a prefill and at the first decode step after it
+    (on the kernel path's cache, copied): ``prefill()`` → (logits, cache),
+    ``step(cache, token)`` → logits.  Phase 5's gate."""
+    import torch
+    with torch.no_grad():
+        kern, cache = prefill()
+        with _plain_ops():
+            plain = prefill()[0]
+        _report_logits(f"{label} prefill", kern, plain)
+        token = kern.argmax(-1).to(torch.int32)
+        k_tick = step(_clone(cache), token)
+        with _plain_ops():
+            p_tick = step(_clone(cache), token)
+        _report_logits(f"{label} first decode step", k_tick, p_tick)
+    del cache
+    torch.cuda.synchronize()
+
+
+def phase_hymba_check(arch, params, device="cuda"):
+    """The first full-width prefill of the 8 prompts of 2048 tokens (the
+    band and the ring) and one decode step from its rings, banded flash,
+    ``ssd_scan`` and the decode kernel against their plain versions."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.request import Request
+
+    cfg = arch.cfg
+    reqs = _hymba_requests(Request, cfg.vocab_size)[:8]
+    toks = torch.as_tensor(np.stack([r.prompt for r in reqs]), device=device)
+    lengths = torch.full((8,), 2048, dtype=torch.int32, device=device)
+    _check_steps("hymba-1.5b 8 x 2048 (band, ring, ssd_scan)", cfg,
+                 lambda: tf.prefill(cfg, params, toks, max_len=HYMBA_ENGINE["max_len"]),
+                 lambda cache, tok: tf.decode_step(cfg, params, tok, cache, lengths)[0])
+
+
+def _vlm_batch(cfg, params, device, b: int = 8, side: int = 16, text: int = 32):
+    """``b`` stub sequences: ``side`` x ``side`` patch embeddings (seeded
+    normals from numpy) at temporal position 0, rows h and w over the
+    grid, then ``text`` tokens embedded by the model's table at positions
+    ``side``, ``side`` + 1, ... on all three rows."""
+    import torch
+    rng = np.random.default_rng(0)
+    n = side * side
+    patches = torch.as_tensor(rng.standard_normal((b, n, cfg.d_model)).astype(np.float32),
+                              device=device).to(cfg.cdtype)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, text)), device=device)
+    emb = torch.cat([patches, params["embed"]["table"][toks].to(cfg.cdtype)], dim=1)
+    pos = np.zeros((3, b, n + text), np.int64)
+    pos[1, :, :n], pos[2, :, :n] = np.arange(n) // side, np.arange(n) % side
+    pos[:, :, n:] = side + np.arange(text)
+    return {"embeds": emb, "positions": torch.as_tensor(pos, device=device)}
+
+
+def _greedy(arch, params, batch, steps: int, max_len: int, device):
+    """``Arch.prefill`` of ``batch``, then ``steps`` greedy ``decode_step``s
+    on its dense cache, launches counted from 0.  Returns (launches, wall
+    seconds, tokens (B, steps))."""
+    import torch
+    from repro_torch.kernels import registry
+
+    _sync(device)
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = arch.prefill(params, batch, max_len=max_len)
+        s = next(batch[k] for k in ("tgt_tokens", "embeds", "tokens") if k in batch).shape[1]
+        lengths = torch.full((logits.shape[0],), s, dtype=torch.int32, device=device)
+        out = []
+        for _ in range(steps):
+            tok = logits.argmax(-1).to(torch.int32)
+            out.append(tok)
+            logits, cache = arch.decode_step(params, tok, cache, lengths)
+            lengths = lengths + 1
+        toks = torch.stack(out, dim=1).cpu().numpy()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    vocab = arch.cfg.vocab_size
+    if not (bool(torch.isfinite(logits).all()) and ((toks >= 0) & (toks < vocab)).all()):
+        fail(f"{arch.cfg.name}: non-finite logits or tokens outside the vocabulary")
+    return registry.launch_counts(), wall, toks
+
+
+def phase_vlm_embeds(arch, params, device="cuda", steps: int = 32):
+    """qwen2-vl on its frontend's path: ``Arch.prefill`` of 8 stub
+    sequences of 256 patch embeddings and 32 text tokens (the flash kernel
+    masking on the grid's positions), then ``steps`` greedy
+    ``Arch.decode_step``s on a dense cache (the decode kernel at group 6);
+    then the kernel path against the plain path at the prefill and one
+    step."""
+    import torch
+    L = arch.cfg.n_layers
+    batch = _vlm_batch(arch.cfg, params, device)
+    s = batch["embeds"].shape[1]
+    launches, wall, toks = _greedy(arch, params, batch, steps, s + steps, device)
+    n_tok = toks.size
+    log(f"[vlm-embeds] 8 sequences of {s} (256 patches + 32 text tokens), {steps} greedy "
+        f"tokens each: {n_tok} tokens in {wall!r} s, {n_tok / wall!r} tokens/s (prefill "
+        f"included); launches {launches}")
+    _expect("vlm-embeds", launches, {"flash_attention": L, "decode_attention": steps * L,
+                                     "paged_decode_attention": 0, "ssd_scan": 0})
+    lengths = torch.full((8,), s, dtype=torch.int32, device=device)
+    _check_steps("qwen2-vl-2b 8 x (256 patches + 32 text)", arch.cfg,
+                 lambda: arch.prefill(params, batch, max_len=s + steps),
+                 lambda cache, tok: arch.decode_step(params, tok, cache, lengths)[0])
+    return launches, wall
+
+
+def _encdec_batch(cfg, device, b: int = 8, src: int = 512, tgt: int = 8):
+    """``b`` sources of ``src`` stub frame embeddings (seeded normals from
+    numpy) and ``tgt``-token targets."""
+    import torch
+    rng = np.random.default_rng(0)
+    frames = rng.standard_normal((b, src, cfg.d_model)).astype(np.float32)
+    return {"src_embeds": torch.as_tensor(frames, device=device).to(cfg.cdtype),
+            "tgt_tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, tgt)),
+                                          device=device)}
+
+
+def phase_encdec(arch, params, device="cuda", steps: int = 32):
+    """seamless-m4t at full width: ``Arch.prefill`` of 8 sources of 512
+    frames and 8-token targets (flash: the encoder's 12 layers without a
+    mask, the decoder's 12 causal and 12 cross), then ``steps`` greedy
+    tokens (decode: 12 self over the padded cache and 12 cross over the
+    memory's fixed KV a token); a one-source warm-up first.  Then the
+    kernel path against the plain path at the prefill and one step."""
+    import torch
+    L = arch.cfg.n_layers
+    batch = _encdec_batch(arch.cfg, device)
+    t0 = time.perf_counter()
+    _greedy(arch, params, {k: v[:1, :64] if k == "src_embeds" else v[:1]
+                           for k, v in batch.items()}, 1, 9, device)
+    log(f"[encdec] warm-up (1 source of 64 frames, 1 token) {time.perf_counter() - t0!r} s")
+    launches, wall, toks = _greedy(arch, params, batch, steps, 8 + steps, device)
+    log(f"[encdec] 8 sources of 512 frames, 8-token targets, {steps} greedy tokens each: "
+        f"{toks.size} tokens in {wall!r} s, {toks.size / wall!r} tokens/s (prefill "
+        f"included); peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB; "
+        f"launches {launches}")
+    _expect("encdec", launches, {"flash_attention": arch.cfg.n_enc_layers + 2 * L,
+                                 "decode_attention": 2 * L * steps,
+                                 "paged_decode_attention": 0, "ssd_scan": 0})
+    lengths = torch.full((8,), 8, dtype=torch.int32, device=device)
+    _check_steps("seamless-m4t-medium 8 x 512 frames, 8 target tokens", arch.cfg,
+                 lambda: arch.prefill(params, batch, max_len=8 + steps),
+                 lambda cache, tok: arch.decode_step(params, tok, cache, lengths)[0])
+    return launches, wall
+
+
 # ----------------------------------------------------------------- phase 5
+@contextlib.contextmanager
 def _plain_ops():
-    """Patch the model's two kernel ops with their plain versions (the
-    comparison path only; the port itself has no such switch)."""
+    """Patch the model's kernel ops (flash, dense and paged decode, the SSD
+    scan) with their plain versions (the comparison path only; the port
+    itself has no such switch)."""
+    from repro_torch.kernels.decode_attention.ref import decode_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.paged_attention.ref import paged_decode_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import paged_decode as pd_mod
+    from repro_torch.models import ssm as ssm_mod
 
-    def plain_attention(q, k, v, *, causal=True, window=0):
-        return attention_ref(q, k, v, causal=causal, window=window)
+    def plain_attention(q, k, v, *, causal=True, window=0, positions=None):
+        return attention_ref(q, k, v, causal=causal, window=window, positions=positions)
 
-    return (mock.patch.object(attn_mod, "attention_op", plain_attention),
-            mock.patch.object(pd_mod, "paged_decode_op", paged_decode_ref))
+    def plain_scan(states, decay, initial_state=None):
+        return ssd_scan_ref(states, decay, initial_state)
+
+    with mock.patch.object(attn_mod, "attention_op", plain_attention), \
+            mock.patch.object(attn_mod, "decode_op", decode_ref), \
+            mock.patch.object(pd_mod, "paged_decode_op", paged_decode_ref), \
+            mock.patch.object(ssm_mod, "ssd_scan_op", plain_scan):
+        yield
 
 
 class _Routes:
@@ -1792,16 +2271,14 @@ def _check_paths(label, cfg, run) -> None:
     with routes.record():
         kern = run(False)
     kern_routes = routes.calls
-    p1, p2 = _plain_ops()
-    with p1, p2, routes.record():
+    with _plain_ops(), routes.record():
         plain = run(True)
     if not cfg.is_moe:
         _report_logits(label, kern, plain)
         return
     _route_agreement(label, kern_routes, routes.calls)
     _report_logits(f"{label}, routed freely (logged, not gated)", kern, plain, gate=False)
-    p1, p2 = _plain_ops()
-    with p1, p2, routes.replay(kern_routes):
+    with _plain_ops(), routes.replay(kern_routes):
         pinned = run(True)
     _report_logits(f"{label}, the plain path on the kernel path's routes", kern, pinned)
 
@@ -2267,7 +2744,7 @@ def phase_reduced_check(name: str = "llama3-8b",
             fail("reduced model, async: no fused chunk tick or no decode_attention launch")
         if kind == "dense-async" and card[1]["spec_chunks"] < 2:
             fail(f"reduced {name}, dense-async: fewer than two chunks on the spec thread")
-        if arch.cfg.family == "ssm" and launched["ssd_scan"] == 0:
+        if arch.cfg.family in ("ssm", "hybrid") and launched["ssd_scan"] == 0:
             fail(f"reduced {name}, {kind}: the ssd_scan kernel never launched")
         c = card[1]
         if kind == "paged-prefix" and not (c["prefix_hits"] and launched["decode_attention"]):
@@ -2282,6 +2759,47 @@ def phase_reduced_check(name: str = "llama3-8b",
                 and c["kv_restored"] == c["kv_spilled"]):
             fail("reduced model, paged-chaos: a fault kind never bit, no lane was "
                  "quarantined, or a salvaged lane was not restored")
+    torch.cuda.synchronize()
+
+
+def phase_reduced_steps(names=("hymba-1.5b", "qwen2-vl-2b", "seamless-m4t-medium"),
+                        steps: int = 24):
+    """The three new families reduced, in float32, on the card through the
+    kernels and on the CPU through the plain versions, same weights and
+    inputs: ``Arch.prefill`` (hymba: 40 tokens over its window of 16;
+    qwen2-vl: 16 patches on a 4 x 4 grid and 24 text tokens; seamless: 24
+    source frames, 7 target tokens) and ``steps`` greedy decode steps
+    (hymba's rings wrap): the prefill's logits within 1e-4 and the greedy
+    tokens equal."""
+    import torch
+    from repro_torch.models.registry import get_arch
+
+    for name in names:
+        arch = get_arch(name)
+        arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
+        cfg = arch.cfg
+        cpu_params = arch.init(seed=0, device="cpu")
+        out = {}
+        for device in ("cuda", "cpu"):
+            params = cpu_params if device == "cpu" else _to(cpu_params, device)
+            if cfg.is_encoder_decoder:
+                batch = _encdec_batch(cfg, device, b=2, src=24, tgt=7)
+            elif cfg.frontend != "none":
+                batch = _vlm_batch(cfg, params, device, b=2, side=4, text=24)
+            else:
+                toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+                batch = {"tokens": torch.as_tensor(toks, device=device)}
+            with torch.no_grad():
+                first = arch.prefill(params, batch, max_len=72)[0].cpu()
+            launches, _wall, toks = _greedy(arch, params, batch, steps, 72, device)
+            out[device] = (first, toks, launches)
+        diff = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        same = bool(np.array_equal(out["cuda"][1], out["cpu"][1]))
+        log(f"[check] reduced {name} f32 prefill + {steps} steps, card (kernels) vs CPU "
+            f"(plain): prefill logits max abs diff {diff!r} (tolerance 1e-4), greedy tokens "
+            f"{'equal' if same else 'DIFFER'}; card launches {out['cuda'][2]}")
+        if diff > 1e-4 or not same or not out["cuda"][2]["decode_attention"]:
+            fail(f"reduced {name}: the kernel path differs from the plain path")
     torch.cuda.synchronize()
 
 
@@ -2633,12 +3151,44 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths["configs"] = phase_configs(smi)
     paths["launcher"] = phase_launcher(smi)
+
+    from repro_torch.serving.engine import InferenceEngine
+    arch, params = _init_full("hymba-1.5b", smi)
+    _warm(arch, params, InferenceEngine(arch, params, **HYMBA_ENGINE))
+    paths["hymba"], hymba_wall, hymba_streams = phase_hymba(arch, params)
+    log(f"[hymba-paged] on {smi}")
+    paths["hymba-paged"], hymba_paged_wall, _s = phase_hymba(arch, params, paged=True,
+                                                             streams=hymba_streams)
+    log(f"[hymba-chunked] on {smi}")
+    paths["hymba-chunked"], _w = phase_hymba_chunked(arch, params)
+    log(f"[check] on {smi}")
+    phase_hymba_check(arch, params)
+    del arch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, params = _init_full("qwen2-vl-2b", smi)
+    _warm(arch, params)
+    paths["vlm"] = phase_main_path(arch, params, label="vlm")
+    log(f"[vlm-embeds] on {smi}")
+    paths["vlm-embeds"], _w = phase_vlm_embeds(arch, params)
+    log(f"[check] on {smi}")
+    phase_logits_check(arch, params)
+    del arch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, params = _init_full("seamless-m4t-medium", smi)
+    paths["encdec"], _w = phase_encdec(arch, params)
+    del arch, params
+    gc.collect()
+    torch.cuda.empty_cache()
     paths.update(phase_train(smi))
     phase_reduced_check()
     phase_reduced_bridge()
     phase_reduced_check("mamba2-1.3b", ("dense", "dense-async", "paged-ssm"))
-    for config in NEW_CONFIGS:
+    for config in NEW_CONFIGS + ("qwen2-vl-2b",):
         phase_reduced_check(config, ("paged", "dense", "async", "paged-prefix", "paged-spill"))
+    phase_reduced_check("hymba-1.5b", ("dense", "dense-async", "paged-ssm"))
+    phase_reduced_steps()
     log(f"[check] on {smi}")
     phase_train_reduced()
     log(f"[fission] on {smi}")
@@ -2649,13 +3199,14 @@ def main() -> None:
     launches = {n: sum(p[n] for p in paths.values()) for n in rows}
     log(f"[paths] launches by path {paths}; async wall {async_wall!r} s, ssm wall "
         f"{ssm_wall!r} s, ssm-async wall {ssm_async_wall!r} s, ssm-paged wall "
-        f"{ssm_paged_wall!r} s, moe-async wall {moe_async_wall!r} s")
+        f"{ssm_paged_wall!r} s, moe-async wall {moe_async_wall!r} s, hymba wall "
+        f"{hymba_wall!r} s, hymba-paged wall {hymba_paged_wall!r} s")
     kernels = [dict(name=n, launches=launches[n], **rows[n]) for n in sorted(rows)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "sub_rows")
     log(f"[total] {time.perf_counter() - t_start!r} s, kernel builds included")
     log(smi)
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
+    print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -1,5 +1,6 @@
-// Causal GQA flash attention for Hopper (sm_90a): a bf16 instance on the
-// tensor cores (wgmma) and a float32 / small-D instance on the CUDA cores.
+// Causal, banded or full GQA flash attention for Hopper (sm_90a): a bf16
+// instance on the tensor cores (wgmma) and a float32 / small-D instance on
+// the CUDA cores.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention (Pallas body `_kernel`), which widens q, k and v to
@@ -52,6 +53,17 @@
 // which 16 warps an SM do not hide; it is above
 // scaled_dot_product_attention's time.
 //
+// Two variants of the causal mask, in both instances.  A sliding window
+// W (hymba's prefill) keeps key j for query i when i - j < W as well: a
+// query block starts its key loop at the tile that holds its first row's
+// first key in the band, so the tiles wholly below the band are skipped
+// like those above the diagonal, and only the tiles crossing the band's
+// lower edge are masked element by element (a 2048-token prefill at W 1024
+// computes 0.75 of the causal pairs).  Positions (B, S) int32 (M-RoPE
+// prefills over patch grids, whose temporal row repeats) make the mask
+// compare positions instead of indices, as the reference's does; then no
+// tile is skipped and every tile is masked element by element.
+//
 // The CUDA-core instance (`flash_kernel`) takes float32 at any of D 16, 32,
 // 64, 128, bf16 at D 16 or 32, and bf16 operands whose rows are not 16-byte
 // aligned: tensor cores would round float32 operands to TF32 (about 1e-3),
@@ -83,13 +95,16 @@ template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
 }
-template <typename T, int D>
+// kGen: the general mask (a window, positions); without it the instance
+// compiles the causal-or-none mask on indices alone.
+template <typename T, int D, bool kGen>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ o, int hq, int hkv, int s_len, int t_len, long long qb,
              long long qh, long long qs, long long kb, long long kh, long long ks,
              long long vb, long long vh, long long vs, long long ob, long long oh,
-             long long os, int causal, float scale) {
+             long long os, int causal, int window, const int* __restrict__ pos,
+             long long pos_b, float scale) {
   constexpr int DP = D + 1;        // padded rows: column reads hit distinct banks
   constexpr int CPT = D / 4;       // output columns per thread
   constexpr int KPT = kBK / 4;     // scores per thread per tile
@@ -109,6 +124,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const T* qp = q + b * qb + h * qh;
   const T* kp = k + b * kb + hk * kh;
   const T* vp = v + b * vb + hk * vh;
+  const int win = kGen ? window : 0;
+  const int* pp = (kGen && pos) ? pos + b * pos_b : nullptr;  // this batch row's positions
+  const int qpos = (pp && qrow < s_len) ? __ldg(pp + qrow) : qrow;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int rr = i / D, c = i - rr * D;
@@ -121,9 +139,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   float* prow = psm + r * (kBK + 1);
   const float* qr = qsm + r * DP;
 
-  // Keys past the block's last row are masked for every row: stop there.
-  const int k_end = causal ? min(t_len, q0 + kBQ) : t_len;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  // On indices, keys past the block's last row are masked for every row
+  // (stop there), and so are keys a whole window below its first row
+  // (start after them).  Masks on positions skip nothing.
+  int k_begin = 0, k_end = t_len;
+  if (causal && !pp) {
+    k_end = min(t_len, q0 + kBQ);
+    if (win > 0) k_begin = max(0, q0 - win + 1) / kBK * kBK;
+  }
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done with ksm/vsm
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int rr = i / D, c = i - rr * D;
@@ -144,7 +168,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
     for (int jj = 0; jj < KPT; ++jj) {
       const int key = k0 + cg + 4 * jj;
-      const bool ok = key < t_len && (!causal || key <= qrow);
+      const int kpos = (pp && key < t_len) ? __ldg(pp + key) : key;
+      const bool ok = key < t_len &&
+                      (!causal || (kpos <= qpos && (win <= 0 || qpos - kpos < win)));
       sreg[jj] = ok ? sreg[jj] : -INFINITY;
       mx = fmaxf(mx, sreg[jj]);
     }
@@ -182,19 +208,20 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kGen>
 int launch_cores(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
-           int s_len, int t_len, const long long* st, int causal, cudaStream_t stream) {
+                 int s_len, int t_len, const long long* st, int causal, int window,
+                 const int* pos, long long pos_b, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_kernel<T, D>;
-  const cudaError_t e = repro::configure_kernel<flash_kernel<T, D>>((int)smem);
+  auto kern = flash_kernel<T, D, kGen>;
+  const cudaError_t e = repro::configure_kernel<flash_kernel<T, D, kGen>>((int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((s_len + kBQ - 1) / kBQ, b * hq);
   const float scale = 1.0f / sqrtf((float)D);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), hq, hkv, s_len, t_len, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11], causal, scale);
+      st[6], st[7], st[8], st[9], st[10], st[11], causal, window, pos, pos_b, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -380,21 +407,45 @@ __device__ __forceinline__ float ex2(float x) {
 // Online softmax of one thread's two rows (row0 and row0 + 8) over the
 // key tiles: masks, running max m and this thread's share of the sum l,
 // and the rescale (al0, al1) that the last tile applied to earlier sums.
+// kGen: the general mask (a window, positions); without it the causal-or-
+// none mask on indices alone.
+template <bool kGen>
 struct Softmax {
-  int row0, causal, t_len, q0, lane;
+  int row0, causal, window, t_len, q0, lane;
+  const int* pos;  // this batch row's positions, or null: mask on indices
+  int qp0, qp1;    // the positions of rows row0 and row0 + 8
   float scale_log2;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
 
-  __device__ Softmax(int row0_, int causal_, int t_len_, int q0_, float scale_log2_, int lane_)
-      : row0(row0_), causal(causal_), t_len(t_len_), q0(q0_), lane(lane_),
-        scale_log2(scale_log2_) {}
+  __device__ Softmax(int row0_, int causal_, int window_, const int* pos_, int s_len, int t_len_,
+                     int q0_, float scale_log2_, int lane_)
+      : row0(row0_), causal(causal_), window(kGen ? window_ : 0), t_len(t_len_), q0(q0_),
+        lane(lane_), pos(kGen ? pos_ : nullptr), scale_log2(scale_log2_) {
+    qp0 = (pos && row0 < s_len) ? __ldg(pos + row0) : row0;
+    qp1 = (pos && row0 + 8 < s_len) ? __ldg(pos + row0 + 8) : row0 + 8;
+  }
 
   // s[i]: row row0 + 8 * ((i >> 1) & 1), key k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
   // P leaves as bf16 pairs in the wgmma A-operand layout.  The scale folds
   // into the exponent's FMA (it is positive, so the max commutes with it).
   __device__ __forceinline__ void tile(float (&s)[32], uint32_t (&phi)[16], uint32_t (&plo)[16],
                                        int k0) {
-    if (k0 + kRows > t_len || (causal && k0 + kRows > q0)) {
+    // Element masks only where a tile crosses an edge: the ragged end of
+    // the keys, the diagonal, the window's lower edge; every tile when
+    // the mask is on positions.
+    if constexpr (kGen) {
+      if (k0 + kRows > t_len ||
+          (causal && (pos || k0 + kRows > q0 || (window > 0 && k0 < q0 + kRows - window)))) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          const int qp = (i & 2) ? qp1 : qp0;
+          const int kp = (pos && key < t_len) ? __ldg(pos + key) : key;
+          if (key >= t_len || (causal && (kp > qp || (window > 0 && qp - kp >= window))))
+            s[i] = -INFINITY;
+        }
+      }
+    } else if (k0 + kRows > t_len || (causal && k0 + kRows > q0)) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
@@ -443,12 +494,13 @@ __host__ __device__ constexpr size_t wg_smem_bytes() {  // q, K, V tiles; 4 mbar
   return 3 * wg_tile_bytes<D>() + 24;
 }
 
-template <int D>
+template <int D, bool kGen>
 __global__ void __launch_bounds__(kWgThreads, 4)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
                    MapPos pq, MapPos pk, MapPos pv, MapPos po, int hq, int hkv, int s_len,
-                   int t_len, int causal, float scale_log2) {
+                   int t_len, int causal, int window, const int* __restrict__ pos,
+                   long long pos_b, float scale_log2) {
   constexpr int kTile = wg_tile_bytes<D>();
   extern __shared__ __align__(1024) unsigned char wsmem[];
   // q tile (then the output tile), K tile, V tile; mbarriers: q, K, V.
@@ -461,7 +513,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
   const int bh = blockIdx.y;
   const int b = bh / hq, h = bh - b * hq;
   const int hk = h / (hq / hkv);
-  const int k_end = causal ? min(t_len, q0 + kRows) : t_len;
+  const int win = kGen ? window : 0;
+  const int* pp = (kGen && pos) ? pos + b * pos_b : nullptr;
+  // Key tiles [j0, n_tiles): on indices, the tiles past the diagonal and
+  // those a whole window below the block's first row are skipped.
+  int k_end = t_len, j0 = 0;
+  if (causal && !pp) {
+    k_end = min(t_len, q0 + kRows);
+    if (win > 0) j0 = max(0, q0 - win + 1) / kRows;
+  }
   const int n_tiles = (k_end + kRows - 1) / kRows;
 
   if (tid == 0) {
@@ -476,20 +536,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
   if (tid == 0) {  // q and the first K and V tiles go out together
     repro::mbar_expect(bars, kTile);
     tma_tile<D>(qa, &mq, pq, q0, h, b, bars);
-    load(ka, &mk, pk, 0, bar_k);
-    load(va, &mv, pv, 0, bar_v);
+    load(ka, &mk, pk, j0, bar_k);
+    load(va, &mv, pv, j0, bar_v);
   }
 
   // This thread's rows of the 64-row tile: r0 and r0 + 8.
   const int r0 = warp * 16 + (lane >> 2);
-  Softmax sm(q0 + r0, causal, t_len, q0, scale_log2, lane);
+  Softmax<kGen> sm(q0 + r0, causal, win, pp, s_len, t_len, q0, scale_log2, lane);
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   repro::mbar_wait(bars, 0);
 
-  for (int j = 0; j < n_tiles; ++j) {
-    repro::mbar_wait(bar_k, j & 1);  // K tile j has landed
+  for (int j = j0; j < n_tiles; ++j) {
+    const int phase = (j - j0) & 1;
+    repro::mbar_wait(bar_k, phase);  // K tile j has landed
     float s[32];
     uint32_t phi[16], plo[16];
     issue_qk<D>(s, qa, ka);
@@ -500,7 +561,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
     sm.tile(s, phi, plo, j * kRows);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? sm.al1 : sm.al0;
-    repro::mbar_wait(bar_v, j & 1);  // V tile j has landed
+    repro::mbar_wait(bar_v, phase);  // V tile j has landed
     issue_pv<D>(acc, phi, plo, va);
     wgmma_wait();
     fence_regs(acc);
@@ -581,9 +642,10 @@ bool make_map(CUtensorMap* map, MapPos* pos, const void* base, int b, int h, int
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool kGen>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
-                 int s_len, int t_len, const long long* st, int causal, cudaStream_t stream) {
+                 int s_len, int t_len, const long long* st, int causal, int window,
+                 const int* pos, long long pos_b, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
   MapPos pq, pk, pv, po;
   if (!make_map(&mq, &pq, q, b, hq, s_len, D, st) ||
@@ -592,34 +654,43 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, in
       !make_map(&mo, &po, o, b, hq, s_len, D, st + 9))
     return -5;
   constexpr size_t smem = wg_smem_bytes<D>();
-  const cudaError_t e = repro::configure_kernel<flash_wgmma_kernel<D>>((int)smem);
+  const cudaError_t e = repro::configure_kernel<flash_wgmma_kernel<D, kGen>>((int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((s_len + kRows - 1) / kRows, b * hq);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  flash_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
-      mq, mk, mv, mo, pq, pk, pv, po, hq, hkv, s_len, t_len, causal, scale_log2);
+  flash_wgmma_kernel<D, kGen><<<grid, kWgThreads, smem, stream>>>(
+      mq, mk, mv, mo, pq, pk, pv, po, hq, hkv, s_len, t_len, causal, window, pos, pos_b,
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kGen>
 int launch_wgmma_d(int d, const void* q, const void* k, const void* v, void* o, int b, int hq,
-                   int hkv, int s_len, int t_len, const long long* st, int causal,
-                   cudaStream_t stream) {
-  if (d == 64) return launch_wgmma<64>(q, k, v, o, b, hq, hkv, s_len, t_len, st, causal, stream);
-  if (d == 128) return launch_wgmma<128>(q, k, v, o, b, hq, hkv, s_len, t_len, st, causal, stream);
+                   int hkv, int s_len, int t_len, const long long* st, int causal, int window,
+                   const int* pos, long long pos_b, cudaStream_t stream) {
+  if (d == 64)
+    return launch_wgmma<64, kGen>(q, k, v, o, b, hq, hkv, s_len, t_len, st, causal, window, pos,
+                                  pos_b, stream);
+  if (d == 128)
+    return launch_wgmma<128, kGen>(q, k, v, o, b, hq, hkv, s_len, t_len, st, causal, window, pos,
+                                   pos_b, stream);
   return -4;
 }
 
-template <typename T>
+template <typename T, bool kGen>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o, int b, int hq,
-             int hkv, int s_len, int t_len, const long long* st, int causal,
-             cudaStream_t stream) {
+             int hkv, int s_len, int t_len, const long long* st, int causal, int window,
+             const int* pos, long long pos_b, cudaStream_t stream) {
+  int (*launch)(const void*, const void*, const void*, void*, int, int, int, int, int,
+                const long long*, int, int, const int*, long long, cudaStream_t);
   switch (d) {
-    case 16: return launch_cores<T, 16>(q, k, v, o, b, hq, hkv, s_len, t_len, st, causal, stream);
-    case 32: return launch_cores<T, 32>(q, k, v, o, b, hq, hkv, s_len, t_len, st, causal, stream);
-    case 64: return launch_cores<T, 64>(q, k, v, o, b, hq, hkv, s_len, t_len, st, causal, stream);
-    case 128: return launch_cores<T, 128>(q, k, v, o, b, hq, hkv, s_len, t_len, st, causal, stream);
+    case 16: launch = launch_cores<T, 16, kGen>; break;
+    case 32: launch = launch_cores<T, 32, kGen>; break;
+    case 64: launch = launch_cores<T, 64, kGen>; break;
+    case 128: launch = launch_cores<T, 128, kGen>; break;
     default: return -2;
   }
+  return launch(q, k, v, o, b, hq, hkv, s_len, t_len, st, causal, window, pos, pos_b, stream);
 }
 
 }  // namespace
@@ -627,16 +698,23 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o, int b,
 // q: (B, Hq, S, D), k/v: (B, Hkv, T, D), o: (B, Hq, S, D), each given by
 // its (batch, head, sequence) element strides in `strides` (12 values:
 // q, k, v, o); the D axis must be contiguous.  dtype 0 = float32,
-// 1 = bfloat16; D in {16, 32, 64, 128}.  causal masks key > query index.
+// 1 = bfloat16; D in {16, 32, 64, 128}.  causal masks key j for query i
+// unless j <= i and, with window > 0, i - j < window (a band).  pos, when
+// not null, is a (B, S) int32 array of positions, rows `pos_b` apart,
+// that the causal mask and the window compare instead of indices (needs
+// causal and S == T); with pos null a window >= S is the causal mask.
 // instance 0 = CUDA cores (any of those); 1 = tensor cores (bf16, D 64 or
 // 128, 16-byte aligned pointers and strides that are multiples of 8).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int b,
                                int hq, int hkv, int s_len, int t_len, int d,
-                               const long long* strides, int causal, int dtype, int instance,
-                               void* stream) {
+                               const long long* strides, int causal, int window, const int* pos,
+                               long long pos_b, int dtype, int instance, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || s_len <= 0 || t_len <= 0 ||
-      (long long)b * hq > 65535)
+      (long long)b * hq > 65535 || window < 0 || (window > 0 && !causal) ||
+      (pos && (!causal || s_len != t_len)))
     return -1;
+  if (!pos && window >= s_len) window = 0;  // no key is a window below its query
+  const bool gen = window > 0 || pos;       // the instance with the general mask
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (instance == 1) {
     if (dtype != 1) return -4;
@@ -645,12 +723,15 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16 != 0)
       return -4;
-    return launch_wgmma_d(d, q, k, v, o, b, hq, hkv, s_len, t_len, strides, causal, s);
+    return (gen ? launch_wgmma_d<true> : launch_wgmma_d<false>)(
+        d, q, k, v, o, b, hq, hkv, s_len, t_len, strides, causal, window, pos, pos_b, s);
   }
   if (instance != 0) return -4;
   if (dtype == 0)
-    return launch_d<float>(d, q, k, v, o, b, hq, hkv, s_len, t_len, strides, causal, s);
+    return (gen ? launch_d<float, true> : launch_d<float, false>)(
+        d, q, k, v, o, b, hq, hkv, s_len, t_len, strides, causal, window, pos, pos_b, s);
   if (dtype == 1)
-    return launch_d<bf16>(d, q, k, v, o, b, hq, hkv, s_len, t_len, strides, causal, s);
+    return (gen ? launch_d<bf16, true> : launch_d<bf16, false>)(
+        d, q, k, v, o, b, hq, hkv, s_len, t_len, strides, causal, window, pos, pos_b, s);
   return -3;
 }

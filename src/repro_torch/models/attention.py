@@ -1,27 +1,40 @@
-"""Grouped-query attention with RoPE and the stacked KV cache.
+"""Grouped-query attention with RoPE, the KV cache, the ring buffer and
+cross attention.
 
 Port of :mod:`repro.models.attention` (``_project_qkv`` ``:52``, with the
 QKV biases added in the compute dtype after the projection's cast,
-``_rope`` with the standard and ChatGLM's half RoPE, ``attention``
-``:94``, ``init_kv_cache`` ``:176``, ``decode_attention`` ``:186``).  The reference computes attention in plain jnp; here causal
-self-attention goes through the ``flash_attention`` op and one-token
-decode through the ``decode_attention`` op, i.e. the hand-written CUDA
-kernels on the card and their plain versions on the CPU.  The model keeps
-q/k/v as (B, S, H, hd); they reach the flash op as (B, H, S, hd) views,
-which the kernel takes by strides, so no transpose is copied.
+``_rope`` ``:68`` with the standard, ChatGLM's half and Qwen2-VL's
+M-RoPE, ``attention`` ``:94``, ``init_kv_cache`` ``:176``,
+``decode_attention`` ``:186``) and of ``_cross_decode``
+(``repro/models/encdec.py:184``).  The reference computes attention in
+plain jnp; here every full-sequence attention goes through the
+``flash_attention`` op and every one-token decode through the
+``decode_attention`` op, i.e. the hand-written CUDA kernels on the card and
+their plain versions on the CPU.  The model keeps q/k/v as (B, S, H, hd);
+they reach the flash op as (B, H, S, hd) views, which the kernel takes by
+strides, so no transpose is copied.
+
+Masks of ``attention``: causal self-attention, banded by
+``cfg.attn_window`` when it is set (the reference windows only causal
+self-attention); the encoder's self-attention and cross attention
+(``kv_x``, no RoPE, T != S) attend everything.  With ``positions=None``
+(what the serving path and the training forward pass) the positions are
+``arange(S)`` and the causal mask is on token indices; given positions
+(an M-RoPE prefill over a patch grid, whose temporal row repeats) make it
+compare them, as the reference's mask does.  ``cfg.attn_chunk`` is the
+same math in bounded memory in the reference and changes nothing here.
 
 ``decode_attention`` writes the new token's K/V into the cache **in
-place** (the reference returns new arrays from ``.at[].set``).  The
-reference masks ``idx <= min(length, S_max - 1)``, which includes the
-token just written; the op attends ``[0, lengths)``, so it is called with
-``min(length, S_max - 1) + 1``.
-
-The causal mask is on token indices, which equals the reference's
-position mask for the prefill positions ``arange(S)`` the serving path
-uses.  In prefill, sliding windows (``cfg.attn_window``),
-``cfg.attn_chunk`` and cross-attention (``kv_x``) run the plain version on
-the CPU and raise ``NotImplementedError`` on the card for now; the
-windowed (ring-buffer) decode raises on every device.
+place** (the reference returns new arrays from ``.at[].set``).  Without a
+window the reference writes slot ``min(length, S_max - 1)`` and masks
+``idx <= min(length, S_max - 1)``; the op attends ``[0, lengths)``, so it
+is called with that slot + 1.  With a window (hymba's ring buffer) the
+reference writes slot ``length % S_max`` and admits the slots whose age
+``(slot - idx) % S_max`` is below ``min(length + 1, window)``.  A ring is
+never longer than its window (``S_max = min(max_len, W)``), so those are
+always the slots ``[0, min(length + 1, S_max))``, in ring order: the op
+attends them with that length.  Softmax does not depend on the keys'
+order, so the result is the reference's up to rounding.
 
 Shapes:
   x          (B, S, d_model)
@@ -36,11 +49,10 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_op
 from repro_torch.kernels.flash_attention.ops import attention_op
-from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, apply_rope_half, dense_init
+from repro_torch.models.layers import apply_mrope, apply_rope, apply_rope_half, dense_init
 
-__all__ = ["attn_params", "attention", "decode_attention", "init_kv_cache"]
+__all__ = ["attn_params", "attention", "cross_decode", "decode_attention", "init_kv_cache"]
 
 
 def attn_params(gen: torch.Generator, cfg: ModelConfig, device,
@@ -80,13 +92,18 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_x=None):
 
 
 def _rope(cfg: ModelConfig, q, k, positions):
+    """RoPE by ``cfg.rope``; M-RoPE takes (3, B, S) positions and
+    broadcasts (B, S) ones to three equal rows."""
     if cfg.rope == "standard":
         return apply_rope(q, k, positions, cfg.rope_theta)
     if cfg.rope == "half":
         return apply_rope_half(q, k, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        pos3 = positions if positions.dim() == 3 else positions.expand(3, *positions.shape)
+        return apply_mrope(q, k, pos3, cfg.rope_theta, cfg.mrope_sections)
     if cfg.rope == "none":
         return q, k
-    raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet")
+    raise ValueError(cfg.rope)
 
 
 def _out_proj(p: dict, cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
@@ -97,26 +114,28 @@ def _out_proj(p: dict, cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
 
 
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, *, causal: bool = True, kv_x=None,
-              return_kv: bool = False):
-    """Full-sequence attention (prefill).  ``kv_x`` != None is
-    cross-attention (no RoPE on cross, as in the reference)."""
+              positions: Optional[torch.Tensor] = None, *, causal: bool = True,
+              kv_x=None, return_kv: bool = False):
+    """Full-sequence attention (prefill, training, encoder, cross).
+    ``kv_x`` != None is cross-attention (no RoPE on cross, as in the
+    reference); ``positions`` (B, S), or (3, B, S) for M-RoPE, default to
+    ``arange(S)`` (module docstring)."""
     q, k, v = _project_qkv(p, cfg, x, kv_x)
     if kv_x is None and cfg.rope != "none":
-        q, k = _rope(cfg, q, k, positions)
-    # (B, S, H, hd) buffers viewed as (B, H, S, hd); the op takes strides.
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        rope_pos = positions
+        if rope_pos is None:
+            b, s = x.shape[:2]
+            rope_pos = torch.arange(s, device=x.device).expand(b, s)
+        q, k = _rope(cfg, q, k, rope_pos)
     self_causal = causal and kv_x is None
-    if kv_x is None and not cfg.attn_window and not cfg.attn_chunk:
-        out = attention_op(qh, kh, vh, causal=self_causal)
-    elif x.is_cuda:
-        raise NotImplementedError(
-            "sliding-window, chunked and cross attention have no CUDA kernel "
-            "in the port yet")
-    else:
-        # attn_chunk is the same math in bounded memory: one plain pass.
-        out = attention_ref(qh, kh, vh, causal=self_causal,
-                            window=cfg.attn_window if self_causal else 0)
+    mask_pos = None  # arange(S): the kernel's index mask, which skips tiles
+    if self_causal and positions is not None:
+        mask_pos = positions if positions.dim() == 2 else positions[0]
+    # (B, S, H, hd) buffers viewed as (B, H, S, hd); the op takes strides.
+    out = attention_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                       causal=self_causal,
+                       window=cfg.attn_window if self_causal else 0,
+                       positions=mask_pos)
     y = _out_proj(p, cfg, out.transpose(1, 2))
     if return_kv:
         return y, (k, v)
@@ -132,24 +151,43 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     this layer's slice, written in place; ``lengths`` (B,) int32, the
     current context length per lane.  The new K/V goes to slot
     ``min(lengths, S_max - 1)`` (a lane at capacity keeps rewriting its
-    last row).  ``window`` (hymba's ring buffer) is not ported yet and
-    raises.  Returns ``(y, cache_k, cache_v)``.
+    last row), or ``lengths % S_max`` in a ring buffer (``window``, which
+    must be at least ``S_max``; module docstring).  Returns ``(y,
+    cache_k, cache_v)``.
     """
-    if window:
-        raise NotImplementedError(
-            "the ring-buffer (windowed) decode is not ported yet")
     b = x.shape[0]
     s_max = cache_k.shape[1]
+    if window and s_max > window:
+        raise ValueError(f"a ring buffer of {s_max} rows is longer than its window "
+                         f"{window}: caches hold min(max_len, window) rows")
     q, k_new, v_new = _project_qkv(p, cfg, x)
     if cfg.rope != "none":
         q, k_new = _rope(cfg, q, k_new, lengths[:, None])  # true positions
-    slot = torch.clamp(lengths, max=s_max - 1).long()
+    if window:
+        slot = torch.remainder(lengths, s_max).long()
+        att_len = torch.clamp(lengths + 1, max=s_max)
+    else:
+        slot = torch.clamp(lengths, max=s_max - 1).long()
+        att_len = slot + 1
     rows = torch.arange(b, device=x.device)
     cache_k.index_put_((rows, slot), k_new[:, 0].to(cache_k.dtype))
     cache_v.index_put_((rows, slot), v_new[:, 0].to(cache_v.dtype))
-    out = decode_op(q[:, 0], cache_k, cache_v, (slot + 1).to(torch.int32))
+    out = decode_op(q[:, 0], cache_k, cache_v, att_len.to(torch.int32))
     y = _out_proj(p, cfg, out.reshape(b, 1, cfg.n_heads, cfg.hd))
     return y, cache_k, cache_v
+
+
+def cross_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, xk: torch.Tensor,
+                 xv: torch.Tensor) -> torch.Tensor:
+    """Single-query cross-attention over the fixed memory KV (the
+    reference's ``encdec._cross_decode``): x (B, 1, d_model), xk/xv (B,
+    S_src, Hkv, hd), read only.  Every lane attends all S_src rows, so the
+    op gets ``lengths = S_src``."""
+    b, s_src = x.shape[0], xk.shape[1]
+    q = _proj(x, p["wq"], cfg.cdtype)
+    lengths = torch.full((b,), s_src, dtype=torch.int32, device=x.device)
+    out = decode_op(q[:, 0], xk, xv, lengths)
+    return _out_proj(p, cfg, out.reshape(b, 1, cfg.n_heads, cfg.hd))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device,

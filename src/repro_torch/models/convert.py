@@ -7,12 +7,16 @@ dict with the same keys and the stacked layer axis kept:
 ``embed.table``, ``layers.{ln1.w, attn.wq (L, d, H, hd), wk, wv,
 wo (L, H, hd, d), ln2.w, mlp.w_gate/w_in/w_out}``, ``final_norm.w``,
 ``lm_head.w`` for the dense family, with ``attn.bq/bk/bv`` for QKV-bias
-configs, ``ln*.b`` for LayerNorm and empty norm dicts for OLMo's
-non-parametric norm; ``dense_layers`` beside ``layers`` for the MoE
-family, whose blocks hold ``moe.{router.w, experts.w_gate/w_in/w_out,
-shared.w_gate/w_in/w_out}`` in place of ``mlp``; ``layers.{ln1.w,
-ssm.in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_w, out_proj}`` and no
-``lm_head`` (tied) for mamba2.
+configs, ``ln*.b`` for LayerNorm, empty norm dicts for OLMo's
+non-parametric norm and no ``mlp.w_gate`` for the GELU MLP; ``dense_layers``
+beside ``layers`` for the MoE family, whose blocks hold ``moe.{router.w,
+experts.w_gate/w_in/w_out, shared.w_gate/w_in/w_out}`` in place of
+``mlp``; ``layers.{ln1.w, ssm.in_proj, conv_w, conv_b, A_log, D, dt_bias,
+norm_w, out_proj}`` and no ``lm_head`` (tied) for mamba2; a hybrid block
+(hymba) holds a dense block's leaves, ``ssm`` and
+``attn_branch_norm.w``/``ssm_branch_norm.w``; the encoder-decoder
+(seamless-m4t) adds ``enc_layers.{ln1, attn, ln2, mlp}`` and ``enc_norm``
+and gives each decoder block ``ln_cross`` and ``cross_attn``.
 """
 from __future__ import annotations
 

@@ -2,9 +2,9 @@
 
 Port of :mod:`repro.models.layers` (``rmsnorm`` ``:64``, ``layernorm``
 ``:71``, ``nonparam_ln`` ``:80``, ``norm_params``, ``apply_norm``,
-``apply_rope`` ``:125``, ``apply_rope_half`` ``:141``).  Norms and RoPE
-run in float32 whatever the compute dtype, as in the reference.  M-RoPE
-(qwen2-vl) belongs to a later slice (``attention._rope`` raises for it).
+``apply_rope`` ``:125``, ``apply_rope_half`` ``:141``, ``apply_mrope``
+``:155``).  Norms and RoPE run in float32 whatever the compute dtype, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ __all__ = [
     "rope_freqs",
     "apply_rope",
     "apply_rope_half",
+    "apply_mrope",
     "linear",
 ]
 
@@ -139,3 +140,24 @@ def apply_rope_half(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
     q1, k1 = apply_rope(q[..., :rot], k[..., :rot], positions, theta)
     return (torch.cat([q1, q[..., rot:]], dim=-1),
             torch.cat([k1, k[..., rot:]], dim=-1))
+
+
+def apply_mrope(q: torch.Tensor, k: torch.Tensor, positions3: torch.Tensor,
+                theta: float, sections):
+    """Qwen2-VL's M-RoPE [arXiv:2409.12191]: the d/2 frequencies are cut
+    into (temporal, height, width) ``sections``, and frequency f rotates by
+    the position of its section's row of ``positions3`` (3, B, S).  Where
+    the three rows are equal (text tokens) it is :func:`apply_rope`."""
+    d = q.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not cover d/2 = {d // 2}")
+    inv = rope_freqs(d, theta, device=q.device)               # (d/2,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=q.device),
+        torch.as_tensor(sections, device=q.device))           # (d/2,) row of each frequency
+    pos = positions3.float()[sec_id]                          # (d/2, B, S)
+    ang = pos.permute(1, 2, 0) * inv                          # (B, S, d/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    return (_rotate(q.float(), cos, sin).to(q.dtype),
+            _rotate(k.float(), cos, sin).to(k.dtype))

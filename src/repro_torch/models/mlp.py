@@ -1,8 +1,9 @@
-"""Dense feed-forward block: SwiGLU (llama lineage).
+"""Dense feed-forward blocks: SwiGLU (llama lineage), GELU, GeGLU.
 
 Port of :mod:`repro.models.mlp`.  The reference's sharding annotations
-(``shard_activation``) have no counterpart on one card and are dropped;
-GELU/GeGLU belong to later slices and raise ``NotImplementedError``.
+(``shard_activation``) have no counterpart on one card and are dropped.
+GELU is ``jax.nn.gelu``'s default, the tanh approximation
+(``approximate="tanh"``), applied in float32 as the reference does.
 """
 from __future__ import annotations
 
@@ -14,25 +15,36 @@ from repro_torch.models.layers import dense_init, linear
 
 __all__ = ["mlp_params", "mlp"]
 
+_GATED = ("swiglu", "geglu")
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
 
 def mlp_params(gen: torch.Generator, cfg: ModelConfig, device,
                lead: tuple = ()) -> dict:
-    """SwiGLU weights, stacked along ``lead`` (the layer axis)."""
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"activation {cfg.act!r} is not ported yet")
+    """Weights stacked along ``lead`` (the layer axis): ``w_gate``,
+    ``w_in`` and ``w_out`` for the gated activations, ``w_in`` and
+    ``w_out`` for GELU."""
+    if cfg.act not in _GATED + ("gelu",):
+        raise ValueError(f"activation {cfg.act!r}")
     d, d_ff = cfg.d_model, cfg.d_ff
-    return {
-        "w_gate": dense_init(gen, d, d_ff, cfg.pdtype, device, lead=lead),
-        "w_in": dense_init(gen, d, d_ff, cfg.pdtype, device, lead=lead),
-        "w_out": dense_init(gen, d_ff, d, cfg.pdtype, device, lead=lead),
-    }
+    p = {}
+    if cfg.act in _GATED:
+        p["w_gate"] = dense_init(gen, d, d_ff, cfg.pdtype, device, lead=lead)
+    p["w_in"] = dense_init(gen, d, d_ff, cfg.pdtype, device, lead=lead)
+    p["w_out"] = dense_init(gen, d_ff, d, cfg.pdtype, device, lead=lead)
+    return p
 
 
 def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"activation {cfg.act!r} is not ported yet")
     cd = cfg.cdtype
-    g = linear(x, p["w_gate"], compute_dtype=cd)
     h = linear(x, p["w_in"], compute_dtype=cd)
-    h = F.silu(g.float()).to(cd) * h
+    if cfg.act in _GATED:
+        g = linear(x, p["w_gate"], compute_dtype=cd)
+        act = F.silu if cfg.act == "swiglu" else _gelu
+        h = act(g.float()).to(cd) * h
+    else:
+        h = _gelu(h.float()).to(cd)
     return linear(h, p["w_out"], compute_dtype=cd)

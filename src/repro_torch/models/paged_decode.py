@@ -16,6 +16,9 @@ Two differences from the reference, neither visible in the results:
   every layer of every stack, so they are computed once per step instead
   of per layer.
 
+M-RoPE configs (qwen2-vl) decode text tokens: ``_rope`` broadcasts the
+(B, 1) positions to three equal rows, the reference's ``:100-105``.
+
 A MoE config runs its stacks in order (``dense_layers``, then ``layers``,
 whose blocks hold ``moe``); each stack has its own page arrays, and all
 share the block tables and the write slots.

@@ -1,24 +1,41 @@
-"""Architecture registry for the port (dense, MoE and SSM families so far).
+"""Architecture registry for the port: all ten configurations.
 
 Port of :mod:`repro.models.registry`: ``get_arch(name)`` returns an
-:class:`Arch` bundling the config with its init, training forward, cache
-and one-token decode functions (the serving engine calls
-``transformer.prefill`` itself, as in the reference).  ``forward`` runs
-the dense and MoE families (for MoE a forward only: MoE training is not
-ported); SSM, encoder-decoder and frontend archs raise
-``NotImplementedError`` there (training mamba2 needs a gradient for
-``ssd_scan``).  The dry-run ``input_specs`` and the other families come
-with later slices.
+:class:`Arch` bundling the config with its init, training forward,
+prefill, cache and one-token decode functions, dispatched by family as in
+the reference: the encoder-decoder (seamless-m4t) to
+:mod:`repro_torch.models.encdec`, a frontend config (qwen2-vl's patch
+stub) to ``embeds=`` with its M-RoPE ``positions``, everything else to
+:mod:`repro_torch.models.transformer` (the serving engines call
+``transformer.prefill`` themselves, as in the reference).  ``forward``
+runs the dense, MoE, VLM and encoder-decoder families; SSM and hybrid
+stacks raise ``NotImplementedError`` there (training them needs a
+gradient for ``ssd_scan``).  The dry-run ``input_specs`` is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
 
+from repro_torch.models import encdec as _encdec
 from repro_torch.models import transformer as _tf
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["Arch", "get_arch"]
+__all__ = ["Arch", "get_arch", "ARCH_IDS"]
+
+ARCH_IDS = [
+    "chatglm3-6b",
+    "olmo-1b",
+    "llama3-8b",
+    "qwen1.5-4b",
+    "mamba2-1.3b",
+    "hymba-1.5b",
+    "qwen2-vl-2b",
+    "seamless-m4t-medium",
+    "deepseek-moe-16b",
+    "kimi-k2-1t-a32b",
+]
 
 
 @dataclasses.dataclass
@@ -26,35 +43,52 @@ class Arch:
     cfg: ModelConfig
 
     def init(self, seed: int = 0, device="cuda") -> dict:
+        if self.cfg.is_encoder_decoder:
+            return _encdec.init_params_encdec(self.cfg, seed, device)
         return _tf.init_params(self.cfg, seed, device)
 
     def forward(self, params: dict, batch: dict):
         """Training forward → (logits, aux)."""
         cfg = self.cfg
-        if (cfg.family not in ("dense", "moe") or cfg.is_encoder_decoder
-                or cfg.frontend != "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: the training forward is ported for the dense and "
-                "MoE families only")
+        if cfg.is_encoder_decoder:
+            return _encdec.forward_encdec(cfg, params, batch["src_embeds"],
+                                          batch["tgt_tokens"])
+        if cfg.frontend != "none":
+            return _tf.forward(cfg, params, embeds=batch["embeds"],
+                               positions=batch.get("positions"))
         return _tf.forward(cfg, params, batch["tokens"])
 
     def labels_of(self, batch: dict):
         return batch["labels"]
 
-    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
+    def prefill(self, params: dict, batch: dict, max_len: Optional[int] = None):
+        """(logits (B, V) at the last position, cache) of a batch of
+        tokens, of a frontend's embeddings and positions, or of an
+        encoder-decoder's source embeddings and target tokens."""
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            return _encdec.prefill_encdec(cfg, params, batch["src_embeds"],
+                                          batch["tgt_tokens"], max_len=max_len)
+        if cfg.frontend != "none":
+            return _tf.prefill(cfg, params, embeds=batch["embeds"],
+                               positions=batch.get("positions"), max_len=max_len)
+        return _tf.prefill(cfg, params, batch["tokens"], max_len=max_len)
+
+    def init_cache(self, batch: int, max_len: int, device="cuda",
+                   src_len: Optional[int] = None) -> dict:
+        if self.cfg.is_encoder_decoder:
+            return _encdec.init_cache_encdec(self.cfg, batch, max_len, src_len or max_len,
+                                             device)
         return _tf.init_cache(self.cfg, batch, max_len, device)
 
     def decode_step(self, params: dict, token, cache: dict, lengths):
+        if self.cfg.is_encoder_decoder:
+            return _encdec.decode_step_encdec(self.cfg, params, token, cache, lengths)
         return _tf.decode_step(self.cfg, params, token, cache, lengths)
 
 
 def get_arch(name: str) -> Arch:
-    """The :class:`Arch` of a ported configuration (``repro_torch.configs``);
-    configurations outside the dense, MoE and SSM families raise
-    ``NotImplementedError``."""
+    """The :class:`Arch` of a configuration in ``repro_torch.configs``."""
     mod_name = name.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
-    if mod.CONFIG.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(
-            f"{name}: only the dense, MoE and SSM families are ported")
     return Arch(cfg=mod.CONFIG)

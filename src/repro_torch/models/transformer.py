@@ -1,16 +1,23 @@
-"""Decoder-only LM, dense, MoE and SSM paths: parameters, embedding,
-forward, prefill, head.
+"""Decoder-only LM, dense, MoE, SSM, hybrid and VLM paths: parameters,
+embedding, forward, prefill, head.
 
-Port of the dense, MoE and SSM paths of :mod:`repro.models.transformer`
-(``_embed``, ``_head``, ``_stack_names``, ``_layer_stacks``,
-``_block_params`` ``:66``, ``_block_forward`` ``:87``, ``_block_decode``
-``:138``, ``_run_stack`` ``:228``, ``forward`` ``:268``, ``prefill``
-``:309``, ``decode_step`` ``:358``, ``init_cache``).  Layer parameters
-keep the reference's stacked leading layer axis and keys, so a JAX params
-pytree converts leaf for leaf (:mod:`repro_torch.models.convert`); the
-reference's ``lax.scan`` over layers is a Python loop over that axis.  An
-SSM block is ``ln1`` and the mamba2 mixer (:mod:`repro_torch.models.ssm`);
-its cache is ``{"ssm", "conv"}`` per stack.  A MoE config keeps its
+Port of :mod:`repro.models.transformer` (``_embed``, ``_head``,
+``_stack_names``, ``_layer_stacks``, ``_block_params`` ``:66``,
+``_block_forward`` ``:87``, ``_block_prefill`` ``:113``, ``_block_decode``
+``:138``, ``_run_stack`` ``:228``, ``forward`` ``:268``, ``init_cache``
+``:284``, ``prefill`` ``:309``, ``decode_step`` ``:358``).  Layer
+parameters keep the reference's stacked leading layer axis and keys, so a
+JAX params pytree converts leaf for leaf
+(:mod:`repro_torch.models.convert`); the reference's ``lax.scan`` over
+layers is a Python loop over that axis.  An SSM block is ``ln1`` and the
+mamba2 mixer (:mod:`repro_torch.models.ssm`); its cache is ``{"ssm",
+"conv"}`` per stack.  A hybrid block (hymba [arXiv:2411.13676]) runs
+attention and the mixer in parallel on the same normed input, RMS-norms
+each branch (``attn_branch_norm``, ``ssm_branch_norm``) and adds their
+mean, ``x + 0.5 * (a + s)``, before its MLP; its cache is ``{"k", "v",
+"ssm", "conv"}``.  A windowed config (``cfg.attn_window`` W) keeps a ring
+buffer of ``min(max_len, W)`` rows per layer, token p at slot ``p % W``;
+``prefill`` lays its KV out so (below).  A MoE config keeps its
 ``first_dense_layers`` dense blocks in a stack of their own,
 ``dense_layers``, which runs before ``layers``, whose blocks hold ``moe``
 (:mod:`repro_torch.models.moe`) in place of ``mlp``; each stack has its
@@ -18,20 +25,21 @@ own KV cache.  Norms follow ``cfg.norm`` (RMSNorm, LayerNorm or OLMo's
 non-parametric LayerNorm, which holds no leaves).  Tied embeddings use the
 embedding table as the head.  With ``cfg.query_embedding`` the embedding
 lookup is the ``table_gather`` query (``async_query``), which a fissioned
-microbatch loop batches.  The training ``forward`` runs dense and MoE
-stacks and sums the MoE blocks' auxiliary losses (MoE training itself is
-not ported: nothing checks its gradient); an SSM stack raises
+microbatch loop batches.  A frontend config (qwen2-vl's patch stub) feeds
+precomputed ``embeds`` instead of tokens, with (3, B, S) M-RoPE
+``positions``.  The training ``forward`` runs dense and MoE stacks and
+sums the MoE blocks' auxiliary losses (MoE training itself is not ported:
+nothing checks its gradient); SSM and hybrid stacks raise
 ``NotImplementedError`` there (``ssd_scan`` has no gradient yet).
 ``cfg.remat`` recomputes each block in the backward through
-``torch.utils.checkpoint``.  Hybrid stacks belong to a later slice and
-raise ``NotImplementedError``.
+``torch.utils.checkpoint``.
 
 Entry points:
   init_params(cfg, seed, device)              → params dict
-  forward(cfg, params, tokens, positions)     → (logits (B, S, V) f32, aux)
-  prefill(cfg, params, tokens, max_len=...)   → (logits, cache)
+  forward(cfg, params, tokens, positions, embeds=) → (logits (B, S, V) f32, aux)
+  prefill(cfg, params, tokens, max_len=..., positions=, embeds=) → (logits, cache)
   decode_step(cfg, params, token, cache, lengths) → (logits, cache)
-  init_cache(cfg, batch, max_len, device)     → stacked KV or SSM cache
+  init_cache(cfg, batch, max_len, device)     → stacked KV and/or SSM cache
 
 ``decode_step`` writes the cache in place and returns the dict it got
 (the reference returns a new pytree and relies on buffer donation).
@@ -52,7 +60,7 @@ from repro_torch.models.attention import (
     init_kv_cache,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_norm, dense_init, embed_init, norm_params
+from repro_torch.models.layers import apply_norm, dense_init, embed_init, norm_params, rmsnorm
 from repro_torch.models.mlp import mlp, mlp_params
 from repro_torch.models.moe import moe, moe_params
 from repro_torch.models.ssm import (
@@ -75,15 +83,6 @@ def block_kind(cfg: ModelConfig, moe_stack: bool) -> str:
     return "dense"
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    hybrid stacks.  Dense, MoE and SSM stacks, the three norms, tied
-    embeddings and the async_query embedding pass."""
-    if any(kind not in ("dense", "moe", "ssm") for _n, kind, _c in _stack_names(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE and SSM families are ported so far")
-
-
 def _norm_params(cfg: ModelConfig, device, lead: tuple = ()) -> dict:
     return norm_params(cfg.norm, cfg.d_model, cfg.pdtype, device, lead)
 
@@ -92,7 +91,8 @@ def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str, device,
                   n: int) -> dict:
     """``n`` stacked blocks of ``kind``: an SSM block holds ``ln1`` and
     ``ssm``; a dense or MoE block ``ln1``, ``attn``, ``ln2`` and ``mlp`` or
-    ``moe``."""
+    ``moe``; a hybrid block a dense block's leaves, ``ssm`` and the two
+    branch norms (RMSNorm whatever ``cfg.norm`` is)."""
     lead = (n,)
     if kind == "ssm":
         return {"ln1": _norm_params(cfg, device, lead),
@@ -104,6 +104,10 @@ def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str, device,
         p["moe"] = moe_params(gen, cfg, device, lead)
     else:
         p["mlp"] = mlp_params(gen, cfg, device, lead)
+    if kind == "hybrid":
+        p["ssm"] = ssm_params(gen, cfg, device, lead)
+        for name in ("ssm_branch_norm", "attn_branch_norm"):
+            p[name] = norm_params("rmsnorm", cfg.d_model, cfg.pdtype, device, lead)
     return p
 
 
@@ -113,7 +117,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     ``init_params``; different numbers, since the generators differ), one
     entry per stack of :func:`_stack_names`; a tied config has no
     ``lm_head``."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -216,7 +219,7 @@ def _ffn(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor):
 
 
 def _block_forward(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                   positions: torch.Tensor):
+                   positions: Optional[torch.Tensor]):
     """One dense or MoE block over the full sequence (training): attention
     through the flash op, then the MLP or MoE, each with its residual →
     ``(x, aux)``."""
@@ -228,7 +231,7 @@ def _block_forward(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
 
 def _run_stack(cfg: ModelConfig, stacked: dict, kind: str, n: int, x: torch.Tensor,
-               positions: torch.Tensor):
+               positions: Optional[torch.Tensor]):
     """The reference's ``_run_stack`` in ``"forward"`` mode: ``n`` blocks
     over ``x`` → ``(x, summed aux)``.  A dense block's aux is 0."""
     if kind not in ("dense", "moe"):
@@ -246,15 +249,21 @@ def _run_stack(cfg: ModelConfig, stacked: dict, kind: str, n: int, x: torch.Tens
     return x, aux_total
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None):
-    """Training forward: tokens (B, S) integer → (logits (B, S, V) float32,
-    aux loss).  ``positions`` defaults to ``arange(S)`` for every row."""
-    _check_ported(cfg)
-    x = _embed(cfg, params, tokens)
-    B, S = x.shape[:2]
-    if positions is None:
-        positions = torch.arange(S, device=x.device).expand(B, S)
+def _inputs(cfg: ModelConfig, params: dict, tokens, embeds) -> torch.Tensor:
+    """The first hidden state: the embedded ``tokens``, or a frontend's
+    precomputed ``embeds`` (B, S, d) in the compute dtype."""
+    if embeds is not None:
+        return embeds.to(cfg.cdtype)
+    return _embed(cfg, params, tokens)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None):
+    """Training forward: tokens (B, S) integer, or ``embeds`` (B, S, d) →
+    (logits (B, S, V) float32, aux loss).  ``positions`` (B, S), or (3, B,
+    S) for M-RoPE, default to ``arange(S)`` for every row."""
+    x = _inputs(cfg, params, tokens, embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for stacked, kind, n in _layer_stacks(cfg, params):
         x, aux = _run_stack(cfg, stacked, kind, n, x, positions)
@@ -263,64 +272,99 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return _head(cfg, params, x), aux_total
 
 
+def _kv_len(cfg: ModelConfig, max_len: int) -> int:
+    """Rows of a layer's KV cache: a windowed config's ring holds
+    ``min(max_len, W)``."""
+    return min(max_len, cfg.attn_window) if cfg.attn_window > 0 else max_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> dict:
     """Stacked decode cache for every stack, keyed by stack name: ``{"k",
-    "v"}`` for a dense stack, ``{"ssm", "conv"}`` for an SSM stack (which
-    does not grow with ``max_len``)."""
-    _check_ported(cfg)
+    "v"}`` for a dense or MoE stack, ``{"ssm", "conv"}`` for an SSM stack
+    (which does not grow with ``max_len``), both for a hybrid stack."""
     dev = resolve_device(device)
     caches = {}
     for name, kind, n in _stack_names(cfg):
-        if kind == "ssm":
-            caches[name] = init_ssm_state(cfg, batch, n_layers=n, device=dev)
-        else:
-            caches[name] = init_kv_cache(cfg, batch, max_len, dev, n_layers=n)
+        c = {}
+        if kind != "ssm":
+            c.update(init_kv_cache(cfg, batch, _kv_len(cfg, max_len), dev, n_layers=n))
+        if kind in ("ssm", "hybrid"):
+            c.update(init_ssm_state(cfg, batch, n_layers=n, device=dev))
+        caches[name] = c
     return caches
 
 
-def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            max_len: Optional[int] = None, return_all_logits: bool = False):
-    """Full-sequence prefill of ``tokens`` (B, S) → (logits, cache).
+def prefill(cfg: ModelConfig, params: dict, tokens: Optional[torch.Tensor] = None,
+            max_len: Optional[int] = None, return_all_logits: bool = False, *,
+            positions: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None):
+    """Full-sequence prefill of ``tokens`` (B, S), or of a frontend's
+    ``embeds`` (B, S, d) at ``positions`` ((3, B, S) for M-RoPE; default
+    ``arange(S)``) → (logits, cache).
 
     Logits are (B, V) at the last position, or (B, S, V) with
     ``return_all_logits`` for right-padded serving batches.  The cache is
-    ``{stack: {"k", "v": (L, B, S or max_len, Hkv, hd)}}`` for a dense
-    stack and ``{stack: {"ssm": (L, B, H, P, N) float32, "conv": (L, B,
-    K-1, Ch)}}`` for an SSM stack, nothing padded to ``max_len``.
-    Right-padded prompts are safe for attention (causal masking keeps pad
-    keys invisible to real queries) but not for a recurrence: an SSM
-    stack's state and conv tail run over the pad positions too, as in the
-    reference (``repro.models.ssm.ssm_forward``).  Runs on the device
-    ``tokens`` and ``params`` live on.
+    ``{stack: {"k", "v": (L, B, S_kv, Hkv, hd)}}`` for a dense or MoE
+    stack, with ``S_kv`` = ``max(S, max_len)``, and ``{stack: {"ssm": (L,
+    B, H, P, N) float32, "conv": (L, B, K-1, Ch)}}`` for an SSM stack; a
+    hybrid stack holds all four.  A windowed config's KV is re-laid out
+    as the reference's ring buffer of W rows: the last W tokens, token p
+    at slot ``p % W`` (``torch.roll`` of the last W rows by ``S % W``),
+    or the S rows and zeros after them when S < W.  The ring keeps the
+    last W rows of the *padded* length S, as the reference's does, so a
+    right-padded prompt shorter than S loses real rows to pad rows once
+    S reaches W.  Right-padded prompts are safe for full-context
+    attention (causal masking keeps pad keys invisible to real queries)
+    but not for a recurrence: an SSM stack's state and conv tail run over
+    the pad positions too, as in the reference
+    (``repro.models.ssm.ssm_forward``).  Runs on the device ``tokens`` or
+    ``embeds`` and ``params`` live on.
     """
-    _check_ported(cfg)
-    x = _embed(cfg, params, tokens)
+    x = _inputs(cfg, params, tokens, embeds)
     B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    pad = (max_len - S) if max_len is not None and max_len > S else 0
+    W = cfg.attn_window
+    rows = W if W > 0 else max(S, max_len or 0)
     caches = {}
     for (name, kind, n), (stacked, _k2, _n2) in zip(
             _stack_names(cfg), _layer_stacks(cfg, params)):
         if kind == "ssm":
             x, caches[name] = _prefill_ssm_stack(cfg, stacked, n, x)
             continue
-        shape = (n, B, S + pad, cfg.n_kv_heads, cfg.hd)
-        ck = torch.zeros(shape, dtype=cfg.cdtype, device=x.device)
-        cv = torch.zeros(shape, dtype=cfg.cdtype, device=x.device)
+        shape = (n, B, rows, cfg.n_kv_heads, cfg.hd)
+        c = {"k": torch.zeros(shape, dtype=cfg.cdtype, device=x.device),
+             "v": torch.zeros(shape, dtype=cfg.cdtype, device=x.device)}
+        if kind == "hybrid":
+            c.update(init_ssm_state(cfg, B, n_layers=n, device=x.device))
         for i in range(n):
             lp = layer_slice(stacked, i)
             h = apply_norm(cfg.norm, lp["ln1"], x)
             a, (k, v) = attention(lp["attn"], cfg, h, positions, causal=True,
                                   return_kv=True)
-            ck[i, :, :S] = k
-            cv[i, :, :S] = v
-            x = x + a
+            for key, t in (("k", k), ("v", v)):
+                if W > 0 and S >= W:  # token p at slot p % W
+                    c[key][i] = torch.roll(t[:, S - W:], S % W, dims=1)
+                else:
+                    c[key][i, :, :S] = t
+            if kind == "hybrid":
+                s_out, state = ssm_forward(lp["ssm"], cfg, h, return_state=True)
+                c["ssm"][i] = state["ssm"]
+                c["conv"][i] = state["conv"]
+                x = x + _branch_mean(lp, a, s_out)
+            else:
+                x = x + a
             x = x + _ffn(lp, cfg, kind, apply_norm(cfg.norm, lp["ln2"], x))[0]
-        caches[name] = {"k": ck, "v": cv}
+        caches[name] = c
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if return_all_logits:
         return _head(cfg, params, x), caches
     return _head(cfg, params, x[:, -1:])[:, 0], caches
+
+
+def _branch_mean(p: dict, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """A hybrid block's two branches, each RMS-normed, then their mean."""
+    a = rmsnorm(a, p["attn_branch_norm"]["w"])
+    s = rmsnorm(s, p["ssm_branch_norm"]["w"])
+    return 0.5 * (a + s)
 
 
 def _prefill_ssm_stack(cfg: ModelConfig, stacked: dict, n: int, x: torch.Tensor):
@@ -340,21 +384,21 @@ def _block_decode(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                   cache: dict, lengths: torch.Tensor) -> torch.Tensor:
     """One block's one-token decode.  ``cache`` holds this layer's slices
     (views into the stacked cache), written in place: ``k``/``v`` (B,
-    S_max, Hkv, hd) for a dense block, ``ssm`` (B, H, P, N) and ``conv``
-    (B, K-1, Ch) for an SSM block; a MoE block routes its one token per
-    lane (capacity 4 per expert, so nothing is dropped)."""
+    S_max, Hkv, hd) for a dense block (a ring buffer with a window),
+    ``ssm`` (B, H, P, N) and ``conv`` (B, K-1, Ch) for an SSM block, all
+    four for a hybrid block; a MoE block routes its one token per lane
+    (capacity 4 per expert, so nothing is dropped)."""
     h = apply_norm(cfg.norm, p["ln1"], x)
-    if kind == "ssm":
-        y, state, conv = ssm_decode_step(p["ssm"], cfg, h, cache["ssm"], cache["conv"])
+    if kind in ("ssm", "hybrid"):
+        s, state, conv = ssm_decode_step(p["ssm"], cfg, h, cache["ssm"], cache["conv"])
         cache["ssm"].copy_(state)
         cache["conv"].copy_(conv)
-        return x + y
-    if kind not in ("dense", "moe"):
-        raise NotImplementedError(f"decode of {kind!r} blocks is not ported yet")
+        if kind == "ssm":
+            return x + s
     window = cfg.attn_window if cfg.attn_window > 0 else None
     a, _k, _v = decode_attention(p["attn"], cfg, h, cache["k"], cache["v"], lengths,
                                  window=window)
-    x = x + a
+    x = x + (_branch_mean(p, a, s) if kind == "hybrid" else a)
     return x + _ffn(p, cfg, kind, apply_norm(cfg.norm, p["ln2"], x))[0]
 
 
@@ -367,7 +411,6 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     (``lengths`` is read by dense stacks only).  Updates ``cache`` in place
     and returns ``(logits (B, V) float32, cache)``.
     """
-    _check_ported(cfg)
     x = _embed(cfg, params, token[:, None])
     for (name, kind, n), (stacked, _k2, _n2) in zip(
             _stack_names(cfg), _layer_stacks(cfg, params)):

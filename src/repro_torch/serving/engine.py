@@ -331,6 +331,7 @@ class StagedPrefill:
 class InferenceEngine:
     """Dense lane-cache engine; the paged engine builds on it.
 
+    A windowed config (hymba) needs ``max_len`` of at least its window.
     ``device`` defaults to ``"cuda"`` and must be where ``params`` live;
     without CUDA the caller passes ``device="cpu"``.  ``kv_shares``
     reserves decode lanes per template (:class:`KVPartition`);
@@ -353,6 +354,12 @@ class InferenceEngine:
         if where.type != self.device.type:
             raise ValueError(f"params live on {where}, engine device is "
                              f"{self.device}")
+        window = self.arch.cfg.attn_window
+        if window > 0 and self.max_len < window:
+            # The lanes' ring holds min(max_len, W) rows and a prefill's W:
+            # the reference's commit fails on that shape mismatch.
+            raise ValueError(f"max_len {self.max_len} is below the sliding window "
+                             f"{window}: a prefill's W-row ring would not fit a lane")
         self.cache = self.arch.init_cache(self.n_lanes, self.max_len, self.device)
         self.lengths = np.zeros((self.n_lanes,), np.int32)
         self.active = np.zeros((self.n_lanes,), bool)

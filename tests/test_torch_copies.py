@@ -39,7 +39,8 @@ VERBATIM = [
     # the model configurations
     "configs/llama3_8b.py", "configs/mamba2_1_3b.py", "configs/deepseek_moe_16b.py",
     "configs/kimi_k2_1t_a32b.py", "configs/olmo_1b.py", "configs/qwen1_5_4b.py",
-    "configs/chatglm3_6b.py",
+    "configs/chatglm3_6b.py", "configs/hymba_1_5b.py", "configs/qwen2_vl_2b.py",
+    "configs/seamless_m4t_medium.py",
 ]
 
 

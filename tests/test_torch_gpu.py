@@ -358,7 +358,8 @@ def test_cuda_operands_never_fall_back(gen):
         registry.dispatch("flash_attention", (q, k, k))
     q, k = q[..., :32], k[..., :32].contiguous()
     with pytest.raises(ValueError):
-        registry.dispatch("flash_attention", (q.contiguous(), k, k), common={"window": 8})
+        registry.dispatch("flash_attention", (q.contiguous(), k, k),
+                          common={"causal": False, "window": 8})
     assert registry.launch_counts() == {n: 0 for n in registry.names()}
 
 
@@ -1244,3 +1245,198 @@ def test_reduced_config_served_on_card_matches_cpu(gen, name):
         sched.run_until_drained()
         out[device] = ({r.rid: r.generated for r in reqs}, eng.dispatches, eng.decode_steps)
     assert out["cuda"] == out["cpu"]
+
+
+# ------------------------------------------- hymba, qwen2-vl, seamless-m4t
+
+# (dtype, D): bf16 at D 64 and 128 on the tensor cores, bf16 at D 32 and
+# float32 at D 64 on the CUDA cores.
+_INSTANCES = [(torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 32),
+              (torch.float32, 64)]
+
+
+def _model_layout(gen, b, s, heads, d, dtype):
+    return tuple(torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+                 .transpose(1, 2) for h in heads)
+
+
+@pytest.mark.parametrize("window", [1, 7, 64, 200, 4096])
+@pytest.mark.parametrize("dtype, d", _INSTANCES)
+def test_flash_window_matches_plain(gen, dtype, d, window):
+    """The band mask (hymba's sliding window) in both instances at G 5 and
+    a ragged S of 200: against the plain version; a window of S or more
+    gives the causal kernel's bits; a window of 1 gives each query its own
+    value row exactly."""
+    q, k, v = _model_layout(gen, 2, 200, (10, 2, 2), d, dtype)
+    before = flash_attention_cuda.launches
+    out = flash_attention_cuda(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    tol = TOLS[dtype]
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, window=window).float(),
+                               rtol=tol, atol=tol)
+    if window >= 200:
+        assert torch.equal(out, flash_attention_cuda(q, k, v, causal=True))
+    if window == 1:
+        assert torch.equal(out, v.repeat_interleave(5, dim=1))
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("dtype, d", _INSTANCES)
+def test_flash_positions_match_plain(gen, dtype, d, window):
+    """The causal mask on positions (an M-RoPE prefill: a 9 x 9 patch grid
+    at one temporal position, then text), banded or not, in both
+    instances: against the plain version; positions ``arange(S)`` give the
+    index mask's result."""
+    s = 150
+    q, k, v = _model_layout(gen, 2, s, (12, 2, 2), d, dtype)
+    pos = torch.cat([torch.zeros(81, dtype=torch.int64),
+                     torch.arange(1, s - 80)]).to("cuda").expand(2, s)
+    out = flash_attention_cuda(q, k, v, causal=True, window=window, positions=pos)
+    tol = TOLS[dtype]
+    torch.testing.assert_close(
+        out.float(), attention_ref(q, k, v, window=window, positions=pos).float(),
+        rtol=tol, atol=tol)
+    ar = torch.arange(s, device="cuda").expand(2, s)
+    torch.testing.assert_close(
+        flash_attention_cuda(q, k, v, causal=True, window=window, positions=ar).float(),
+        flash_attention_cuda(q, k, v, causal=True, window=window).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s, t", [(512, 512), (64, 512), (8, 500)])
+def test_flash_encoder_and_cross_shapes(gen, dtype, s, t):
+    """seamless-m4t's layouts, MHA 16/16 at D 64 without a mask: the
+    encoder (S = T) and cross attention over a memory of another length."""
+    q = _model_layout(gen, 2, s, (16,), 64, dtype)[0]
+    k, v = _model_layout(gen, 2, t, (16, 16), 64, dtype)
+    out = flash_attention_cuda(q, k, v, causal=False)
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, causal=False).float(),
+                               rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 25, 5, 64, 1024), (8, 12, 2, 128, 300),
+                                   (8, 16, 16, 64, 512), (1, 25, 5, 64, 1024)])
+def test_decode_kernel_at_the_new_groups(gen, dtype, shape):
+    """Dense decode at hymba's group 5 (not a power of two) over its
+    1024-row ring, qwen2-vl's 6 at D 128 and seamless's 1 at D 64, with
+    ragged lengths, 0 and T among them."""
+    b, hq, hkv, d, t = shape
+    lengths = ([0, 1, t] + [int(x) for x in np.linspace(2, t - 1, max(b - 3, 0))])[:b]
+    if b == 1:
+        lengths = [t]
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, t, hkv, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    out = decode_attention_cuda(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), decode_ref(q, k, v, lens).float(),
+                               rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 8, 25, 64, 16), (2, 3, 25, 64, 16)])
+def test_ssd_scan_kernel_at_hymba_shape(gen, dtype, shape):
+    """``ssd_scan`` at hymba's states (H 25, P 64, N 16: p * n = 1024,
+    against mamba2's 8192)."""
+    states, decay = _scan(gen, shape, dtype)
+    prev, final = ssd_scan_cuda(states, decay)
+    rprev, rfinal = ssd_scan_ref(states, decay)
+    ptol = (1e-6, 1e-6) if dtype == torch.float32 else (2.0 ** -7, 1e-6)
+    torch.testing.assert_close(prev.float(), rprev.float(), rtol=ptol[0], atol=ptol[1])
+    torch.testing.assert_close(final, rfinal, rtol=1e-6, atol=1e-6)
+
+
+def _family_batch(cfg, rng, b: int, s: int):
+    """A prefill batch for ``cfg`` from numpy: tokens; or 16 patch
+    embeddings on a 4 x 4 grid at temporal position 0, then text; or
+    source frames and target tokens."""
+    if cfg.is_encoder_decoder:
+        return {"src_embeds": rng.standard_normal((b, 24, cfg.d_model)).astype(np.float32),
+                "tgt_tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.frontend != "none":
+        pos = np.zeros((3, b, s), np.int64)
+        grid = np.arange(16)
+        pos[1, :, :16], pos[2, :, :16] = grid // 4, grid % 4
+        pos[:, :, 16:] = 4 + np.arange(s - 16)
+        return {"embeds": rng.standard_normal((b, s, cfg.d_model)).astype(np.float32),
+                "positions": pos}
+    return {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "qwen2-vl-2b", "seamless-m4t-medium"])
+def test_new_family_steps_on_card_match_cpu(gen, name):
+    """A reduced hymba (window 16: the band, then 24 decode steps across
+    ring wraps), qwen2-vl (patch embeddings, 3-row positions) and
+    seamless-m4t (encoder, cross attention) in float32: ``Arch.prefill``
+    and greedy ``decode_step``s on the card (kernels) against the CPU
+    (plain versions), logits within 1e-4."""
+    arch, cpu_params = _reduced(name)
+    cfg = arch.cfg
+    batch = _family_batch(cfg, np.random.default_rng(0), 2, 40)
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = _to(cpu_params, device)
+        registry.reset_launches()
+        logits, cache = arch.prefill(params, {k: torch.as_tensor(a, device=device)
+                                              for k, a in batch.items()}, max_len=72)
+        steps = [logits]
+        s = 40 if not cfg.is_encoder_decoder else batch["tgt_tokens"].shape[1]
+        lengths = torch.full((2,), s, dtype=torch.int32, device=device)
+        for _ in range(24):
+            tok = steps[-1].argmax(-1).to(torch.int32)
+            logits, cache = arch.decode_step(params, tok, cache, lengths)
+            steps.append(logits)
+            lengths = lengths + 1
+        out[device] = (torch.stack(steps).cpu(), registry.launch_counts())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    launched = out["cuda"][1]
+    assert launched["flash_attention"] > 0 and launched["decode_attention"] > 0
+    assert (launched["ssd_scan"] > 0) == (name == "hymba-1.5b")
+
+
+@pytest.mark.parametrize("kind", ["hymba-dense", "hymba-paged", "vlm-paged"])
+def test_new_families_served_on_card_match_cpu(gen, kind):
+    """Reduced hymba on the dense engine (chunked prompts too) and the paged
+    engine's dense-compute mode, reduced qwen2-vl on the paged engine, in
+    float32: greedy streams and dispatches on the card equal the CPU's."""
+    from repro_torch.core.strategies import GrowingUpperThreshold
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    arch, cpu_params = _reduced("qwen2-vl-2b" if kind == "vlm-paged" else "hymba-1.5b")
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = _to(cpu_params, device)
+        if kind == "hymba-dense":
+            eng = InferenceEngine(arch, params, n_lanes=3, max_prompt_len=32, max_len=64,
+                                  device=device)
+        else:
+            eng = PagedInferenceEngine(arch, params, n_lanes=3, max_prompt_len=32,
+                                       max_len=64, page_size=8, device=device)
+        skw = dict(overlap=True, chunk_tokens=8) if kind == "hymba-dense" else {}
+        sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2),
+                                            **skw)
+        rng = np.random.default_rng(1)
+        lens = [int(n) for n in rng.integers(3, 33, size=5)] + [40]
+        reqs = [Request(rid=i, prompt=rng.integers(1, 256, size=n).astype(np.int32),
+                        max_new_tokens=24) for i, n in enumerate(lens)]
+        registry.reset_launches()
+        for r in reqs:
+            sched.submit(r)
+        sched.producer_done()
+        sched.run_until_drained()
+        out[device] = ({r.rid: r.generated for r in reqs}, eng.dispatches,
+                       registry.launch_counts())
+    assert out["cuda"][:2] == out["cpu"][:2]
+    launched = out["cuda"][2]
+    assert launched["flash_attention"] > 0
+    if kind == "vlm-paged":
+        assert launched["paged_decode_attention"] > 0
+    else:
+        assert launched["decode_attention"] > 0 and launched["ssd_scan"] > 0

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.kernels import build
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.registry import get_arch
 from repro_torch.serving.paged_kv import PagedInferenceEngine
@@ -83,6 +83,11 @@ def test_default_device_raises_without_cuda(no_cuda):
         transformer.init_cache(cfg, 2, 16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy({"w": np.zeros(3, np.float32)}, cfg)
+    ed = get_arch("seamless-m4t-medium").cfg.reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encdec.init_params_encdec(ed)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encdec.init_cache_encdec(ed, 2, 16, 8)
     arch = dataclasses.replace(get_arch("llama3-8b"), cfg=cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         arch.init(seed=0)

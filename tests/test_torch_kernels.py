@@ -442,13 +442,19 @@ def test_mixed_devices_raise():
 
 def test_supports_gates():
     """What the CUDA kernels take: the main path's shapes in bf16 and
-    float32; not a sliding window, an odd head dim, mismatched dtypes or
-    operands on two devices."""
+    float32, a causal window and positions; not a window without the
+    causal mask, positions of another shape, an odd head dim, mismatched
+    dtypes or operands on two devices."""
     f = torch.float32
     q = torch.zeros(8, 256, 32, 128, dtype=torch.bfloat16).transpose(1, 2)
     k = torch.zeros(8, 256, 8, 128, dtype=torch.bfloat16).transpose(1, 2)
     assert flash_ops._supports(q, k, k)
-    assert not flash_ops._supports(q, k, k, window=16)
+    assert flash_ops._supports(q, k, k, window=16)
+    assert not flash_ops._supports(q, k, k, causal=False, window=16)
+    pos = torch.zeros(8, 256, dtype=torch.int64)
+    assert flash_ops._supports(q, k, k, positions=pos)
+    assert not flash_ops._supports(q, k, k, positions=pos[:, :255])
+    assert not flash_ops._supports(q, k, k, causal=False, positions=pos)
     assert not flash_ops._supports(q.float(), k, k)
     assert not flash_ops._supports(torch.zeros(1, 4, 8, 48), torch.zeros(1, 2, 8, 48),
                                    torch.zeros(1, 2, 8, 48))

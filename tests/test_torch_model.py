@@ -303,31 +303,27 @@ def _dense_inputs(cfg, seed: int, s_max: int = 12):
 
 @pytest.mark.parametrize("window", [0, 4])
 def test_decode_attention_matches_reference(setup, window):
-    """One layer's one-token decode through the op (window 0): output and
-    both cache slices against the reference's.  The ring buffer (window 4)
-    is not ported: it raises and leaves the cache untouched."""
+    """One layer's one-token decode through the op: output and both cache
+    slices against the reference's.  Window 0 over a 12-row cache; window
+    4 over a ring of 4 rows (a cache holds min(max_len, W) rows), where
+    the lanes at 5, 11 and 15 have wrapped and the one at 0 has not."""
     jarch, jparams, arch, tparams, _tree = setup
     jcfg = dataclasses.replace(jarch.cfg, attn_window=window)
     cfg = dataclasses.replace(arch.cfg, attn_window=window)
     _tok, cache, lengths = _dense_inputs(cfg, seed=5)
     rng = np.random.default_rng(6)
     x = rng.standard_normal((4, 1, cfg.d_model), dtype=np.float32)
-    ck, cv = (cache["layers"][k][1] for k in ("k", "v"))
+    ck, cv = (cache["layers"][k][1][:, :window or None] for k in ("k", "v"))
     jp = jax.tree_util.tree_map(lambda a: a[1], jparams["layers"]["attn"])
     tp = {k: v[1] for k, v in tparams["layers"]["attn"].items()}
     tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
-    if window:
-        with pytest.raises(NotImplementedError, match="ring-buffer"):
-            t_attention.decode_attention(tp, cfg, torch.from_numpy(x), tk, tv,
-                                         torch.from_numpy(lengths), window=window)
-        assert np.array_equal(tk.numpy(), ck) and np.array_equal(tv.numpy(), cv)
-        return
+    kw = {"window": window} if window else {}
     y, k_out, v_out = t_attention.decode_attention(
-        tp, cfg, torch.from_numpy(x), tk, tv, torch.from_numpy(lengths))
+        tp, cfg, torch.from_numpy(x), tk, tv, torch.from_numpy(lengths), **kw)
     assert k_out is tk and v_out is tv  # written in place
     jy, jk, jv = j_attention.decode_attention(
         jp, jcfg, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv),
-        jnp.asarray(lengths))
+        jnp.asarray(lengths), **kw)
     np.testing.assert_allclose(y.numpy(), _np(jy), **TOL)
     np.testing.assert_allclose(tk.numpy(), _np(jk), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tv.numpy(), _np(jv), rtol=1e-5, atol=1e-5)
