@@ -6,7 +6,8 @@
 Phases, each ending in ``torch.cuda.synchronize()``:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
-2. build — compile the five CUDA kernels from ``src/repro_torch/csrc``
+2. build — compile the five CUDA sources from ``src/repro_torch/csrc``
+   (``ssd_scan.cu`` holds the scan and its adjoint, ``ssd_scan_bwd``)
    with ``nvcc`` (one process per source, in parallel) and time it; log
    ``ptxas``' registers and spills of the three attention kernels and the
    gather, and the SASS instruction mix of their main-path instances;
@@ -30,8 +31,11 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    row) and ragged bands on both instances, unmasked flash at seamless's
    encoder (S = T = 512) and cross attention (S 64, T 512), decode at
    groups 5 (T 1024), 6 (D 128) and 1 (self and cross), paged decode at
-   12/2 and ``ssd_scan`` at hymba's H 25, N 16), with the tolerance
-   stated; a repeated call of
+   12/2 and ``ssd_scan`` at hymba's H 25, N 16); the ``ssd_scan_bwd``
+   kernel (the scan's adjoint, a training step's backward) at mamba2's
+   and hymba's training shapes and ragged ones in float32 and bf16,
+   against its plain version and autograd of the plain scan, three calls
+   bit for bit; each with the tolerance stated; a repeated call of
    any attention kernel must give the same bits; its time, the plain
    version's, one library call's as a yardstick where one exists (never
    called by the port) and the least time the card could take
@@ -169,8 +173,23 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    step, ``flash_attention`` = 4 microbatches x 4 layers per step, finite
    losses, the first step's loss equal with and without fission; trace
    time, wall, tokens/s, loss, launches per step and peak memory printed;
+   b. train-ssm — the training launcher, ``repro_torch.launch.train``, at
+      full width on mamba2-1.3b (48 layers, bf16, remat, int8 moments, 8 x
+      2048 tokens): 4 steps with an asynchronous checkpoint every 2, then
+      a second run to step 6 that restores step 4; per-step launches
+      exact (``ssd_scan`` 96, ``ssd_scan_bwd`` 48), finite losses, the
+      checkpoint read back bit for bit; step walls beside the writes they
+      overlapped, how long ``save()`` blocked against the write's time on
+      the runtime's thread, bytes written, peak memory;
+   c. train-hybrid — hymba-1.5b at full width (32 layers, bf16, remat), 2
+      steps of 8 x 2048: ``flash_attention`` (banded) 64, ``ssd_scan`` 64,
+      ``ssd_scan_bwd`` 32 a step, finite losses, wall and peak memory;
 9. train check — reduced llama3-8b in float32 trained 2 steps on the card
    and on the CPU, fissioned and not: losses, parameters and launch counts;
+   reduced mamba2, hymba, deepseek-moe-16b, qwen2-vl-2b and seamless-m4t
+   the same way (2 steps, exact launches); the restart on the card
+   (reduced mamba2, int8 moments, an asynchronous checkpoint after step
+   2, restored into fresh tensors: the first resumed loss bit for bit);
 10. fission — the twin of ``benchmarks/bench_fission.py::device_fission``:
     2048 single-row queries on a 10000 x 256 float32 table, plain ``scan``
     (2048 launches) against ``fission_scan`` (1), both walls printed.
@@ -565,6 +584,7 @@ def phase_kernels(timer):
     rows["decode_attention"] = timed["dense engine"]  # the chunk side's is logged above
     torch.cuda.synchronize()
     rows["ssd_scan"] = _ssd_scan_kernel(timer, gen)
+    rows["ssd_scan_bwd"] = _ssd_scan_bwd_kernel(timer, gen)
     rows["batched_gather"] = _batched_gather_kernel(timer, gen)
     _config_shapes(timer, gen, rng)
     for name, sub in _new_layouts(timer, gen, rng).items():
@@ -866,6 +886,111 @@ def _ssd_scan_kernel(timer, gen):
                plain_ms=timer.ms(lambda: ssd_scan_ref(states, decay)),
                bound_ms=bound, bound_by=by, library_ms=None)
     log(f"[kernels] ssd_scan (no single PyTorch call computes it: library_ms null): {row}")
+    torch.cuda.synchronize()
+    return row
+
+
+def _scan_autograd(scan_ref, states, decay, g_prev, g_final):
+    """(d_states, d_decay) by autograd of the plain scan, float32 states;
+    a missing ``g_final`` is zeros.  With one chunk ``prev`` is the zero
+    initial state, which no input reaches: only ``final`` is
+    differentiated then."""
+    import torch
+    leaves = [states.float().requires_grad_(), decay.clone().requires_grad_()]
+    prev, final = scan_ref(*leaves)
+    pairs = [(prev, g_prev.float()),
+             (final, torch.zeros_like(final) if g_final is None else g_final)]
+    pairs = [(o, g) for o, g in pairs if o.requires_grad]
+    return torch.autograd.grad([o for o, _g in pairs], leaves, [g for _o, g in pairs])
+
+
+def _ssd_scan_bwd_kernel(timer, gen):
+    """The ``ssd_scan_bwd`` kernel (the scan's adjoint, no TPU counterpart)
+    against its plain version on the card and against autograd of
+    ``ssd_scan_ref``, at mamba2-1.3b's training shape (the prefill's, B 8,
+    C 8, H 64, P 64, N 128, float32) without ``g_final`` (the model's
+    case: no loss reads the final state) and with it, at hymba-1.5b's (H
+    25, N 16) and at small ragged shapes in float32 and bf16; three calls
+    give the same bits.  Tolerances: ``d_states`` and ``d_initial`` 1e-6
+    (the plain version's float32 multiply and add, unfused: they should
+    read 0; bf16 ``d_states`` the same rounding of the same float32 carry),
+    ``d_decay`` 1e-5 of its largest entry (a float32 sum over P x N
+    products in another order; against autograd with bf16 states 2^-7,
+    since autograd differentiates at the float32 ``prev``, the kernel at
+    its bf16 rounding).  Timed without ``g_final``; the row's
+    bound is bytes (``g_prev`` and ``prev`` read, ``d_states`` and
+    ``d_initial`` written).  No single PyTorch call computes it."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_bwd_cuda, ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_ref
+
+    def case(shape, dtype, with_final):
+        states, decay = _scan_case(gen, shape, dtype)
+        prev, _final = ssd_scan_cuda(states, decay)
+        g_prev = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g_final = (torch.randn(shape[:1] + shape[2:], generator=gen, device="cuda")
+                   if with_final else None)
+        return states, decay, (g_prev, g_final, prev, decay)
+
+    def check(label, shape, dtype, with_final):
+        states, decay, args = case(shape, dtype, with_final)
+        out = ssd_scan_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        want = ssd_scan_bwd_ref(*args)
+        auto = _scan_autograd(ssd_scan_ref, states, decay, args[0], args[1])
+        label = f"ssd_scan_bwd {label} B,C,H,P,N={shape} {str(dtype)[6:]}" + (
+            " with g_final" if with_final else "")
+        err = 0.0
+        for name, got, ref in (("d_states", out[0], want[0]), ("d_initial", out[2], want[2]),
+                               ("d_states vs autograd", out[0], auto[0].to(dtype))):
+            err = max(err, _compare(f"{label} {name}", got, ref, 1e-6, 1e-6))
+        # Autograd's d_decay takes the float32 prev, the kernel a bf16 prev's.
+        for name, ref, tol in (("d_decay", want[1], 1e-5),
+                               ("d_decay vs autograd", auto[1],
+                                1e-5 if dtype == torch.float32 else 2.0 ** -7)):
+            err = max(err, _compare(f"{label} {name}", out[1], ref, 0,
+                                    tol * float(ref.abs().max())))
+        for _ in range(2):
+            again = ssd_scan_bwd_cuda(*args)
+            if not all(torch.equal(a, b) for a, b in zip(again, out)):
+                fail(f"{label}: two calls on the same inputs differ")
+        log(f"[kernels] {label}: three calls bit-identical")
+        return err, args
+
+    def bound(args):
+        g_prev, g_final, prev, decay = args
+        nbytes = (g_prev.numel() * g_prev.element_size() + prev.numel() * prev.element_size()
+                  + prev.numel() * prev.element_size()              # d_states out
+                  + 4 * (prev.numel() // prev.shape[1])             # d_initial out
+                  + 2 * 4 * decay.numel()                           # decay in, d_decay out
+                  + (0 if g_final is None else 4 * g_final.numel()))
+        return _bound(nbytes, 4 * prev.numel(), F32_FLOPS_PER_S)
+
+    def timed(args):
+        return (timer.ms(lambda: ssd_scan_bwd_cuda(*args)),
+                timer.ms(lambda: ssd_scan_bwd_ref(*args)))
+
+    err, args = check("mamba2 training", (8, 8, 64, 64, 128), torch.float32, False)
+    ms, plain_ms = timed(args)
+    b, by = bound(args)
+    row = dict(route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+               replaces="src/repro/kernels/ssd_scan/kernel.py:51",  # its gradient
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               library_ms=None, sub_rows=[])
+    log(f"[kernels] ssd_scan_bwd (no single PyTorch call computes it: library_ms null): "
+        f"{row}")
+    del args
+    for label, shape, with_final in (("mamba2 training", (8, 8, 64, 64, 128), True),
+                                     ("hymba training", (8, 8, 25, 64, 16), False)):
+        err, args = check(label, shape, torch.float32, with_final)
+        row["sub_rows"].append(_sub_row(f"{label} B,C,H,P,N {shape}"
+                                        + (" with g_final" if with_final else ""),
+                                        err, *timed(args), bound(args)))
+        del args
+    for shape in ((2, 3, 5, 5, 7), (1, 1, 2, 3, 5), (2, 8, 4, 16, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_final in (False, True):
+                check("ragged", shape, dtype, with_final)
     torch.cuda.synchronize()
     return row
 
@@ -1601,7 +1726,7 @@ def phase_model_service(arch, params, device="cuda", n: int = 4096):
         f"(padded {runs['sync']['wall'] / runs['transformed-padded']['wall']!r})")
     _model_service_gates("model-service", runs, n, device)
     zero = {"flash_attention": 0, "paged_decode_attention": 0, "decode_attention": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
     return dict(zero, batched_gather=sum(r["launches"] for r in runs.values()))
 
 
@@ -2930,7 +3055,8 @@ def _train_gates(label, launches, fission: bool, mb: int, layers: int) -> None:
     for i, got in enumerate(launches):
         _expect(f"{label} step {i}", got, {
             "batched_gather": 1 if fission else mb, "flash_attention": mb * layers,
-            "paged_decode_attention": 0, "decode_attention": 0, "ssd_scan": 0})
+            "paged_decode_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+            "ssd_scan_bwd": 0})
 
 
 def phase_train(smi, steps: int = 3, mb: int = 4, batch: int = 8, seq: int = 512):
@@ -3009,6 +3135,298 @@ def phase_train_reduced(name: str = "llama3-8b", steps: int = 2, mb: int = 4):
             fail(f"reduced {name} train, fission={fission}: card differs from CPU")
         _train_gates(f"reduced train fission={fission}", card[2], fission, mb,
                      arch.cfg.n_layers)
+    torch.cuda.synchronize()
+
+
+def _train_expect(cfg, mb: int = 1) -> dict:
+    """Kernel launches of one train step of ``cfg``, from the code: per
+    microbatch, each attention (the encoder's, the decoder's self and
+    cross attention) launches ``flash_attention`` once and each mixer
+    ``ssd_scan`` once in the forward, and ``remat`` recomputes each block's
+    forward in the backward, which launches ``ssd_scan_bwd`` once a mixer
+    (the flash op's backward recomputes the plain version: no launch); no
+    serving kernel, and ``batched_gather`` only with ``query_embedding``,
+    which none of these configs sets."""
+    fwd = 2 if cfg.remat else 1
+    layers = cfg.n_layers
+    attn = 0 if cfg.family == "ssm" else layers
+    if cfg.is_encoder_decoder:
+        attn = cfg.n_enc_layers + 2 * layers
+    mixers = layers if cfg.family == "ssm" or cfg.hybrid else 0
+    return {"flash_attention": mb * fwd * attn, "ssd_scan": mb * fwd * mixers,
+            "ssd_scan_bwd": mb * mixers, "paged_decode_attention": 0,
+            "decode_attention": 0, "batched_gather": 0}
+
+
+class _StepLaunches:
+    """Wraps ``launch.train``'s ``make_train_step`` so every step's kernel
+    launches are counted from 0 (this script's instrumentation only)."""
+
+    def __init__(self):
+        self.per_step = []
+
+    def __call__(self, real):
+        from repro_torch.kernels import registry
+
+        def make(*args, **kwargs):
+            init_state, step = real(*args, **kwargs)
+
+            def counted(params, state, batch):
+                registry.reset_launches()
+                out = step(params, state, batch)
+                self.per_step.append(registry.launch_counts())
+                return out
+
+            return init_state, counted
+
+        return make
+
+
+TRAIN_SSM = ["--arch", "mamba2-1.3b", "--batch", "8", "--seq", "2048", "--moments", "int8",
+             "--log-every", "1"]
+
+
+def _overlap_report(label, out, tokens: int) -> None:
+    """Each step's wall beside whether a checkpoint write ran during it."""
+    writes = [(w["start"], w["end"]) for w in out["writes"]]
+    for k, (t0, t1) in enumerate(out["walls"]):
+        busy = any(w0 < t1 and t0 < w1 for w0, w1 in writes)
+        log(f"[{label}] step {out['start'] + k + 1}: wall {t1 - t0!r} s, "
+            f"{tokens / (t1 - t0)!r} tokens/s, loss {out['losses'][k]!r}, "
+            f"{'overlapped a checkpoint write' if busy else 'no write in flight'}")
+
+
+def phase_train_ssm(smi):
+    """Phase 8b, ``train-ssm``: the training launcher at full width,
+    ``repro_torch.launch.train`` in this process on mamba2-1.3b (48
+    layers, bf16, seed 0, remat) at 8 x 2048 with int8 moments:
+    ``--steps 4 --ckpt-every 2`` into a directory under ``build/``, then
+    ``--steps 6``, which restores step 4 and takes two more.  Gates:
+    finite losses; each step's launches exactly ``_train_expect``'s; the
+    checkpoint of step 4 read back equal, bit for bit, to the parameters
+    and int8 state the first run ended with.  Logs tokens/s, step walls,
+    peak memory, bytes written, how long each ``save()`` blocked the loop
+    against how long its write took on the runtime's thread, and which
+    steps overlapped a write.  Fails before writing if the disk holds
+    less than two checkpoints and a gigabyte; removes the directory at
+    the end."""
+    import shutil
+
+    import torch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch("mamba2-1.3b")
+    want = _train_expect(arch.cfg)
+    ckpt = ROOT / "build" / "train-ssm-ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    # A checkpoint: float32 parameters, int8 m and v with a float32 scale
+    # per 64 entries each; two on disk at once, and a gigabyte to spare.
+    one = arch.cfg.param_count() * (4 + 2 * (1 + 4 / 64))
+    free = shutil.disk_usage(ckpt).free
+    log(f"[train-ssm] {free} bytes free under {ckpt}; a checkpoint takes about {one:.0f}")
+    if free < 2 * one + 2**30:
+        fail(f"train-ssm: {free} bytes free under {ckpt}, two checkpoints need {2 * one:.0f}")
+    counter = _StepLaunches()
+    totals = {}
+    try:
+        runs = []
+        for steps in (4, 6):
+            argv = TRAIN_SSM + ["--steps", str(steps), "--ckpt-every", "2",
+                                "--ckpt-dir", str(ckpt)]
+            log(f"[train-ssm] python -m repro_torch.launch.train {' '.join(argv)}")
+            torch.cuda.reset_peak_memory_stats()
+            with mock.patch.object(train_mod, "make_train_step",
+                                   counter(train_mod.make_train_step)):
+                out = train_mod.main(argv)
+            peak = torch.cuda.max_memory_allocated()
+            log(f"[train-ssm] on {smi}: run to step {steps}: peak device memory "
+                f"{peak / 2**30!r} GiB")
+            _overlap_report("train-ssm", out, 8 * 2048)
+            for step, blocked in out["saves"]:
+                w = next(w for w in out["writes"] if w["step"] == step)
+                log(f"[train-ssm] checkpoint of step {step}: save() blocked the loop "
+                    f"{blocked!r} s; the write took {w['end'] - w['start']!r} s on the "
+                    f"runtime's thread, {w['bytes']} bytes")
+            if not all(np.isfinite(out["losses"])):
+                fail(f"train-ssm: a loss is not finite: {out['losses']}")
+            runs.append(out)
+            if steps == 4:
+                _check_readback(ckpt, out)
+                shutil.rmtree(ckpt / "step_0000000002")  # two checkpoints on disk at most
+            del out["params"], out["state"]
+            gc.collect()
+            torch.cuda.empty_cache()
+        if runs[1]["start"] != 4 or len(runs[1]["losses"]) != 2:
+            fail(f"train-ssm: the second run started at {runs[1]['start']} and took "
+                 f"{len(runs[1]['losses'])} steps; expected a restore of step 4 and 2 steps")
+        for i, got in enumerate(counter.per_step):
+            _expect(f"train-ssm step {i + 1}", got, want)
+        totals = {k: sum(c[k] for c in counter.per_step) for k in counter.per_step[0]}
+        log(f"[train-ssm] launches per step {counter.per_step[0]} (expected {want}); "
+            f"losses {runs[0]['losses'] + runs[1]['losses']}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    return {"train-ssm": totals}
+
+
+def _check_readback(ckpt, out) -> None:
+    """The newest checkpoint (step 4) read back from disk equals what the
+    run ended with, bit for bit: bf16 parameters, int8 blocks and float32
+    scales of both moments, the step count."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager, _flatten_with_paths
+
+    with CheckpointManager(ckpt) as mgr:
+        step, params, state = mgr.restore_latest(out["params"], out["state"])
+    saved = _flatten_with_paths({"params": out["params"], "state": out["state"]})
+    read = _flatten_with_paths({"params": params, "state": state})
+    bad = [k for (k, a), (_k, b) in zip(saved, read)
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    log(f"[train-ssm] checkpoint of step {step} read back: {len(read)} tensors, "
+        f"{sum(int(t.numel()) for _k, t in read)} elements, {len(bad)} differ")
+    if step != 4 or bad or len(saved) != len(read):
+        fail(f"train-ssm: the checkpoint of step {step} differs from what was saved: {bad[:5]}")
+
+
+def phase_train_hybrid(smi, steps: int = 2, batch: int = 8, seq: int = 2048):
+    """Phase 8c, ``train-hybrid``: hymba-1.5b at full width (32 hybrid
+    layers, bf16, seed 0, remat), ``steps`` train steps of ``batch`` x
+    ``seq`` tokens through ``make_train_step``: the banded flash kernel
+    and ``ssd_scan`` forward, ``ssd_scan_bwd`` in the backward.  Gates:
+    finite losses and each step's launches exactly ``_train_expect``'s.
+    Logs the step wall and the peak memory (the flash op's backward builds
+    the plain version's (8, 25, 2048, 2048) float32 scores, a layer at a
+    time)."""
+    import torch
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch("hymba-1.5b")
+    want = _train_expect(arch.cfg)
+    losses, walls, launches, _traces, peak, params = _train_run(
+        arch, arch.init(seed=0, device="cuda"), False, steps, 1, batch, seq)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i in range(steps):
+        log(f"[train-hybrid] on {smi}: step {i}: loss {losses[i]!r}, wall {walls[i]!r} s, "
+            f"{batch * seq / walls[i]!r} tokens/s, launches {launches[i]}")
+    log(f"[train-hybrid] peak device memory {peak / 2**30!r} GiB")
+    if not all(np.isfinite(losses)):
+        fail(f"train-hybrid: a loss is not finite: {losses}")
+    for i, got in enumerate(launches):
+        _expect(f"train-hybrid step {i}", got, want)
+    torch.cuda.synchronize()
+    return {"train-hybrid": {k: sum(c[k] for c in launches) for k in launches[0]}}
+
+
+TRAIN_FAMILIES = ("mamba2-1.3b", "hymba-1.5b", "deepseek-moe-16b", "qwen2-vl-2b",
+                  "seamless-m4t-medium")
+
+
+def _train_batch(cfg, seed: int, b: int = 4, s: int = 24) -> dict:
+    """A numpy training batch of ``cfg``'s family (``SyntheticLMStream``
+    makes tokens only): tokens; or patch embeddings on a 4 x 4 grid at
+    temporal position 0 and text after it, with (3, B, S) positions; or
+    source frames and target tokens.  Labels are the tokens."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+    if cfg.is_encoder_decoder:
+        src = rng.standard_normal((b, 20, cfg.d_model)).astype(np.float32)
+        return {"src_embeds": src, "tgt_tokens": tokens, "labels": tokens}
+    if cfg.frontend != "none":
+        pos = np.zeros((3, b, s), np.int32)
+        pos[1, :, :16], pos[2, :, :16] = np.arange(16) // 4, np.arange(16) % 4
+        pos[:, :, 16:] = 4 + np.arange(s - 16)
+        emb = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        return {"embeds": emb, "positions": pos, "labels": tokens}
+    return {"tokens": tokens, "labels": tokens}
+
+
+def _family_steps(arch, params, steps: int, moments: str = "float32", start: int = 0,
+                  state=None):
+    """``steps`` donating train steps of ``arch`` from ``params`` on their
+    device, batches ``_train_batch(cfg, start + i)`` → (losses, per-step
+    launches, params, state)."""
+    from repro_torch.kernels import registry
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    init_state, step = make_train_step(arch, AdamWConfig(lr=1e-3, moments_dtype=moments),
+                                       TrainStepConfig())
+    state = init_state(params) if state is None else state
+    losses, launches = [], []
+    for i in range(steps):
+        registry.reset_launches()
+        params, state, m = step(params, state, _train_batch(arch.cfg, start + i))
+        losses.append(float(m["loss"]))
+        launches.append(registry.launch_counts())
+    return losses, launches, params, state
+
+
+def phase_train_families(names=TRAIN_FAMILIES, steps: int = 2):
+    """Reduced, float32: ``steps`` train steps of each family on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batches: losses and parameters within 1e-4 (float32 sums in another
+    order, about 1e-6 an op; the embedding and MoE gradients sum with
+    atomics on the card), the card's launches ``_train_expect``'s."""
+    import torch
+    from repro_torch.models.registry import get_arch
+
+    for name in names:
+        arch = get_arch(name)
+        arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
+        params = arch.init(seed=0, device="cpu")
+        card = _family_steps(arch, _to(params, "cuda"), steps)
+        cpu = _family_steps(arch, _clone(params), steps)
+        dloss = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
+        dparam = max(float((a.cpu() - b).abs().max())
+                     for a, b in zip(_leaves(card[2]), _leaves(cpu[2])))
+        log(f"[check] reduced {name} f32 train, card vs CPU: losses {card[0]} / {cpu[0]}, "
+            f"max difference {dloss!r}; parameters after {steps} steps max difference "
+            f"{dparam!r}; card launches {card[1]}")
+        if dloss > 1e-4 or dparam > 1e-4:
+            fail(f"reduced {name} train: card differs from CPU")
+        for i, got in enumerate(card[1]):
+            _expect(f"reduced {name} train step {i}", got, _train_expect(arch.cfg))
+    torch.cuda.synchronize()
+
+
+def phase_train_restart(name: str = "mamba2-1.3b", steps: int = 4, at: int = 2):
+    """The restart on the card: reduced ``name`` (float32, int8 moments)
+    trained ``steps`` steps with an asynchronous checkpoint after step
+    ``at``, then restored from it into fresh tensors and continued.  The
+    first resumed step's loss equals the uninterrupted run's bit for bit
+    (the same parameters and batch through a deterministic forward); later
+    steps within 1e-5 relative, since the embedding gradient's
+    scatter-add uses atomics, so parameters after a step may differ in
+    their last bits between runs."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch(name)
+    arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        with CheckpointManager(d) as mgr:
+            head = _family_steps(arch, arch.init(seed=0, device="cuda"), at, "int8")
+            mgr.save(at, head[2], head[3])
+            tail = _family_steps(arch, head[2], steps - at, "int8", at, head[3])
+            mgr.wait()
+            fresh = arch.init(seed=1, device="cuda")
+            _s, p, st = mgr.restore_latest(fresh, _family_steps(arch, fresh, 0, "int8")[3])
+        resumed = _family_steps(arch, p, steps - at, "int8", at, st)
+    log(f"[check] reduced {name} restart on the card: uninterrupted losses "
+        f"{head[0] + tail[0]}, resumed from step {at}: {resumed[0]}")
+    if resumed[0][0] != tail[0][0]:
+        fail(f"restart: the first resumed step's loss {resumed[0][0]!r} differs from the "
+             f"uninterrupted run's {tail[0][0]!r}")
+    if any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(resumed[0], tail[0])):
+        fail("restart: a resumed loss differs beyond 1e-5 relative")
     torch.cuda.synchronize()
 
 
@@ -3182,6 +3600,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(phase_train(smi))
+    log(f"[train-ssm] on {smi}")
+    paths.update(phase_train_ssm(smi))
+    log(f"[train-hybrid] on {smi}")
+    paths.update(phase_train_hybrid(smi))
     phase_reduced_check()
     phase_reduced_bridge()
     phase_reduced_check("mamba2-1.3b", ("dense", "dense-async", "paged-ssm"))
@@ -3191,11 +3613,14 @@ def main() -> None:
     phase_reduced_steps()
     log(f"[check] on {smi}")
     phase_train_reduced()
+    phase_train_families()
+    phase_train_restart()
     log(f"[fission] on {smi}")
     phase_fission()
 
-    # Launches on the serving paths and the two training runs, each counted
-    # from 0 in its own run.
+    # Launches on the serving paths and the training runs (llama3-8b's two,
+    # train-ssm's six steps, train-hybrid's two), each counted from 0 in its
+    # own run.
     launches = {n: sum(p[n] for p in paths.values()) for n in rows}
     log(f"[paths] launches by path {paths}; async wall {async_wall!r} s, ssm wall "
         f"{ssm_wall!r} s, ssm-async wall {ssm_async_wall!r} s, ssm-paged wall "

@@ -38,8 +38,34 @@
 // Left for later: 16-byte vector loads (four float32 or eight bf16 values
 // a thread).
 //
-// C interface for ctypes: returns cudaGetLastError() after the launch, or
-// a negative code for arguments it refuses.
+// The second entry, ssd_scan_bwd, is the recurrence's adjoint: the
+// gradient a training step takes through the scan.  It has no Pallas
+// counterpart; the JAX package gets it from XLA's autodiff of the
+// lax.scan in repro/models/ssm.py::ssd_chunked.  From the cotangents
+// g_prev of prev and g_final of final (zeros when absent), run backwards:
+//
+//     G_C = g_final;  d_states_c = G_{c+1};  G_c = g_prev_c + G_{c+1} * decay_c;
+//     d_decay_c = sum over (p, n) of G_{c+1} * prev_c;  d_initial = G_0
+//
+// What bounds it: bytes again.  g_prev and prev are read once, d_states
+// and d_initial written once: at mamba2-1.3b's training shape (the
+// prefill's, float32, g_final absent as in the model, whose final state
+// no loss reads) 134.2 + 134.2 + 134.2 + 16.8 MB = 419 MB, 0.125 ms at
+// 3.35 TB/s (a given g_final adds 16.8 MB).  Its flops (4 per element per
+// chunk) take about 0.002 ms.
+//
+// What the design does about it: the forward's layout and loop, walked
+// from the last chunk down, one thread per (b, h, p*N + n) with G in a
+// float32 register, multiply and add rounded separately as in the plain
+// version (d_states and d_initial are its bits).  d_decay is a sum over
+// P*N elements that span blocks; it is taken without float atomics, so two
+// calls give the same bits: each block sums its 256 products per chunk in
+// a fixed order (a warp shuffle tree, then the eight warps in turn) into a
+// partial (B, C, H, blocks) buffer the wrapper allocates, and a second
+// launch adds each (b, c, h)'s partials in block order.
+//
+// C interface for ctypes: each entry returns cudaGetLastError() after its
+// launches, or a negative code for arguments it refuses.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +73,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -90,6 +117,75 @@ int launch(const void* states, const float* decay, void* prev, float* final_stat
   return static_cast<int>(cudaGetLastError());
 }
 
+// The adjoint, one thread per (b, h, e), chunks from the last down.  Every
+// thread of the block takes part in each chunk's sum, live or not.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_bwd_kernel(const T* __restrict__ g_prev, const float* __restrict__ g_final,
+                    const T* __restrict__ prev, const float* __restrict__ decay,
+                    T* __restrict__ d_states, float* __restrict__ d_initial,
+                    float* __restrict__ partial, int n_chunks, int n_heads, int pn) {
+  __shared__ float warp_sums[2][kWarps];  // two buffers: one barrier a chunk
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = e < pn;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long step = static_cast<long long>(n_heads) * pn;  // one chunk
+  const long long bh = static_cast<long long>(b) * n_heads + h;
+  long long off = ((static_cast<long long>(b) * n_chunks + n_chunks - 1) * n_heads + h) * pn + e;
+  const float* dec = decay + static_cast<long long>(b) * n_chunks * n_heads + h;
+  float carry = (live && g_final != nullptr) ? g_final[bh * pn + e] : 0.0f;
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    float prod = 0.0f;
+    if (live) {
+      d_states[off] = from_f32<T>(carry);
+      prod = __fmul_rn(carry, to_f32(prev[off]));
+      carry = __fadd_rn(__fmul_rn(carry, dec[static_cast<long long>(c) * n_heads]),
+                        to_f32(g_prev[off]));
+    }
+    off -= step;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) prod += __shfl_down_sync(0xffffffffu, prod, o);
+    if (lane == 0) warp_sums[c & 1][warp] = prod;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += warp_sums[c & 1][w];
+      partial[((static_cast<long long>(b) * n_chunks + c) * n_heads + h) * gridDim.x +
+              blockIdx.x] = sum;
+    }
+  }
+  if (live) d_initial[bh * pn + e] = carry;
+}
+
+// d_decay[r] = the sum of row r's partials, in block order.
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_bwd_decay_kernel(const float* __restrict__ partial, float* __restrict__ d_decay,
+                          long long rows, int n_blocks) {
+  const long long r = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= rows) return;
+  const float* p = partial + r * n_blocks;
+  float sum = 0.0f;
+  for (int j = 0; j < n_blocks; ++j) sum += p[j];
+  d_decay[r] = sum;
+}
+
+template <typename T>
+int launch_bwd(const void* g_prev, const float* g_final, const void* prev, const float* decay,
+               void* d_states, float* d_decay, float* d_initial, float* partial, int b, int c,
+               int h, int pn, int n_blocks, cudaStream_t s) {
+  ssd_scan_bwd_kernel<T><<<dim3(n_blocks, h, b), kThreads, 0, s>>>(
+      static_cast<const T*>(g_prev), g_final, static_cast<const T*>(prev), decay,
+      static_cast<T*>(d_states), d_initial, partial, c, h, pn);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(b) * c * h;
+  ssd_scan_bwd_decay_kernel<<<static_cast<unsigned>((rows + kThreads - 1) / kThreads), kThreads,
+                              0, s>>>(partial, d_decay, rows, n_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // states/prev: (B, C, H, P*N) of one dtype (0 = float32, 1 = bfloat16);
@@ -103,5 +199,25 @@ extern "C" int ssd_scan(const void* states, const float* decay, void* prev,
   if (dtype == 0) return launch<float>(states, decay, prev, final_state, b, c, h, pn, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(states, decay, prev, final_state, b, c, h, pn, s);
+  return -3;
+}
+
+// g_prev/prev/d_states: (B, C, H, P*N) of one dtype (0 = float32, 1 =
+// bfloat16); g_final: (B, H, P*N) float32 or null (zeros); decay, d_decay:
+// (B, C, H) float32; d_initial: (B, H, P*N) float32; partial: (B, C, H,
+// n_blocks) float32 scratch, n_blocks = ceil(P*N / 256); all contiguous.
+extern "C" int ssd_scan_bwd(const void* g_prev, const float* g_final, const void* prev,
+                            const float* decay, void* d_states, float* d_decay,
+                            float* d_initial, float* partial, int b, int c, int h, int pn,
+                            int n_blocks, int dtype, void* stream) {
+  if (b <= 0 || b > 65535 || c <= 0 || h <= 0 || h > 65535 || pn <= 0) return -1;
+  if (n_blocks != (pn + kThreads - 1) / kThreads) return -2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(g_prev, g_final, prev, decay, d_states, d_decay, d_initial,
+                             partial, b, c, h, pn, n_blocks, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(g_prev, g_final, prev, decay, d_states, d_decay,
+                                     d_initial, partial, b, c, h, pn, n_blocks, s);
   return -3;
 }

@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import attention, attn_params, cross_decode, decode_attention
@@ -67,14 +68,26 @@ def init_params_encdec(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     }
 
 
-def encode(cfg: ModelConfig, params: dict, src_embeds: torch.Tensor) -> torch.Tensor:
+def _remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward (``cfg.remat`` in
+    training, as the reference's ``jax.checkpoint`` of each layer)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _enc_block(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = x + attention(lp["attn"], cfg, apply_norm(cfg.norm, lp["ln1"], x), causal=False)
+    return x + mlp(lp["mlp"], cfg, apply_norm(cfg.norm, lp["ln2"], x))
+
+
+def encode(cfg: ModelConfig, params: dict, src_embeds: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """src_embeds (B, S_src, d) from the (stub) audio frontend → the memory
-    (B, S_src, d), after ``enc_norm``."""
+    (B, S_src, d), after ``enc_norm``; ``remat`` recomputes each layer in
+    the backward."""
     x = src_embeds.to(cfg.cdtype)
     for i in range(cfg.n_enc_layers):
         lp = layer_slice(params["enc_layers"], i)
-        x = x + attention(lp["attn"], cfg, apply_norm(cfg.norm, lp["ln1"], x), causal=False)
-        x = x + mlp(lp["mlp"], cfg, apply_norm(cfg.norm, lp["ln2"], x))
+        x = _remat(_enc_block, lp, cfg, x) if remat else _enc_block(lp, cfg, x)
     return apply_norm(cfg.norm, params["enc_norm"], x)
 
 
@@ -100,11 +113,14 @@ def _dec_block(lp: dict, cfg: ModelConfig, x: torch.Tensor, memory: torch.Tensor
 def forward_encdec(cfg: ModelConfig, params: dict, src_embeds: torch.Tensor,
                    tgt_tokens: torch.Tensor):
     """Training forward: encode once, teacher-forced decoder →
-    (logits (B, S, V) float32, aux 0)."""
-    memory = encode(cfg, params, src_embeds)
+    (logits (B, S, V) float32, aux 0); ``cfg.remat`` recomputes each
+    encoder and decoder layer in the backward."""
+    memory = encode(cfg, params, src_embeds, remat=cfg.remat)
     x = _embed_tgt(cfg, params, tgt_tokens)
     for i in range(cfg.n_layers):
-        x = _dec_block(layer_slice(params["layers"], i), cfg, x, memory)
+        lp = layer_slice(params["layers"], i)
+        x = (_remat(_dec_block, lp, cfg, x, memory) if cfg.remat
+             else _dec_block(lp, cfg, x, memory))
     x = apply_norm(cfg.norm, params["final_norm"], x)
     return _head(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 

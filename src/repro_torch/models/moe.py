@@ -106,15 +106,37 @@ def _positions(expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     return pos_all.gather(-1, flat[..., None])[..., 0].reshape(B, S, K)
 
 
+class _BmmF32(torch.autograd.Function):
+    """``torch.bmm(a, b, out_dtype=float32)`` of bf16 operands on the card,
+    with the gradient that overload lacks: float32 products of the float32
+    cotangent with the operands widened (exact), each rounded once to its
+    operand's dtype, as ``transformer._MatmulF32`` does for the head."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = (torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+              if ctx.needs_input_grad[0] else None)
+        gb = (torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return ga, gb
+
+
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` with float32 accumulators and a float32 result
     (the reference's ``preferred_element_type=float32`` without a cast).
-    On the card bf16 operands stay bf16 (``out_dtype``); on the CPU they
-    are widened first, which is exact."""
+    On the card bf16 operands stay bf16 (``out_dtype``, through
+    :class:`_BmmF32` for its gradient); on the CPU they are widened first,
+    which is exact."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 

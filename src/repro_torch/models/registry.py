@@ -7,10 +7,9 @@ the reference: the encoder-decoder (seamless-m4t) to
 :mod:`repro_torch.models.encdec`, a frontend config (qwen2-vl's patch
 stub) to ``embeds=`` with its M-RoPE ``positions``, everything else to
 :mod:`repro_torch.models.transformer` (the serving engines call
-``transformer.prefill`` themselves, as in the reference).  ``forward``
-runs the dense, MoE, VLM and encoder-decoder families; SSM and hybrid
-stacks raise ``NotImplementedError`` there (training them needs a
-gradient for ``ssd_scan``).  The dry-run ``input_specs`` is not ported.
+``transformer.prefill`` themselves, as in the reference).  ``forward``,
+the training forward, runs all ten.  The dry-run ``input_specs`` is not
+ported.
 """
 from __future__ import annotations
 

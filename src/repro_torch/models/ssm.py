@@ -5,7 +5,8 @@ SSD algorithm: an attention-like quadratic term inside each chunk, and the
 recurrence between chunks, which the reference runs as a ``lax.scan``
 (``ssd_chunked`` ``:121-139``) and the port runs through the ``ssd_scan``
 op: the hand-written CUDA kernel on the card, its plain version on the
-CPU.  Decode is the O(1) recurrent update.  The sharding annotations of
+CPU; its gradient is the ``ssd_scan_bwd`` op, the same pair for the
+adjoint.  Decode is the O(1) recurrent update.  The sharding annotations of
 the reference have no counterpart on one card and are dropped.
 
 Layout (n_groups = 1), as in the reference:
@@ -103,8 +104,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
 
     The recurrence between chunks goes through the ``ssd_scan`` op on every
     call (one chunk included), so a prefill launches the kernel once per
-    layer.  The large (b,c,h,Q,Q) float32 intermediates are updated in
-    place where the reference builds new arrays.
+    layer, and a training step's backward its adjoint, ``ssd_scan_bwd``;
+    autograd differentiates everything else.  Without autograd the large
+    (b,c,h,Q,Q) float32 intermediates are updated in place where the
+    reference builds new arrays.
     """
     b, l, h, p = x.shape
     n = B.shape[-1]
@@ -131,7 +134,12 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
 
     # ---- intra-chunk (diagonal blocks): attention-like quadratic term ----
     CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (b,c,Q,Q)
-    scores = _segsum(dA_h).exp_().mul_(CB[:, :, None])  # L * CB, (b,c,h,i,j)
+    L = _segsum(dA_h).exp_()  # (b,c,h,i,j)
+    # L * CB in place when no gradient is recorded (a prefill); under
+    # autograd out of place, since exp's backward reads L.
+    grad = L.requires_grad or CB.requires_grad
+    scores = L * CB[:, :, None] if grad else L.mul_(CB[:, :, None])
+    del L
     sx = xc * dtc[..., None]  # dt-weighted input
     y_diag = torch.einsum("bchij,bcjhp->bcihp", scores, sx)
     del scores

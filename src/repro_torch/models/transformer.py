@@ -27,12 +27,10 @@ embedding table as the head.  With ``cfg.query_embedding`` the embedding
 lookup is the ``table_gather`` query (``async_query``), which a fissioned
 microbatch loop batches.  A frontend config (qwen2-vl's patch stub) feeds
 precomputed ``embeds`` instead of tokens, with (3, B, S) M-RoPE
-``positions``.  The training ``forward`` runs dense and MoE stacks and
-sums the MoE blocks' auxiliary losses (MoE training itself is not ported:
-nothing checks its gradient); SSM and hybrid stacks raise
-``NotImplementedError`` there (``ssd_scan`` has no gradient yet).
-``cfg.remat`` recomputes each block in the backward through
-``torch.utils.checkpoint``.
+``positions``.  The training ``forward`` runs every block kind and sums
+the MoE blocks' auxiliary losses; an SSM or hybrid block's gradient goes
+through the ``ssd_scan`` op's adjoint (``ssd_scan_bwd``).  ``cfg.remat``
+recomputes each block in the backward through ``torch.utils.checkpoint``.
 
 Entry points:
   init_params(cfg, seed, device)              → params dict
@@ -220,23 +218,26 @@ def _ffn(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor):
 
 def _block_forward(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                    positions: Optional[torch.Tensor]):
-    """One dense or MoE block over the full sequence (training): attention
-    through the flash op, then the MLP or MoE, each with its residual →
-    ``(x, aux)``."""
+    """One block over the full sequence (training), the reference's
+    ``_block_forward`` → ``(x, aux)``: an SSM block is the mixer on the
+    normed input with its residual; the others run attention through the
+    flash op (banded with a window), a hybrid block the mixer beside it on
+    the same normed input (``_branch_mean``), then the MLP or MoE, each
+    with its residual.  Only a MoE block's aux is nonzero."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg.norm, p["ln1"], x)
-    x = x + attention(p["attn"], cfg, h, positions, causal=True)
+    if kind == "ssm":
+        return x + ssm_forward(p["ssm"], cfg, h), zero
+    a = attention(p["attn"], cfg, h, positions, causal=True)
+    x = x + (_branch_mean(p, a, ssm_forward(p["ssm"], cfg, h)) if kind == "hybrid" else a)
     y, aux = _ffn(p, cfg, kind, apply_norm(cfg.norm, p["ln2"], x))
-    return x + y, (aux if aux is not None
-                   else torch.zeros((), dtype=torch.float32, device=x.device))
+    return x + y, (aux if aux is not None else zero)
 
 
 def _run_stack(cfg: ModelConfig, stacked: dict, kind: str, n: int, x: torch.Tensor,
                positions: Optional[torch.Tensor]):
     """The reference's ``_run_stack`` in ``"forward"`` mode: ``n`` blocks
-    over ``x`` → ``(x, summed aux)``.  A dense block's aux is 0."""
-    if kind not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"training forward of {kind!r} blocks is not ported yet")
+    over ``x`` → ``(x, summed aux)``."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
         lp = layer_slice(stacked, i)

@@ -179,17 +179,10 @@ def test_half_rope_matches_reference(d):
 
 
 def test_what_is_not_ported_still_raises():
-    """What stays unported raises: the training forward of SSM and hybrid
-    stacks (``ssd_scan`` has no gradient yet), ``NotImplementedError``;
-    a ring-buffer decode over a cache longer than its window (no cache of
-    either package has one), ``ValueError``.  Every configuration of the
-    reference now has a copy in the port."""
-    for name in ("hymba-1.5b", "mamba2-1.3b"):
-        arch = get_arch(name)
-        arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
-        with pytest.raises(NotImplementedError):
-            arch.forward(arch.init(seed=0, device="cpu"),
-                         {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    """What stays unported raises: a ring-buffer decode over a cache
+    longer than its window (no cache of either package has one),
+    ``ValueError``.  Every configuration of the reference now has a copy
+    in the port (and every family trains: ``test_torch_train_families.py``)."""
     cfg = get_arch("llama3-8b").cfg.reduced()
     x = torch.zeros((1, 1, cfg.d_model))
     kv = torch.zeros((1, 8, cfg.n_kv_heads, cfg.hd))

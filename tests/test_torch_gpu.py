@@ -1440,3 +1440,230 @@ def test_new_families_served_on_card_match_cpu(gen, kind):
         assert launched["paged_decode_attention"] > 0
     else:
         assert launched["decode_attention"] > 0 and launched["ssd_scan"] > 0
+
+
+# ---------------------------------------------------------- ssd_scan_bwd
+
+def _scan_bwd_case(gen, shape, dtype, with_final):
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+
+    states, decay = _scan(gen, shape, dtype)
+    prev, _final = ssd_scan_cuda(states, decay)
+    g_prev = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g_final = (torch.randn(shape[:1] + shape[2:], generator=gen, device="cuda")
+               if with_final else None)
+    return states, decay, (g_prev, g_final, prev, decay)
+
+
+@pytest.mark.parametrize("with_final", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 8, 64, 64, 128), (8, 8, 25, 64, 16), (2, 3, 5, 5, 7),
+                                   (1, 1, 2, 3, 5), (2, 8, 4, 16, 32)])
+def test_ssd_scan_bwd_kernel_matches_plain(gen, shape, dtype, with_final):
+    """The adjoint kernel at mamba2's and hymba's training shapes and
+    ragged ones: ``d_states`` and ``d_initial`` are the plain version's
+    bits (the same unfused float32 multiply and add), ``d_decay`` within
+    1e-5 of its largest entry (a sum in another order); against autograd
+    of ``ssd_scan_ref`` too (bf16: autograd's ``d_decay`` takes the float32
+    ``prev``, 2^-7); one launch a call, the same bits on a second call."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+
+    states, decay, args = _scan_bwd_case(gen, shape, dtype, with_final)
+    before = ssd_scan_bwd_cuda.launches
+    out = ssd_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd_cuda.launches == before + 1
+    assert out[0].dtype == dtype and out[1].dtype == out[2].dtype == torch.float32
+    want = ssd_scan_bwd_ref(*args)
+    torch.testing.assert_close(out[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(out[2], want[2], rtol=0, atol=0)
+    scale = float(want[1].abs().max())
+    torch.testing.assert_close(out[1], want[1], rtol=0, atol=1e-5 * scale + 1e-30)
+    leaves = [states.float().requires_grad_(), decay.clone().requires_grad_()]
+    aprev, afinal = ssd_scan_ref(*leaves)
+    pairs = [(aprev, args[0].float()),
+             (afinal, args[1] if with_final else torch.zeros_like(afinal))]
+    pairs = [(o, g) for o, g in pairs if o.requires_grad]  # C = 1: prev is the zero start
+    auto = torch.autograd.grad([o for o, _g in pairs], leaves, [g for _o, g in pairs])
+    torch.testing.assert_close(out[0], auto[0].to(dtype), rtol=0, atol=0)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out[1], auto[1], rtol=0, atol=tol * scale + 1e-30)
+    again = ssd_scan_bwd_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, out))
+
+
+def test_ssd_scan_bwd_refuses_operands_outside_supports(gen):
+    """A ``g_prev`` of another dtype or shape, a bf16 or misshapen
+    ``g_final``, strided operands, an initial-state-free forward's decay
+    in bf16: ValueError on the card, nothing launched."""
+    _s, decay, (g_prev, g_final, prev, _d) = _scan_bwd_case(
+        gen, (2, 3, 4, 8, 8), torch.float32, True)
+    registry.reset_launches()
+    bad = [
+        (g_prev.bfloat16(), g_final, prev, decay),
+        (g_prev[:, :2].contiguous(), g_final, prev, decay),
+        (g_prev, g_final.bfloat16(), prev, decay),
+        (g_prev, g_final[:1].contiguous(), prev, decay),
+        (g_prev.transpose(3, 4), g_final, prev, decay),
+        (g_prev, g_final, prev, decay.bfloat16()),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            registry.dispatch("ssd_scan_bwd", args)
+    assert registry.launch_counts() == {n: 0 for n in registry.names()}
+
+
+@pytest.mark.parametrize("l", [5, 21, 256])
+def test_ssd_chunked_gradient_on_the_card(gen, l):
+    """``ssd_chunked``'s gradient on CUDA tensors launches the scan once
+    and its adjoint once, and matches the CPU's plain run (1e-4 of each
+    gradient's largest entry: einsums and exponentials in another
+    order)."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    b, h, p, n = 2, 4, 8, 16
+    x = torch.randn((b, l, h, p), generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(torch.randn((b, l, h), generator=gen, device="cuda"))
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    B, C = (torch.randn((b, l, n), generator=gen, device="cuda") for _ in range(2))
+    up = torch.randn((b, l, h, p), generator=gen, device="cuda")
+    grads = {}
+    for device in ("cuda", "cpu"):
+        leaves = [t.to(device).requires_grad_() for t in (x, dt, A, B, C)]
+        registry.reset_launches()
+        y, _final = ssd_chunked(*leaves, chunk=8)
+        grads[device] = torch.autograd.grad((y * up.to(device)).sum(), leaves)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = registry.launch_counts()
+            assert (counts["ssd_scan"], counts["ssd_scan_bwd"]) == (1, 1)
+    for g, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g.cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def _train_batch(cfg, seed: int, b: int = 4, s: int = 24) -> dict:
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+    if cfg.is_encoder_decoder:
+        src = rng.standard_normal((b, 20, cfg.d_model)).astype(np.float32)
+        return {"src_embeds": src, "tgt_tokens": tokens, "labels": tokens}
+    if cfg.frontend != "none":
+        pos = np.zeros((3, b, s), np.int32)
+        pos[1, :, :16], pos[2, :, :16] = np.arange(16) // 4, np.arange(16) % 4
+        pos[:, :, 16:] = 4 + np.arange(s - 16)
+        emb = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        return {"embeds": emb, "positions": pos, "labels": tokens}
+    return {"tokens": tokens, "labels": tokens}
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "hymba-1.5b", "deepseek-moe-16b",
+                                  "qwen2-vl-2b", "seamless-m4t-medium"])
+def test_reduced_family_train_step_on_card_matches_cpu(gen, name, remat):
+    """Each family reduced, float32, 2 train steps on the card (kernels)
+    and on the CPU (plain versions): losses and parameters within 1e-4;
+    the SSM and hybrid configs launch ``ssd_scan_bwd`` once a layer a
+    step, the others never."""
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    arch = get_arch(name)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg.reduced(), remat=remat))
+    cpu_params = arch.init(seed=0, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = _to(cpu_params, device) if device == "cuda" else _clone(cpu_params)
+        init_state, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig())
+        state = init_state(params)
+        losses, bwd = [], []
+        for i in range(2):
+            registry.reset_launches()
+            params, state, m = step(params, state, _train_batch(arch.cfg, i))
+            losses.append(float(m["loss"]))
+            bwd.append(registry.launch_counts()["ssd_scan_bwd"])
+        out[device] = (losses, params, bwd)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(_leaves(out["cuda"][1]), _leaves(out["cpu"][1])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    mixers = arch.cfg.n_layers if arch.cfg.family == "ssm" or arch.cfg.hybrid else 0
+    assert out["cuda"][2] == [mixers] * 2
+
+
+def test_checkpoint_restart_on_the_card(gen, tmp_path):
+    """Reduced mamba2, float32, int8 moments: a checkpoint after step 2
+    written asynchronously while the run goes on, restored into fresh
+    tensors on the card: the first resumed step's loss equals the
+    uninterrupted run's bit for bit; the next within 1e-5 relative (the
+    embedding gradient sums with atomics)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.registry import get_arch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    arch = get_arch("mamba2-1.3b")
+    arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
+    init_state, step = make_train_step(arch, AdamWConfig(lr=1e-3, moments_dtype="int8"),
+                                       TrainStepConfig())
+    params = arch.init(seed=0, device="cuda")
+    state = init_state(params)
+    losses = []
+    with CheckpointManager(tmp_path) as mgr:
+        for i in range(4):
+            params, state, m = step(params, state, _train_batch(arch.cfg, i))
+            losses.append(float(m["loss"]))
+            if i == 1:
+                mgr.save(2, params, state)
+        mgr.wait()
+        fresh = arch.init(seed=1, device="cuda")
+        at, p, s = mgr.restore_latest(fresh, init_state(fresh))
+    assert at == 2 and next(_leaves(p)).is_cuda
+    resumed = []
+    for i in range(2, 4):
+        p, s, m = step(p, s, _train_batch(arch.cfg, i))
+        resumed.append(float(m["loss"]))
+    assert resumed[0] == losses[2]
+    np.testing.assert_allclose(resumed[1], losses[3], rtol=1e-5, atol=0)
+
+
+def test_moe_bf16_gradient_on_card_matches_cpu(gen):
+    """The bf16 MoE layer's gradient on the card (its expert products
+    through ``_BmmF32``, bf16 operands with float32 results) against the
+    CPU's (operands widened to float32): every weight's and the input's
+    gradient within 2e-2 of its largest entry, as the forward's bf16
+    tolerance in ``test_moe_on_card_matches_cpu``."""
+    from repro_torch.models.moe import moe
+    cfg, p = _moe_layer("deepseek-moe-16b", "bfloat16")
+    x = torch.randn((3, 16, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    up = torch.randn((3, 16, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for device in ("cuda", "cpu"):
+        leaves = {k: v.to(device).requires_grad_() for k, v in _flat(p).items()}
+        xd = x.to(device, cfg.cdtype).requires_grad_()
+        y, aux = moe(_unflat(leaves), cfg, xd)
+        loss = (y.float() * up.to(device)).sum() + aux
+        grads[device] = torch.autograd.grad(loss, list(leaves.values()) + [xd])
+    for g, want in zip(grads["cuda"], grads["cpu"]):
+        assert g.dtype == want.dtype
+        torch.testing.assert_close(g.float().cpu(), want.float(), rtol=0,
+                                   atol=2e-2 * float(want.float().abs().max()) + 1e-30)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+def _unflat(flat):
+    tree = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree

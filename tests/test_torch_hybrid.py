@@ -239,14 +239,6 @@ def test_right_padded_ring_keeps_pad_rows_as_the_reference_does(pair):
                            cache["layers"]["k"][:, 1, :10].numpy(), atol=1e-3)
 
 
-def test_training_forward_of_hybrid_stacks_raises(pair):
-    """``ssd_scan`` has no gradient yet: the training forward of a hybrid
-    stack is not ported."""
-    _ja, _jp, arch, tparams, _tree = pair
-    with pytest.raises(NotImplementedError):
-        arch.forward(tparams, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-
-
 # ----------------------------------------------------------------- engines
 
 def _sides(pair):

@@ -100,6 +100,22 @@ def test_default_device_raises_without_cuda(no_cuda):
     assert eng.device == torch.device("cpu")
 
 
+def test_train_launcher_default_device_raises_without_cuda(no_cuda, tmp_path):
+    """The training launcher and a restore onto its default device refuse
+    to run without CUDA; ``--device cpu`` trains and checkpoints."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train
+
+    argv = ["--arch", "mamba2-1.3b", "--reduced", "--steps", "1", "--batch", "2",
+            "--seq", "8", "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(argv)
+    out = train.main(argv + ["--device", "cpu"])
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+    with CheckpointManager(tmp_path) as mgr:
+        assert mgr.latest_step() == 1
+
+
 def test_engine_refuses_params_on_another_device():
     cfg = get_arch("llama3-8b").cfg.reduced()
     arch = dataclasses.replace(get_arch("llama3-8b"), cfg=cfg)

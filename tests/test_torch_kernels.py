@@ -371,7 +371,7 @@ def test_gather_supports_gates():
 # ---------------------------------------------------------------- dispatch
 
 OPS = ["batched_gather", "decode_attention", "flash_attention", "paged_decode_attention",
-       "ssd_scan"]
+       "ssd_scan", "ssd_scan_bwd"]
 
 
 def test_registry_names_and_samples():

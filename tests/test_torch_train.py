@@ -186,15 +186,6 @@ def test_forward_matches_reference(query_embedding):
     assert float(taux) == float(jaux) == 0.0
 
 
-def test_forward_refuses_families_not_ported():
-    for name in ("mamba2-1.3b",):
-        arch = get_arch(name)
-        arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
-        with pytest.raises(NotImplementedError):
-            arch.forward(arch.init(seed=0, device="cpu"),
-                         {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-
-
 def test_head_bf16_gradient_matches_reference():
     """The bf16 head's gradient on the CPU equals ``jax.grad`` of the
     reference's ``_head``: float32 products of the float32 cotangent with
