@@ -192,7 +192,44 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    2, restored into fresh tensors: the first resumed loss bit for bit);
 10. fission — the twin of ``benchmarks/bench_fission.py::device_fission``:
     2048 single-row queries on a 10000 x 256 float32 table, plain ``scan``
-    (2048 launches) against ``fission_scan`` (1), both walls printed.
+    (2048 launches) against ``fission_scan`` (1), both walls printed;
+11. sharded — the distribution layer on four ranks that share the card
+    (``torch.multiprocessing`` processes on ``cuda:0``, gloo, mesh (data,
+    model) = (2, 2); each rank first runs once every collective the phase
+    uses; DTensor's all-gathers go through c10d's, since gloo's functional
+    all-gather of CUDA tensors never completes):
+    a. sharded-train — llama3-8b at full width cut to 4 layers, parameters
+       placed by ``param_shardings``, ``make_train_step(..., mesh=)`` on
+       phase 8's 8 x 512 batch in one microbatch (the fissioned loop does
+       not run on a mesh, and unfissioned microbatches multiply the FSDP
+       gathers), 2 steps, held to the same steps unsharded on the card
+       (same seed and batches): both losses within 1e-3 relative, layer 0
+       of ``wq`` after them within 0.25 of the distance the unsharded
+       steps moved it; ``wq``'s local shard (4, 2048, 16, 128), per
+       rank and step ``flash_attention`` = 4 and ``batched_gather`` = 1
+       (the masked vocabulary-parallel gather); step
+       walls, peak memory, and the second step's collectives by kind,
+       count, bytes and mesh axis (``OpCost``) printed per rank;
+    b. moe-ep — deepseek-moe-16b at full width cut to a dense and 3 MoE
+       blocks, 32 of 64 experts a rank: the prefill of 8 x 256 tokens on
+       the routes a single-device run of the same weights took, logits
+       against that run's (phase 5's gate), one all-reduce over ``model``
+       around each ``moe`` call, the MoE stacks' local ``w_gate``/``w_in``
+       (3, 32, 1024, 1408); then one train step; ``flash_attention`` = 4
+       for each;
+    c. dryrun — ``launch.dryrun.run_cell`` of a's configuration and mesh on
+       a fake process group and fake card tensors, on the host: its
+       per-device flops within 1 % of a's counted step and its collectives
+       of each kind as many; then ``llama3-8b|train_4k|single`` on the
+       production mesh, timed, its row printed;
+    d. sharded-reduced — reduced llama3-8b (``query_embedding``) and
+       deepseek-moe-16b in float32, 2 steps on the ranks against the
+       unsharded CPU step: losses and parameters within 1e-4.
+
+Phase 3 also times the flash kernel at a rank's shard in phase 11a (B 1,
+16 / 4 heads, S 512; the JSON line's sub-row 2g) and the host time of one
+call of ``decode_op``, the custom op the model now calls, beside the
+launch it wraps.
 
 Any failure exits non-zero.  The last lines are the card's name and power
 limit, the kernels' JSON line, and ``{"ok": true, "device": {...}}``.
@@ -461,8 +498,17 @@ def phase_kernels(timer):
         f"keys and lengths {timer.ms(lambda: decode_attention_cuda(q, kd, vd, lens))!r} ms")
     # Host time of one call (the wrapper, the tensor maps' encoding and the
     # launch), the device left busy so no call waits for it.
+    from repro_torch.kernels.decode_attention.ops import _decode_op, decode_op
+    if not (torch.equal(decode_op(q, kd, vd, lens), decode_attention_cuda(q, kd, vd, lens))
+            and torch.equal(_decode_op(q, kd, vd, lens, None, None, None),
+                            decode_attention_cuda(q, kd, vd, lens))):
+        fail("decode_attention: the op differs from the launch it wraps")
     for name, fn in (("paged_decode_attention_cuda", lambda: paged_decode_attention_cuda(*args)),
-                     ("decode_attention_cuda", lambda: decode_attention_cuda(q, kd, vd, lens))):
+                     ("decode_attention_cuda", lambda: decode_attention_cuda(q, kd, vd, lens)),
+                     ("decode_op (what the model calls on plain tensors)",
+                      lambda: decode_op(q, kd, vd, lens)),
+                     ("repro_torch::decode_attention (the custom op: DTensors, fakes)",
+                      lambda: _decode_op(q, kd, vd, lens, None, None, None))):
         fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(Timer.SPIN_CYCLES * 20)
@@ -589,7 +635,33 @@ def phase_kernels(timer):
     _config_shapes(timer, gen, rng)
     for name, sub in _new_layouts(timer, gen, rng).items():
         rows[name]["sub_rows"] = sub
+    rows["flash_attention"]["sub_rows"].append(_sharded_flash_row(timer, gen))
     return rows
+
+
+def _sharded_flash_row(timer, gen):
+    """Flash at a rank's shard in phase 11a: one microbatch of one
+    sequence, llama3-8b's heads halved over ``model`` (16 q / 4 kv), S 512,
+    D 128, bf16; its bound, plain version and SDPA as for the main row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, hq, hkv, s, d = 1, 16, 4, 512, 128
+    # laid out (B, H, S, D): the model hands the op contiguous shards on a mesh
+    fq, fk, fv = (t.contiguous() for t in _flash_case(gen, b, hq, hkv, s, d, torch.bfloat16))
+    out = flash_attention_cuda(fq, fk, fv, causal=True)
+    err = _compare(f"flash_attention bf16 (11a's shard) B={b} Hq={hq} Hkv={hkv} S={s} D={d}",
+                   out, attention_ref(fq, fk, fv, causal=True), 1e-2, 1e-2)
+    bound = _bound(2 * (fq.numel() * 2 + fk.numel() + fv.numel()),
+                   4 * b * hq * d * (s * (s + 1) // 2))
+    return _sub_row(
+        "2g flash, 11a's shard B 1 S 512 16/4 D 128", err,
+        timer.ms(lambda: flash_attention_cuda(fq, fk, fv, causal=True)),
+        timer.ms(lambda: attention_ref(fq, fk, fv, causal=True)), bound,
+        timer.ms(lambda: F.scaled_dot_product_attention(fq, fk, fv, is_causal=True,
+                                                         enable_gqa=True)))
 
 
 # Head layouts (Hq, Hkv) of the configurations served in phases 4l-4o, all
@@ -2311,6 +2383,7 @@ def _plain_ops():
     """Patch the model's kernel ops (flash, dense and paged decode, the SSD
     scan) with their plain versions (the comparison path only; the port
     itself has no such switch)."""
+    import torch
     from repro_torch.kernels.decode_attention.ref import decode_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.paged_attention.ref import paged_decode_ref
@@ -2325,8 +2398,15 @@ def _plain_ops():
     def plain_scan(states, decay, initial_state=None):
         return ssd_scan_ref(states, decay, initial_state)
 
+    def plain_decode(q, k, v, lengths, *, k_new=None, v_new=None, slot=None):
+        if k_new is not None:  # the new token's K/V first, as ``decode_op`` writes them
+            rows = torch.arange(k.shape[0], device=k.device)
+            k.index_put_((rows, slot), k_new.to(k.dtype))
+            v.index_put_((rows, slot), v_new.to(v.dtype))
+        return decode_ref(q, k, v, lengths)
+
     with mock.patch.object(attn_mod, "attention_op", plain_attention), \
-            mock.patch.object(attn_mod, "decode_op", decode_ref), \
+            mock.patch.object(attn_mod, "decode_op", plain_decode), \
             mock.patch.object(pd_mod, "paged_decode_op", paged_decode_ref), \
             mock.patch.object(ssm_mod, "ssd_scan_op", plain_scan):
         yield
@@ -2351,7 +2431,11 @@ class _Routes:
 
     def _replay(self, router_w, cfg, x, C):
         import torch
+        from torch.distributed.tensor import DTensor, distribute_tensor
         idx = self.calls.pop(0)
+        if isinstance(x, DTensor):  # each rank takes its rows of the recorded routes
+            idx = distribute_tensor(idx.to(x.to_local().device), x.device_mesh, x.placements,
+                                    src_data_rank=None)
         probs = torch.softmax(torch.matmul(x.float(), router_w.float()), dim=-1)
         gate = probs.gather(-1, idx)
         gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
@@ -2542,6 +2626,13 @@ def phase_ssm_logits_check(arch, params, device="cuda"):
 
     def plain_scan(states, decay, initial_state=None):
         return ssd_scan_ref(states, decay, initial_state)
+
+    def plain_decode(q, k, v, lengths, *, k_new=None, v_new=None, slot=None):
+        if k_new is not None:  # the new token's K/V first, as ``decode_op`` writes them
+            rows = torch.arange(k.shape[0], device=k.device)
+            k.index_put_((rows, slot), k_new.to(k.dtype))
+            v.index_put_((rows, slot), v_new.to(v.dtype))
+        return decode_ref(q, k, v, lengths)
 
     with torch.no_grad():
         kern = tf.prefill(cfg, params, toks, return_all_logits=True)[0][rows, last]
@@ -3473,6 +3564,508 @@ def phase_fission(v: int = 10_000, d: int = 256, n: int = 2048, device: str = "c
     _sync(device)
 
 
+# ---------------------------------------------------------------- phase 11
+SHARD_MESH = (2, 2)  # (data, model): four ranks sharing the one card, over gloo
+# 11a: phase 8's batch in one microbatch (the mesh step's loop is not
+# fissioned, and 4 unfissioned microbatches move 13.2 GB a step through
+# gloo: 4 x the FSDP gathers)
+SHARD_TRAIN = dict(steps=2, batch=8, seq=512)
+MOE_EP_LAYERS = 4  # 11b: deepseek-moe-16b's dense block and 3 MoE blocks
+MOE_EP_BATCH = (8, 256)
+
+
+def _cut(name: str, **overrides):
+    from repro_torch.models.registry import get_arch
+    a = get_arch(name)
+    return dataclasses.replace(a, cfg=dataclasses.replace(a.cfg, **overrides))
+
+
+def _reduced_cut(name: str, **overrides):
+    from repro_torch.models.registry import get_arch
+    a = get_arch(name)
+    return dataclasses.replace(a, cfg=dataclasses.replace(a.cfg.reduced(), **overrides))
+
+
+def _sharded_train_arch(reduced: bool = False):
+    kw = dict(query_embedding=True, remat=False)
+    if reduced:
+        return _reduced_cut("llama3-8b", **kw)
+    return _cut("llama3-8b", n_layers=TRAIN_LAYERS, **kw)
+
+
+def _moe_ep_arch(reduced: bool = False):
+    if reduced:
+        return _reduced_cut("deepseek-moe-16b")
+    return _cut("deepseek-moe-16b", n_layers=MOE_EP_LAYERS, remat=False)
+
+
+def _process_group(group):
+    import torch.distributed as dist
+    if isinstance(group, tuple):  # DTensor's (mesh, mesh_dim)
+        mesh, dim = group
+        return mesh.get_group(dim)
+    if isinstance(group, str):
+        return dist.distributed_c10d._resolve_process_group(group)
+    return group
+
+
+def _c10d_all_gather(self, gather_dim: int, group, tag: str = ""):
+    """``funcol.all_gather_single`` through c10d's synchronous
+    ``all_gather_into_tensor``: the shards concatenated along
+    ``gather_dim``, in rank order."""
+    import torch.distributed as dist
+    pg = _process_group(group)
+    x = self.movedim(gather_dim, 0).contiguous()
+    out = x.new_empty((dist.get_world_size(pg) * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=pg)
+    return out.movedim(0, gather_dim).contiguous()
+
+
+def use_c10d_all_gather() -> None:
+    """Route the functional all-gather (what DTensor calls) in this rank's
+    process through c10d's: gloo's functional all-gather of CUDA tensors
+    never completes when ranks share one card (PyTorch 2.11), c10d's does.
+    NCCL ranks, one a card, need no such patch."""
+    import torch.distributed._functional_collectives as funcol
+
+    for name in ("all_gather_single", "all_gather_tensor"):
+        if hasattr(funcol, name):
+            setattr(funcol, name, _c10d_all_gather)
+
+
+def _rank_start(device: str):
+    """A rank's set-up: the card, TF32 off, DTensor's all-gathers through
+    c10d's (``use_c10d_all_gather``), the (data, model) mesh."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    use_c10d_all_gather()
+    return make_test_mesh(*SHARD_MESH, device_type=device)
+
+
+def _peak(device: str) -> int:
+    import torch
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def _reset_peak(device: str) -> None:
+    import torch
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _collective_probe(mesh, device: str) -> dict:
+    """The collectives the phase runs, once each over the ``model`` group
+    (CUDA tensors on the card): a call that completes is taken."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    g = mesh.get_group("model")
+    x = torch.ones(8, 4, device=device)
+    calls = (("c10d all_gather_into_tensor",
+              lambda: dist.all_gather_into_tensor(torch.empty(16, 4, device=device), x, group=g)),
+             ("functional all_reduce", lambda: funcol.wait_tensor(funcol.all_reduce(x, "sum", g))),
+             ("functional reduce_scatter",
+              lambda: funcol.wait_tensor(funcol.reduce_scatter_tensor(x, "sum", 0, g))),
+             ("functional all_to_all",
+              lambda: funcol.wait_tensor(funcol.all_to_all_single(x, None, None, g))))
+    out = {}
+    for name, fn in calls:
+        fn()
+        _sync(device)
+        out[name] = "taken"
+    return out
+
+
+def _rank_11a(mesh, device: str, reduced: bool) -> dict:
+    """11a on one rank: llama3-8b at full width cut to 4 layers, its
+    parameters placed by ``param_shardings``, ``SHARD_TRAIN["steps"]``
+    sharded steps; the last under ``OpCost``."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.distributed.sharding import distribute_params
+    from repro_torch.kernels import registry
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    t = SHARD_TRAIN
+    arch = _sharded_train_arch(reduced)
+    params = distribute_params(mesh, arch.init(seed=0, device=device))
+    _free(device)
+    init, step = make_train_step(arch, AdamWConfig(lr=1e-3),
+                                 TrainStepConfig(), mesh=mesh)
+    state = init(params)
+    stream = SyntheticLMStream(arch.cfg.vocab_size, seq_len=t["seq"], batch=t["batch"], seed=0)
+    out = dict(wq_local=tuple(params["layers"]["attn"]["wq"].to_local().shape),
+               losses=[], walls=[], launches=[], peaks=[])
+    oc = None
+    for i in range(t["steps"]):
+        counted = i == t["steps"] - 1
+        oc = OpCost(mesh) if counted else None
+        _reset_peak(device)
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        with oc if counted else contextlib.nullcontext():
+            params, state, m = step(params, state, stream.batch_at(i))
+        out["losses"].append(float(m["loss"]))
+        _sync(device)
+        out["walls"].append(time.perf_counter() - t0)
+        out["launches"].append(registry.launch_counts())
+        out["peaks"].append(_peak(device))
+    out["wq0"] = params["layers"]["attn"]["wq"].full_tensor()[0].float().cpu()
+    out["flops"] = oc.flops
+    out["collectives"] = oc.collectives_row()
+    out["by_axis"] = {f"{k} over {'+'.join(map(str, a))}": n
+                      for (k, a), n in sorted(oc.by_axis.items(), key=str)}
+    del params, state
+    _free(device)
+    return out
+
+
+def _rank_11b(mesh, device: str, reduced: bool, tokens, routes) -> dict:
+    """11b on one rank: deepseek-moe-16b at full width cut to a dense and 3
+    MoE blocks, experts over ``model``; the prefill of ``tokens`` on the
+    single-device run's routes, every ``moe`` call under ``OpCost``, then
+    one train step."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.distributed.sharding import batch_placements, distribute_params, mesh_context
+    from repro_torch.kernels import registry
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models import transformer
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    arch = _moe_ep_arch(reduced)
+    params = distribute_params(mesh, arch.init(seed=0, device=device))
+    _free(device)
+    ex = params["layers"]["moe"]["experts"]
+    out = {"local": {k: tuple(ex[k].to_local().shape) for k in ("w_gate", "w_in", "w_out")}}
+    tok = distribute_tensor(torch.as_tensor(tokens, device=device), mesh,
+                            batch_placements(mesh, tokens.shape), src_data_rank=None)
+    calls, inner = [], transformer.moe
+
+    def counted(p, cfg, x):
+        oc = OpCost(mesh)
+        with oc:
+            y = inner(p, cfg, x)
+        calls.append((oc.count("all-reduce", "model"), oc.count("all-reduce")))
+        return y
+
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    with mesh_context(mesh), _Routes().replay(routes), \
+            mock.patch.object(transformer, "moe", counted):
+        logits, _cache = arch.prefill(params, {"tokens": tok})
+        logits = logits.full_tensor()
+    _sync(device)
+    out["prefill_wall"] = time.perf_counter() - t0
+    out["prefill_launches"] = registry.launch_counts()
+    out["moe_calls"] = calls
+    out["logits"] = logits.float().cpu().numpy()
+    del logits, _cache
+    init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig(), mesh=mesh)
+    state = init(params)
+    b = SyntheticLMStream(arch.cfg.vocab_size, seq_len=MOE_EP_BATCH[1], batch=MOE_EP_BATCH[0],
+                          seed=1).batch_at(0)
+    _reset_peak(device)
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, b)
+    out["loss"] = float(m["loss"])
+    _sync(device)
+    out["step_wall"] = time.perf_counter() - t0
+    out["step_launches"] = registry.launch_counts()
+    out["peak"] = _peak(device)
+    del params, state
+    _free(device)
+    return out
+
+
+def _rank_11d(mesh, device: str, cases) -> dict:
+    """11d on one rank: each reduced float32 case's parameters (numpy, the
+    CPU run's) placed on the mesh and trained 2 steps."""
+    from repro_torch.distributed.sharding import distribute_params
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    out = {}
+    for name, (overrides, tree, batches) in cases.items():
+        arch = _reduced_cut(name, **overrides)
+        params = distribute_params(mesh, params_from_numpy(tree, arch.cfg, device=device))
+        init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig(), mesh=mesh)
+        state, losses = init(params), []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+        full = {k: v.full_tensor().float().cpu().numpy() for k, v in _flat(params).items()}
+        out[name] = (losses, full)
+    _sync(device)
+    return out
+
+
+def _rank_phase11(rank, world, device, reduced, tokens, routes, reduced_cases) -> dict:
+    """Everything phase 11 runs on one rank, in order; rank 0's outputs
+    carry the logits and parameters the parent compares."""
+    mesh = _rank_start(device)
+    out = {"probe": _collective_probe(mesh, device)}
+    for name, fn in (("11a", lambda: _rank_11a(mesh, device, reduced)),
+                     ("11b", lambda: _rank_11b(mesh, device, reduced, tokens, routes)),
+                     ("11d", lambda: _rank_11d(mesh, device, reduced_cases))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        if rank == 0:
+            log(f"[sharded] rank 0: {name} done in {time.perf_counter() - t0!r} s")
+    if rank:
+        out["11a"]["wq0"] = None
+        out["11b"]["logits"] = None
+        out["11d"] = {k: (v[0], None) for k, v in out["11d"].items()}
+    return out
+
+
+def _free(device: str) -> None:
+    import torch
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _reduced_sharded_cases():
+    """11d's cases: reduced llama3-8b (``query_embedding``: the masked
+    vocabulary-parallel gather) and deepseek-moe-16b in float32, their
+    parameters drawn on the CPU, 2 batches of 8 x 16, and the unsharded
+    CPU run's losses and parameters."""
+    from repro_torch.models.convert import params_to_numpy
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    cases, refs = {}, {}
+    rng = np.random.default_rng(11)
+    for name, overrides in (("llama3-8b", dict(query_embedding=True)), ("deepseek-moe-16b", {})):
+        arch = _reduced_cut(name, **overrides)
+        params = arch.init(seed=0, device="cpu")
+        # copies: on the CPU .numpy() shares memory, and the step donates params
+        tree = _map_leaves(np.copy, params_to_numpy(params))
+        batches = []
+        for _ in range(2):
+            t = rng.integers(0, arch.cfg.vocab_size, size=(8, 16)).astype(np.int64)
+            batches.append({"tokens": t, "labels": t})
+        init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig())
+        state, losses = init(params), []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+        cases[name] = (overrides, tree, batches)
+        refs[name] = (losses, {k: v.detach().numpy().copy() for k, v in _flat(params).items()})
+    return cases, refs
+
+
+def _train_reference(smi, device: str = "cuda", reduced: bool = False):
+    """11a's unsharded twin on the card: the same cut llama3-8b, seed and
+    batches, ``SHARD_TRAIN["steps"]`` steps in one microbatch.  Returns
+    the losses and layer 0 of ``wq`` before and after (float32, host)."""
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    t = SHARD_TRAIN
+    arch = _sharded_train_arch(reduced)
+    params = arch.init(seed=0, device=device)
+    wq_init = params["layers"]["attn"]["wq"][0].float().cpu().clone()  # the step writes params
+    init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig())
+    state = init(params)
+    stream = SyntheticLMStream(arch.cfg.vocab_size, seq_len=t["seq"], batch=t["batch"], seed=0)
+    losses = []
+    for i in range(t["steps"]):
+        params, state, m = step(params, state, stream.batch_at(i))
+        losses.append(float(m["loss"]))
+    wq_after = params["layers"]["attn"]["wq"][0].float().cpu()
+    del params, state, m
+    _free(device)
+    log(f"[sharded-train] unsharded reference on {smi}: losses {losses}")
+    return losses, wq_init, wq_after
+
+
+def _moe_reference(smi, device: str = "cuda", reduced: bool = False):
+    """11b's single-device run: the same cut deepseek-moe-16b and seed, the
+    prefill of a fixed 8 x 256 batch, its logits and the routes each
+    ``moe`` call took (on the host)."""
+    import torch
+    arch = _moe_ep_arch(reduced)
+    params = arch.init(seed=0, device=device)
+    tokens = np.random.default_rng(7).integers(
+        0, arch.cfg.vocab_size, size=MOE_EP_BATCH).astype(np.int64)
+    routes = _Routes()
+    with routes.record():
+        logits, _cache = arch.prefill(params, {"tokens": torch.as_tensor(tokens, device=device)})
+    _sync(device)
+    out = (tokens, [c.cpu() for c in routes.calls], logits.float().cpu())
+    del params, logits, _cache
+    _free(device)
+    log(f"[moe-ep] single-device reference on {smi}: {arch.cfg.name}, {arch.cfg.n_layers} "
+        f"layers, prefill {MOE_EP_BATCH}, {len(out[1])} moe calls")
+    return out
+
+
+def _gate_11a(smi, res, ref, reduced: bool = False) -> dict:
+    import torch
+    cfg = _sharded_train_arch(reduced).cfg
+    want = {"flash_attention": cfg.n_layers, "batched_gather": 1,
+            "paged_decode_attention": 0, "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    dm, mm = SHARD_MESH
+    wq = (cfg.n_layers, cfg.d_model // dm, cfg.n_heads // mm, cfg.hd)  # (4, 2048, 16, 128)
+    for r, out in enumerate(res):
+        a = out["11a"]
+        log(f"[sharded-train] rank {r} on {smi}: wq local {a['wq_local']}, losses "
+            f"{a['losses']}, step walls {a['walls']} s (the last under OpCost), peak device "
+            f"memory {[p / 2**30 for p in a['peaks']]} GiB, launches {a['launches']}")
+        log(f"[sharded-train] rank {r} collectives of a step: {a['collectives']}; by mesh "
+            f"axis {a['by_axis']}; flops {a['flops']!r}")
+        if a["wq_local"] != wq:
+            fail(f"sharded-train: rank {r}'s wq shard is {a['wq_local']}, not {wq}")
+        if not all(np.isfinite(a["losses"])):
+            fail(f"sharded-train: rank {r} has a loss that is not finite")
+        for i, got in enumerate(a["launches"]):
+            _expect(f"sharded-train rank {r} step {i}", got, want)
+    # Losses to 1e-3 relative: the sharded step sums its bf16 gradients in
+    # another order; the first step moves the loss by about a fifth, so a
+    # wrong gradient or moment layout shows in the second loss.  wq's layer
+    # 0 after the steps: its distance from the unsharded one, over the
+    # distance the unsharded steps moved it (an update unrelated to the
+    # right one gives about 1.4, a flipped one 2).
+    want_losses, w0, w_ref = ref
+    losses, w = res[0]["11a"]["losses"], res[0]["11a"]["wq0"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+    moved = float(torch.linalg.vector_norm(w_ref - w0))
+    dist_w = float(torch.linalg.vector_norm(w - w_ref)) / moved
+    log(f"[sharded-train] rank 0's losses {losses} against the unsharded steps' "
+        f"{want_losses} (same seed and batches): relative differences {rel} (gate 1e-3); "
+        f"wq layer 0 after {len(losses)} steps: distance from the unsharded one "
+        f"{dist_w!r} of the {moved!r} the steps moved it (gate 0.25)")
+    if max(rel) > 1e-3:
+        fail("sharded-train: the sharded steps' losses differ from the unsharded ones")
+    if not dist_w <= 0.25:
+        fail("sharded-train: the sharded steps moved wq elsewhere than the unsharded ones")
+    return {k: sum(sum(l[k] for l in out["11a"]["launches"]) for out in res) for k in want}
+
+
+def _gate_11b(smi, res, ref_logits, reduced: bool = False) -> dict:
+    import torch
+    cfg = _moe_ep_arch(reduced).cfg
+    want = {"flash_attention": cfg.n_layers, "batched_gather": 0, "paged_decode_attention": 0,
+            "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    dm, mm = SHARD_MESH
+    local = (n_moe, cfg.n_experts // mm, cfg.d_model // dm, cfg.moe_d_ff)  # (3, 32, 1024, 1408)
+    for r, out in enumerate(res):
+        b = out["11b"]
+        log(f"[moe-ep] rank {r} on {smi}: expert stacks local {b['local']}, prefill wall "
+            f"{b['prefill_wall']!r} s, moe calls (all-reduces over model, all) "
+            f"{b['moe_calls']}, train step loss {b['loss']!r} wall {b['step_wall']!r} s, peak "
+            f"{b['peak'] / 2**30!r} GiB, launches {b['prefill_launches']} + "
+            f"{b['step_launches']}")
+        for k in ("w_gate", "w_in"):
+            if b["local"][k] != local:
+                fail(f"moe-ep: rank {r}'s {k} shard is {b['local'][k]}, not {local}")
+        if len(b["moe_calls"]) != n_moe or any(c[0] != 1 for c in b["moe_calls"]):
+            fail(f"moe-ep: rank {r}'s moe calls hold {b['moe_calls']} all-reduces over model")
+        if not np.isfinite(b["loss"]):
+            fail(f"moe-ep: rank {r}'s train step loss is not finite")
+        _expect(f"moe-ep rank {r} prefill", b["prefill_launches"], want)
+        _expect(f"moe-ep rank {r} train step", b["step_launches"], want)
+    _report_logits("moe-ep: expert-parallel prefill against the single-device one, on its "
+                   "routes", torch.as_tensor(res[0]["11b"]["logits"]), ref_logits)
+    return {k: sum(out["11b"]["prefill_launches"][k] + out["11b"]["step_launches"][k]
+                   for out in res) for k in want}
+
+
+def _gate_11d(res, refs) -> None:
+    for name, (want_losses, want) in refs.items():
+        losses, got = res[0]["11d"][name]
+        dl = max(abs(a - b) for a, b in zip(losses, want_losses))
+        dp = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        log(f"[sharded-reduced] {name}: mesh {SHARD_MESH} against the unsharded CPU step, "
+            f"losses {losses} vs {want_losses} (max diff {dl!r}), parameters max diff {dp!r} "
+            f"(gate 1e-4)")
+        if dl > 1e-4 or dp > 1e-4 or any(r["11d"][name][0] != losses for r in res):
+            fail(f"sharded-reduced: {name} on the mesh differs from the CPU step")
+
+
+def _phase_11c(smi, a_rank0, reduced: bool = False) -> None:
+    """11c on the host: the dry run of 11a's configuration and mesh, held
+    to 11a's counted step; then one production cell, timed."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.config import ShapeSpec
+
+    t = SHARD_TRAIN
+    t0 = time.perf_counter()
+    row = run_cell(_sharded_train_arch(reduced),
+                   ShapeSpec("sharded-train", t["seq"], t["batch"], "train"), "single",
+                   mesh_shape=SHARD_MESH)
+    wall = time.perf_counter() - t0
+    rel = abs(row["flops_per_device"] - a_rank0["flops"]) / a_rank0["flops"]
+    kinds = {k: v["count"] for k, v in row["collectives"].items() if isinstance(v, dict)}
+    real = {k: v["count"] for k, v in a_rank0["collectives"].items() if isinstance(v, dict)}
+    log(f"[dryrun] 11a's cell on fake ranks ({row['traced_on']} fakes, {wall!r} s): flops per "
+        f"device {row['flops_per_device']!r} against the step's {a_rank0['flops']!r} "
+        f"(relative {rel!r}, gate 1e-2); collectives {kinds} against {real}; live bytes "
+        f"{row['live_bytes']!r}")
+    if rel > 1e-2 or kinds != real:
+        fail("dryrun: the dry run of 11a's cell does not count what the step ran")
+    if reduced:
+        return
+    t0 = time.perf_counter()
+    prod = run_cell("llama3-8b", "train_4k", "single")
+    wall = time.perf_counter() - t0
+    keys = ("chips", "lower_s", "flops_per_device", "bytes_per_device",
+            "collective_counts_loop_aware", "collective_bytes_loop_aware", "t_compute_s",
+            "t_memory_s", "t_collective_s", "dominant", "useful_flops_ratio", "hbm_fit",
+            "live_bytes")
+    log(f"[dryrun] llama3-8b|train_4k|single on the host of {smi}: {wall!r} s; "
+        f"{ {k: prod[k] for k in keys} }")
+
+
+def phase_sharded(smi, device: str = "cuda", reduced: bool = False) -> dict:
+    """Phase 11 (module docstring): the distribution layer on four ranks
+    that share the card (``device="cpu", reduced=True`` rehearses it)."""
+    from repro_torch.distributed.launch import run_ranks
+
+    train_ref = _train_reference(smi, device, reduced)
+    tokens, routes, ref_logits = _moe_reference(smi, device, reduced)
+    cases, refs = _reduced_sharded_cases()
+    t0 = time.perf_counter()
+    res = run_ranks(_rank_phase11, SHARD_MESH[0] * SHARD_MESH[1], device, reduced, tokens,
+                    routes, cases, timeout_s=420)
+    log(f"[sharded] {len(res)} ranks on {smi}, mesh (data, model) = {SHARD_MESH} over gloo, "
+        f"{time.perf_counter() - t0!r} s; collectives taken: {res[0]['probe']}")
+    paths = {"sharded-train": _gate_11a(smi, res, train_ref, reduced),
+             "moe-ep": _gate_11b(smi, res, ref_logits, reduced)}
+    _gate_11d(res, refs)
+    _phase_11c(smi, res[0]["11a"], reduced)
+    return paths
+
+
 def _sync(device) -> None:
     import torch
     if device == "cuda":
@@ -3617,10 +4210,12 @@ def main() -> None:
     phase_train_restart()
     log(f"[fission] on {smi}")
     phase_fission()
+    log(f"[sharded] on {smi}")
+    paths.update(phase_sharded(smi))
 
     # Launches on the serving paths and the training runs (llama3-8b's two,
-    # train-ssm's six steps, train-hybrid's two), each counted from 0 in its
-    # own run.
+    # train-ssm's six steps, train-hybrid's two, phase 11's sharded runs
+    # summed over their four ranks), each counted from 0 in its own run.
     launches = {n: sum(p[n] for p in paths.values()) for n in rows}
     log(f"[paths] launches by path {paths}; async wall {async_wall!r} s, ssm wall "
         f"{ssm_wall!r} s, ssm-async wall {ssm_async_wall!r} s, ssm-paged wall "

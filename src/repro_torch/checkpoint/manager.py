@@ -26,7 +26,10 @@ is written to ``step_<n>.tmp/`` and renamed whole, then ``LATEST`` is
 replaced by a rename, so a crash mid-write never corrupts the last good
 checkpoint; ``keep_last`` bounds retention; ``on_preempt`` saves
 synchronously.  Restore puts each tensor on the device of its ``like``
-leaf, in that leaf's dtype.
+leaf, in that leaf's dtype; a DTensor ``like`` leaf restores onto its mesh
+(elastic restore: checkpoints hold unsharded arrays, and each rank keeps
+its own shard of the full array, ``src_data_rank=None``, so a restore onto
+any mesh communicates nothing).
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.runtime import AsyncQueryRuntime
 from repro_torch.core.services import _StatsMixin
@@ -121,7 +125,10 @@ def load_pytree(directory: Path, like) -> Any:
             info = manifest[prefix]
             arr = np.load(directory / info["file"])
             assert tuple(arr.shape) == tuple(node.shape), (prefix, arr.shape, node.shape)
-            return torch.from_numpy(arr).to(device=node.device, dtype=node.dtype)
+            t = torch.from_numpy(arr).to(device=node.device, dtype=node.dtype)
+            if isinstance(node, DTensor):
+                t = distribute_tensor(t, node.device_mesh, node.placements, src_data_rank=None)
+            return t
         loaded = [load(c, f"{prefix}/{k}" if prefix else k) for k, c in kids]
         if isinstance(node, dict):
             return dict(zip((k for k, _c in kids), loaded))

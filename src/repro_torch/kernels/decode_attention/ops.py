@@ -9,13 +9,22 @@ takes any cache length T (no ``bk`` that must divide T).  One launch a
 call: each (lane, kv head) is a thread-block cluster whose blocks split
 the keys and combine their softmax states in shared memory; the wrapper
 allocates only the output.
+
+Being a custom op (``repro_torch::decode_attention``, which declares the
+two caches it writes), it dispatches through DTensor, whose sharding rule
+(:mod:`repro_torch.distributed.op_rules`) runs it on each rank's lanes or
+kv heads, and through fake tensors, which trace it without a launch.  The
+op also writes the new token's K/V into the caches first (``k_new``,
+``v_new``, ``slot``), so a sharded cache is written where it lives.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.kernels import build, registry
 from repro_torch.kernels.decode_attention.ref import decode_ref
@@ -105,6 +114,38 @@ registry.register("decode_attention", ref=decode_ref,
                   sample=_sample)
 
 
-def decode_op(q, k, v, lengths):
-    """Single-token GQA decode attention over a dense KV cache."""
-    return registry.dispatch("decode_attention", (q, k, v, lengths))
+def _write(k_cache, v_cache, k_new, v_new, slot) -> None:
+    """The new token's K/V (B, Hkv, D) into row ``slot`` (B,) of each lane."""
+    if k_new is None:
+        return
+    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
+    k_cache.index_put_((rows, slot), k_new.to(k_cache.dtype))
+    v_cache.index_put_((rows, slot), v_new.to(v_cache.dtype))
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=("k_cache", "v_cache"))
+def _decode_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               lengths: torch.Tensor, k_new: Optional[torch.Tensor],
+               v_new: Optional[torch.Tensor], slot: Optional[torch.Tensor]) -> torch.Tensor:
+    _write(k_cache, v_cache, k_new, v_new, slot)
+    return registry.dispatch("decode_attention", (q, k_cache, v_cache, lengths))
+
+
+@_decode_op.register_fake
+def _(q, k_cache, v_cache, lengths, k_new, v_new, slot):
+    return torch.empty_like(q)
+
+
+def decode_op(q, k, v, lengths, *, k_new=None, v_new=None, slot=None):
+    """Single-token GQA decode attention over a dense KV cache; with
+    ``k_new``/``v_new`` (B, Hkv, D) and ``slot`` (B,) it first writes the
+    new token into the caches, in place.  Plain tensors outside any
+    dispatch mode (the serving engines' every tick) run the op's body
+    directly: ``torch.library``'s dispatch of an op that mutates its
+    arguments costs a decode tick tens of microseconds a layer on the
+    host; DTensors, fake tensors and traces go through the op."""
+    if type(q) is torch.Tensor and _get_current_dispatch_mode() is None:
+        _write(k, v, k_new, v_new, slot)
+        return registry.dispatch("decode_attention", (q, k, v, lengths))
+    return _decode_op(q, k, v, lengths, k_new, v_new, slot)
+

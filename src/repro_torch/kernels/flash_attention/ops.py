@@ -27,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import build, registry
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -150,16 +151,35 @@ def _setup_grad(ctx, inputs, output) -> None:
     q, k, v, causal, window, positions = inputs
     ctx.save_for_backward(q, k, v)
     ctx.causal, ctx.window, ctx.positions = causal, window, positions
+    # on DTensors, the placements the sharding rule ran the op under
+    ctx.placements = output.placements if isinstance(output, DTensor) else None
+
+
+def _ref_grad(q, k, v, grad, causal, window, positions):
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal, window=window, positions=positions)
+        return torch.autograd.grad(out, leaves, grad)
 
 
 def _grad(ctx, grad):
-    """Recompute the plain version and differentiate it."""
+    """Recompute the plain version and differentiate it.  On DTensors each
+    rank differentiates its own shard, which the op's sharding rule made a
+    whole attention problem (batch rows, or heads with their kv heads)."""
     q, k, v = ctx.saved_tensors
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = attention_ref(*leaves, causal=ctx.causal, window=ctx.window,
-                            positions=ctx.positions)
-        dq, dk, dv = torch.autograd.grad(out, leaves, grad)
+    if not isinstance(q, DTensor):
+        dq, dk, dv = _ref_grad(q, k, v, grad, ctx.causal, ctx.window, ctx.positions)
+        return dq, dk, dv, None, None, None
+    mesh, pl = q.device_mesh, ctx.placements
+    q, k, v, grad = (t.redistribute(mesh, pl) for t in (q, k, v, grad))
+    pos = ctx.positions
+    if isinstance(pos, DTensor):  # batch-sharded with the batch, else whole
+        pos = pos.redistribute(mesh, [p if p == Shard(0) else Replicate() for p in pl])
+    local = _ref_grad(q.to_local(), k.to_local(), v.to_local(), grad.to_local(),
+                      ctx.causal, ctx.window,
+                      pos.to_local() if isinstance(pos, DTensor) else pos)
+    dq, dk, dv = (DTensor.from_local(g.contiguous(), mesh, pl, run_check=False)
+                  for g in local)
     return dq, dk, dv, None, None, None
 
 

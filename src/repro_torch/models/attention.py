@@ -46,7 +46,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import gather_dp, shard_activation
 from repro_torch.kernels.decode_attention.ops import decode_op
 from repro_torch.kernels.flash_attention.ops import attention_op
 from repro_torch.models.config import ModelConfig
@@ -77,7 +79,8 @@ def attn_params(gen: torch.Generator, cfg: ModelConfig, device,
 def _proj(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
     """(B, S, d) x (d, H, hd) → (B, S, H, hd) in ``cd``."""
     d, h, hd = w.shape
-    return torch.matmul(x.to(cd), w.to(cd).reshape(d, h * hd)).unflatten(-1, (h, hd))
+    w = gather_dp(w).to(cd).reshape(d, h * hd)
+    return torch.matmul(x.to(cd), w).unflatten(-1, (h, hd))
 
 
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_x=None):
@@ -110,7 +113,9 @@ def _out_proj(p: dict, cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) x wo (H, hd, d) → (B, S, d) in the compute dtype."""
     cd = cfg.cdtype
     h, hd, d = p["wo"].shape
-    return torch.matmul(out.to(cd).flatten(-2), p["wo"].to(cd).reshape(h * hd, d))
+    wo = gather_dp(p["wo"]).to(cd).reshape(h * hd, d)
+    y = torch.matmul(out.to(cd).contiguous().flatten(-2), wo)
+    return shard_activation(y, "dp", None, None)
 
 
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -127,12 +132,17 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
             b, s = x.shape[:2]
             rope_pos = torch.arange(s, device=x.device).expand(b, s)
         q, k = _rope(cfg, q, k, rope_pos)
+    q = shard_activation(q, "dp", None, "model", None)
+    k = shard_activation(k, "dp", None, "model", None)
     self_causal = causal and kv_x is None
     mask_pos = None  # arange(S): the kernel's index mask, which skips tiles
     if self_causal and positions is not None:
         mask_pos = positions if positions.dim() == 2 else positions[0]
     # (B, S, H, hd) buffers viewed as (B, H, S, hd); the op takes strides.
-    out = attention_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if isinstance(q, DTensor):  # a redistributed shard is laid out (B, H, S, hd)
+        qt, kt, vt = (t.contiguous() for t in (qt, kt, vt))
+    out = attention_op(qt, kt, vt,
                        causal=self_causal,
                        window=cfg.attn_window if self_causal else 0,
                        positions=mask_pos)
@@ -169,10 +179,8 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         slot = torch.clamp(lengths, max=s_max - 1).long()
         att_len = slot + 1
-    rows = torch.arange(b, device=x.device)
-    cache_k.index_put_((rows, slot), k_new[:, 0].to(cache_k.dtype))
-    cache_v.index_put_((rows, slot), v_new[:, 0].to(cache_v.dtype))
-    out = decode_op(q[:, 0], cache_k, cache_v, att_len.to(torch.int32))
+    out = decode_op(q[:, 0], cache_k, cache_v, att_len.to(torch.int32),
+                    k_new=k_new[:, 0], v_new=v_new[:, 0], slot=slot)
     y = _out_proj(p, cfg, out.reshape(b, 1, cfg.n_heads, cfg.hd))
     return y, cache_k, cache_v
 

@@ -4,7 +4,8 @@ The fields, ``param_count()``, ``active_param_count()`` and ``reduced()``
 are the reference's, so one config describes the same model, with the
 same counts, in both packages; ``pdtype``/``cdtype`` return
 :class:`torch.dtype` instead of JAX dtypes.  The dry-run shape table
-(``ShapeSpec``/``SHAPES``) is not ported: nothing in the port lowers cells.
+(``ShapeSpec``, ``SHAPES``, ``ModelConfig.shapes()``) is the reference's
+too: :mod:`repro_torch.launch.dryrun` traces one step per cell.
 """
 from __future__ import annotations
 
@@ -13,7 +14,26 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (input-shape) cell: ``kind`` selects which step gets lowered."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+# The assigned LM shape set (identical for every arch, with per-family skips).
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +120,17 @@ class ModelConfig:
     @property
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+    @property
+    def supports_long_context(self) -> bool:
+        """long_500k needs sub-quadratic attention: SSM or windowed hybrid."""
+        return self.family in ("ssm", "hybrid")
+
+    def shapes(self) -> list[ShapeSpec]:
+        out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+        if self.supports_long_context:
+            out.append(SHAPES["long_500k"])
+        return out
 
     # ----------------------------------------------------------- param count
     def param_count(self) -> int:

@@ -27,11 +27,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.models.attention import attention, attn_params, cross_decode, decode_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, dense_init, embed_init, norm_params
 from repro_torch.models.mlp import mlp, mlp_params
-from repro_torch.models.transformer import _head, layer_slice
+from repro_torch.models.transformer import _head, embed_lookup, layer_slice
 
 __all__ = [
     "init_params_encdec",
@@ -84,7 +85,7 @@ def encode(cfg: ModelConfig, params: dict, src_embeds: torch.Tensor,
     """src_embeds (B, S_src, d) from the (stub) audio frontend → the memory
     (B, S_src, d), after ``enc_norm``; ``remat`` recomputes each layer in
     the backward."""
-    x = src_embeds.to(cfg.cdtype)
+    x = shard_activation(src_embeds.to(cfg.cdtype), "dp", None, None)
     for i in range(cfg.n_enc_layers):
         lp = layer_slice(params["enc_layers"], i)
         x = _remat(_enc_block, lp, cfg, x) if remat else _enc_block(lp, cfg, x)
@@ -92,7 +93,8 @@ def encode(cfg: ModelConfig, params: dict, src_embeds: torch.Tensor,
 
 
 def _embed_tgt(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["table"][tokens.long()].to(cfg.cdtype)
+    # the vocabulary-parallel gather is a partial sum over `model`
+    return shard_activation(embed_lookup(cfg, params["embed"]["table"], tokens), "dp", None, None)
 
 
 def _dec_block(lp: dict, cfg: ModelConfig, x: torch.Tensor, memory: torch.Tensor,

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import gather_dp
+
 __all__ = [
     "dense_init",
     "embed_init",
@@ -48,9 +50,10 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
 
 def linear(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """``x @ w`` over the last axis in ``compute_dtype`` (the matmul
-    accumulates in float32 on the card for bf16 inputs)."""
+    accumulates in float32 on the card for bf16 inputs); a sharded weight
+    is used whole over the data-parallel axes (``gather_dp``)."""
     cd = compute_dtype or x.dtype
-    return torch.matmul(x.to(cd), w.to(cd))
+    return torch.matmul(x.to(cd), gather_dp(w).to(cd))
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -152,9 +155,8 @@ def apply_mrope(q: torch.Tensor, k: torch.Tensor, positions3: torch.Tensor,
     if sum(sections) != d // 2:
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not cover d/2 = {d // 2}")
     inv = rope_freqs(d, theta, device=q.device)               # (d/2,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=q.device),
-        torch.as_tensor(sections, device=q.device))           # (d/2,) row of each frequency
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=q.device)                    # (d/2,) row of each frequency
     pos = positions3.float()[sec_id]                          # (d/2, B, S)
     ang = pos.permute(1, 2, 0) * inv                          # (B, S, d/2)
     cos = torch.cos(ang)[:, :, None, :]

@@ -1,7 +1,7 @@
 """Dense feed-forward blocks: SwiGLU (llama lineage), GELU, GeGLU.
 
-Port of :mod:`repro.models.mlp`.  The reference's sharding annotations
-(``shard_activation``) have no counterpart on one card and are dropped.
+Port of :mod:`repro.models.mlp`, with the reference's two sharding
+constraints (``shard_activation``; no-ops off a mesh).
 GELU is ``jax.nn.gelu``'s default, the tanh approximation
 (``approximate="tanh"``), applied in float32 as the reference does.
 """
@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, linear
 
@@ -47,4 +48,6 @@ def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = act(g.float()).to(cd) * h
     else:
         h = _gelu(h.float()).to(cd)
-    return linear(h, p["w_out"], compute_dtype=cd)
+    h = shard_activation(h, "dp", None, "model")
+    y = linear(h, p["w_out"], compute_dtype=cd)
+    return shard_activation(y, "dp", None, None)

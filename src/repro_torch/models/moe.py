@@ -3,9 +3,20 @@ with shared experts [arXiv:2401.06066], as deepseek-moe-16b (64 experts
 top-6, 2 shared) and kimi-k2 (384 top-8, 1 shared) use it.
 
 Port of :mod:`repro.models.moe` (``moe_params``, ``_capacity``, ``_route``,
-``_experts_local``, ``moe``) on one device: the reference's single-device
-branch, ``e_offset = 0`` over all ``E`` experts.  Its ``shard_map`` branch
-(experts sharded over a mesh, one ``psum``) is not ported.
+``_experts_local``, ``moe``), both branches.  On one device ``_experts``
+runs all ``E`` experts (``e_offset = 0``).  Under a mesh with a ``model``
+axis that divides ``E`` and data-parallel axes that divide the batch (the
+reference's condition), and with DTensor operands, it is the expert-
+parallel branch: routing runs on the batch shard of each rank, then
+``local_map`` (the counterpart of ``shard_map``) runs each rank's
+``E / model`` experts, their stacks ``Shard(0)`` on ``model`` and gathered
+over the data-parallel axes (FSDP), on that rank's tokens; routes to
+another rank's experts drop out there.  The result is a partial sum over
+``model``, and one all-reduce (the reference's ``psum``, DTensor's
+redistribute to ``Replicate``, which also carries the gradient) adds the
+ranks' shares; shared experts sharded over ``model`` add their own
+partial sum before it, so a call holds one all-reduce over ``model``.
+The sum over ranks is in another order than one device's over k.
 
 The capacity model is the reference's (GShard/Switch, scatter form):
 
@@ -39,10 +50,21 @@ Shapes: x (B, S, d); experts ``w_gate``/``w_in`` (E, d, f), ``w_out``
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.sharding import (
+    current_mesh,
+    dp_size,
+    gather_dp,
+    logical_to_spec,
+    placements_of,
+    shard_activation,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
 
@@ -142,19 +164,27 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _experts(weights: dict, cfg: ModelConfig, x: torch.Tensor,
              expert_idx: torch.Tensor, gate_vals: torch.Tensor,
-             pos: torch.Tensor, C: int) -> torch.Tensor:
-    """Dispatch → expert FFNs → combine over all E experts; returns the
-    float32 (B, S, d) sum of each token's gated expert outputs."""
+             pos: torch.Tensor, C: int, e_offset: int = 0,
+             E_loc: Optional[int] = None) -> torch.Tensor:
+    """Dispatch → expert FFNs → combine for experts ``[e_offset, e_offset +
+    E_loc)`` (all E by default; ``weights`` hold just those); returns the
+    float32 (B, S, d) sum of each token's gated outputs of those experts:
+    summed over the ranks that hold the others, the full MoE."""
     cd = cfg.cdtype
     B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.top_k
+    K = cfg.top_k
+    E = cfg.n_experts if E_loc is None else E_loc
     n_slots = E * B * C
     # Flat (expert, row, slot) index of each route, so that the buffer is
     # already (E, B·C, d), one batched product per expert; a dropped route
-    # is written to the spare row n_slots.
+    # (or one to another rank's expert) is written to the spare row n_slots.
+    e_loc = expert_idx - e_offset
     keep = pos < C
+    if E != cfg.n_experts:
+        keep = keep & (e_loc >= 0) & (e_loc < E)
+        gate_vals = torch.where(keep, gate_vals, torch.zeros_like(gate_vals))
     b_ix = torch.arange(B, device=x.device)[:, None, None]
-    slot = ((expert_idx * B + b_ix) * C + pos).reshape(-1)
+    slot = ((e_loc * B + b_ix) * C + pos).reshape(-1)
     keep = keep.reshape(-1)
     xk = x.to(cd)[:, :, None, :].expand(B, S, K, d).reshape(-1, d)
     buf = torch.zeros((n_slots + 1, d), dtype=cd, device=x.device)
@@ -171,22 +201,79 @@ def _experts(weights: dict, cfg: ModelConfig, x: torch.Tensor,
     return (picked * gate_vals[..., None]).sum(dim=2)
 
 
+def _shared(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The shared experts over every token, in the compute dtype; on a
+    mesh a partial sum over ``model`` when their stack is split there."""
+    cd = cfg.cdtype
+    sw_g, sw_i, sw_o = (gather_dp(p["shared"][k]).to(cd) for k in ("w_gate", "w_in", "w_out"))
+    n, d, f = sw_g.shape
+    xs = x.to(cd)
+    sg = torch.matmul(xs, sw_g.permute(1, 0, 2).reshape(d, n * f))
+    sh = torch.matmul(xs, sw_i.permute(1, 0, 2).reshape(d, n * f))
+    sh = F.silu(sg.float()).to(cd) * sh
+    return torch.matmul(sh, sw_o.reshape(n * f, d))
+
+
+def _use_expert_parallel(cfg: ModelConfig, x) -> bool:
+    """The reference's condition for its ``shard_map`` branch: a mesh with
+    ``model`` dividing E and data-parallel axes dividing the batch (here
+    also: the operands are DTensors)."""
+    mesh = current_mesh()
+    return (mesh is not None and isinstance(x, DTensor)
+            and "model" in mesh.mesh_dim_names
+            and cfg.n_experts % mesh.size(mesh.mesh_dim_names.index("model")) == 0
+            and x.shape[0] % dp_size(mesh) == 0)
+
+
+def _experts_parallel(p: dict, cfg: ModelConfig, x, expert_idx, gate_vals, pos, C):
+    """Each rank's ``E / model`` experts on its batch shard → float32
+    (B, S, d), a partial sum over ``model``."""
+    mesh = current_mesh()
+    names = mesh.mesh_dim_names
+    m = names.index("model")
+    E_loc = cfg.n_experts // mesh.size(m)
+    act = placements_of(mesh, logical_to_spec(mesh, ("dp", None, None)))
+    w_pl = tuple(Shard(0) if i == m else Replicate() for i in range(mesh.ndim))
+    out_pl = [Partial() if i == m else pl for i, pl in enumerate(act)]
+    e_offset = mesh.get_local_rank("model") * E_loc
+
+    def block(x_l, ei_l, gv_l, pos_l, wg, wi, wo):
+        return _experts({"w_gate": wg, "w_in": wi, "w_out": wo}, cfg, x_l, ei_l,
+                        gv_l, pos_l, C, e_offset, E_loc)
+
+    # Gradients: a rank's tokens get their share from its experts only
+    # (a partial sum over model), its experts theirs from its batch shard
+    # only (a partial sum over the data-parallel axes).
+    g_act = tuple(out_pl)
+    g_w = tuple(Shard(0) if i == m else Partial() for i in range(mesh.ndim))
+    ws = [p["experts"][k] for k in ("w_gate", "w_in", "w_out")]
+    return local_map(block, out_placements=out_pl,
+                     in_placements=(act, act, act, act, w_pl, w_pl, w_pl),
+                     in_grad_placements=(g_act, act, g_act, act, g_w, g_w, g_w),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x, expert_idx, gate_vals, pos, *ws)
+
+
 def moe(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """x (B, S, d) → (y (B, S, d) in the compute dtype, aux loss float32)."""
     cd = cfg.cdtype
     E = cfg.n_experts
     C = _capacity(cfg, x.shape[1])
-    probs, expert_idx, gate_vals, pos = _route(p["router"]["w"], cfg, x, C)
+    probs, expert_idx, gate_vals, pos = _route(gather_dp(p["router"]["w"]), cfg, x, C)
     # Switch load-balance loss on the full routing probabilities.
     frac = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
     aux = cfg.router_aux_coef * E * torch.sum(frac * probs.mean(dim=(0, 1)))
-    y = _experts(p["experts"], cfg, x, expert_idx, gate_vals, pos, C).to(cd)
-    if "shared" in p:
-        sw_g, sw_i, sw_o = (p["shared"][k].to(cd) for k in ("w_gate", "w_in", "w_out"))
-        n, d, f = sw_g.shape
-        xs = x.to(cd)
-        sg = torch.matmul(xs, sw_g.permute(1, 0, 2).reshape(d, n * f))
-        sh = torch.matmul(xs, sw_i.permute(1, 0, 2).reshape(d, n * f))
-        sh = F.silu(sg.float()).to(cd) * sh
-        y = y + torch.matmul(sh, sw_o.reshape(n * f, d))
+    if not _use_expert_parallel(cfg, x):
+        y = _experts(p["experts"], cfg, x, expert_idx, gate_vals, pos, C).to(cd)
+        if "shared" in p:
+            y = y + _shared(p, cfg, x)
+        return shard_activation(y, "dp", None, None), aux
+    y = _experts_parallel(p, cfg, x, expert_idx, gate_vals, pos, C)
+    s = _shared(p, cfg, x) if "shared" in p else None
+    if s is not None and any(pl.is_partial() for pl in s.placements):
+        y = y + s.float()  # one partial sum, so one all-reduce below
+        s = None
+    y = shard_activation(y, "dp", None, None).to(cd)  # the psum
+    if s is not None:  # constrained again for the gradient s gets
+        y = shard_activation(y + s, "dp", None, None)
     return y, aux

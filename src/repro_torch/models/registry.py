@@ -8,8 +8,8 @@ the reference: the encoder-decoder (seamless-m4t) to
 stub) to ``embeds=`` with its M-RoPE ``positions``, everything else to
 :mod:`repro_torch.models.transformer` (the serving engines call
 ``transformer.prefill`` themselves, as in the reference).  ``forward``,
-the training forward, runs all ten.  The dry-run ``input_specs`` is not
-ported.
+the training forward, runs all ten.  ``input_specs(shape)`` gives the
+inputs of a dry-run cell as meta tensors (shapes and dtypes, no data).
 """
 from __future__ import annotations
 
@@ -17,9 +17,11 @@ import dataclasses
 import importlib
 from typing import Optional
 
+import torch
+
 from repro_torch.models import encdec as _encdec
 from repro_torch.models import transformer as _tf
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeSpec
 
 __all__ = ["Arch", "get_arch", "ARCH_IDS"]
 
@@ -84,6 +86,46 @@ class Arch:
         if self.cfg.is_encoder_decoder:
             return _encdec.decode_step_encdec(self.cfg, params, token, cache, lengths)
         return _tf.decode_step(self.cfg, params, token, cache, lengths)
+
+    def input_specs(self, shape: ShapeSpec) -> dict:
+        """Meta-tensor stand-ins for every model input of this cell (the
+        reference's ``ShapeDtypeStruct``s): a train cell's batch, a prefill
+        cell's, or a decode cell's token, cache of ``seq_len`` and lengths."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+
+        def sds(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            train = shape.kind == "train"
+            if cfg.is_encoder_decoder:
+                # src frames + tgt tokens, each seq_len/2: the cell's B x S
+                s2 = S // 2
+                batch = {"src_embeds": sds((B, s2, cfg.d_model), cfg.cdtype),
+                         "tgt_tokens": sds((B, s2), i32)}
+                if train:
+                    batch["labels"] = sds((B, s2), i32)
+                return batch
+            if cfg.frontend != "none":
+                batch = {"embeds": sds((B, S, cfg.d_model), cfg.cdtype)}
+                if train:
+                    batch["labels"] = sds((B, S), i32)
+                if cfg.rope == "mrope":
+                    batch["positions"] = sds((3, B, S), i32)
+                return batch
+            batch = {"tokens": sds((B, S), i32)}
+            if train:
+                batch["labels"] = sds((B, S), i32)
+            return batch
+        # decode: one new token against a cache of S
+        cache = self.init_cache(B, S, device="meta",
+                                src_len=(S // 2 if cfg.is_encoder_decoder else None))
+        return {"token": sds((B,), i32), "cache": cache, "lengths": sds((B,), i32)}
+
+    def shapes(self):
+        return self.cfg.shapes()
 
 
 def get_arch(name: str) -> Arch:

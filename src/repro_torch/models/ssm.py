@@ -31,7 +31,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.sharding import divisible_spec, placements_of, shard_activation
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, linear
@@ -182,6 +185,31 @@ def ssd_reference(x, dt, A, B, C, initial_state=None):
 # ---------------------------------------------------------------------------
 
 
+def _ssd_sharded(x, dt, A, B, C, chunk: int, initial_state=None):
+    """:func:`ssd_chunked` on DTensors: each rank runs it on its batch rows
+    and SSM heads (the scan independent across both, B and C shared by the
+    heads), so the ``ssd_scan`` launch and its adjoint see local shards."""
+    mesh = x.device_mesh
+    # x (b, l, h, p) and dt (b, l, h): batch over dp, heads over model
+    px = placements_of(mesh, divisible_spec(mesh, ("dp", None, "model", None), x.shape))
+    pdt = px
+    heads = [isinstance(p, Shard) and p.dim == 2 for p in px]
+    pa = tuple(Shard(0) if h else Replicate() for h in heads)                  # A (h,)
+    pbc = tuple(Replicate() if h else p for h, p in zip(heads, px))            # (b, l, n)
+    pst = tuple(Shard(1) if h else p for h, p in zip(heads, px))               # (b, h, p, n)
+    # gradients: A's a partial sum over the batch shards, B's and C's over the heads'
+    ga = tuple(Partial() if p == Shard(0) else q for p, q in zip(px, pa))
+    gbc = tuple(Partial() if h else p for h, p in zip(heads, pbc))
+    fn = local_map(lambda *a: ssd_chunked(*a[:5], chunk, initial_state=a[5]),
+                   out_placements=(list(px), list(pst)),
+                   in_placements=(px, pdt, pa, pbc, pbc,
+                                  pst if initial_state is not None else None),
+                   in_grad_placements=(px, pdt, ga, gbc, gbc,
+                                       pst if initial_state is not None else None),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, dt, A, B, C, initial_state)
+
+
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     H, P, N, d_inner, _ = _dims(cfg)
     return torch.split(proj, [d_inner, d_inner, N, N, H], dim=-1)
@@ -203,8 +231,9 @@ def _gate_norm_out(p: dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor):
     cd = cfg.cdtype
     y = y * F.silu(z.float()).to(cd)
     yf = y.float()
-    y = (yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + 1e-6)
-         * p["norm_w"].float()).to(cd)
+    # on a mesh d_inner is split over `model`: the mean is summed there
+    ms = shard_activation(torch.mean(yf * yf, -1, keepdim=True), "dp", None, None)
+    y = (yf * torch.rsqrt(ms + 1e-6) * p["norm_w"].float()).to(cd)
     return linear(y, p["out_proj"], compute_dtype=cd)
 
 
@@ -230,16 +259,17 @@ def ssm_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     Cm = conv_out[..., d_inner + N:]
     dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])
-    xh = xin.reshape(Bsz, S, H, P)
+    xh = shard_activation(xin.reshape(Bsz, S, H, P), "dp", None, "model", None)
     if return_state:
         K = cfg.ssm_conv
         tail = conv_in[:, -(K - 1):].to(cd)
         if tail.shape[1] < K - 1:
             tail = F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
-    y, final_state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
-                                 initial_state=initial_state)
+    chunked = ssd_chunked if not isinstance(xh, DTensor) else _ssd_sharded
+    y, final_state = chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, initial_state=initial_state)
     y = y + p["D"][None, None, :, None] * xh
     out = _gate_norm_out(p, cfg, y.reshape(Bsz, S, d_inner).to(cd), z)
+    out = shard_activation(out, "dp", None, None)
     if return_state:
         return out, {"ssm": final_state, "conv": tail}
     return out

@@ -47,10 +47,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.query import async_query, table_gather_spec
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import gather_dp, shard_activation
 from repro_torch.models.attention import (
     attention,
     attn_params,
@@ -130,14 +134,53 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     return params
 
 
-def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    table = params["embed"]["table"]
+def _lookup(cfg: ModelConfig, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if cfg.query_embedding:
         # the paper's "query": a per-step table lookup, batchable by fission
-        emb = async_query(table_gather_spec, table, tokens)
-    else:
-        emb = table[tokens.long()]
+        return async_query(table_gather_spec, table, ids)
+    return table[ids.long()]
+
+
+def embed_lookup(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens`` in the compute dtype.  A DTensor
+    table, vocabulary-sharded over ``model``, is read by a masked local
+    gather: each rank looks up the ids in its own row range (the others
+    read row 0 and are zeroed), so the rows are a partial sum over
+    ``model`` that the first activation constraint all-reduces; the
+    table's data-parallel shards are gathered first (FSDP).  The lookup on
+    each rank is the same ``batched_gather`` launch as on one card."""
+    if not isinstance(table, DTensor):
+        return _lookup(cfg, table, tokens).to(cfg.cdtype)
+    mesh = table.device_mesh
+    table = gather_dp(table)
+    names = mesh.mesh_dim_names
+    m = names.index("model") if "model" in names else None
+    split = m is not None and table.placements[m] == Shard(0)
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    out_pl = [Partial() if (split and i == m) else p for i, p in enumerate(tokens.placements)]
+
+    def local(tab, ids):
+        if not split:
+            return _lookup(cfg, tab, ids)
+        v_loc = tab.shape[0]
+        rel = ids.long() - mesh.get_local_rank("model") * v_loc
+        inside = (rel >= 0) & (rel < v_loc)
+        rows = _lookup(cfg, tab, torch.where(inside, rel, torch.zeros_like(rel)))
+        return rows * inside[..., None].to(rows.dtype)
+
+    # The table's gradient: each data-parallel rank's share of it (Partial).
+    grad_pl = tuple(Partial() if isinstance(p, Replicate) and i != m else p
+                    for i, p in enumerate(table.placements))
+    emb = local_map(local, out_placements=out_pl,
+                    in_placements=(table.placements, tokens.placements),
+                    in_grad_placements=(grad_pl, tokens.placements),
+                    device_mesh=mesh)(table, tokens)
     return emb.to(cfg.cdtype)
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return embed_lookup(cfg, params["embed"]["table"], tokens)
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -172,15 +215,31 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     first, which is exact.  A tied config's head is the embedding table,
     transposed (a view)."""
     cd = cfg.cdtype
-    w = (params["embed"]["table"].T if cfg.tie_embeddings
-         else params["lm_head"]["w"])
+    w = (gather_dp(params["embed"]["table"]).T if cfg.tie_embeddings
+         else gather_dp(params["lm_head"]["w"]))
     xs, w = x.to(cd), w.to(cd)
     if cd == torch.float32:
-        return torch.matmul(xs, w)
-    if xs.is_cuda:
-        out = _MatmulF32.apply(xs.reshape(-1, xs.shape[-1]), w)
-        return out.reshape(*xs.shape[:-1], w.shape[-1])
-    return torch.matmul(xs.float(), w.float())
+        logits = torch.matmul(xs, w)
+    elif xs.is_cuda:
+        x2 = xs.reshape(-1, xs.shape[-1])
+        mm = _MatmulF32.apply
+        if isinstance(w, DTensor):  # local products: rows over dp, vocab over model
+            x2 = shard_activation(x2, "dp", None)
+            out_pl = list(Shard(1) if isinstance(p, Shard) else q
+                           for p, q in zip(w.placements, x2.placements))
+            # gradients: x's a partial sum over the vocabulary's shards,
+            # w's over the batch's
+            gx = tuple(Partial() if isinstance(p, Shard) else q
+                       for p, q in zip(w.placements, x2.placements))
+            gw = tuple(Partial() if isinstance(q, Shard) else p
+                       for p, q in zip(w.placements, x2.placements))
+            mm = local_map(mm, out_placements=out_pl,
+                           in_placements=(x2.placements, w.placements),
+                           in_grad_placements=(gx, gw), device_mesh=w.device_mesh)
+        logits = mm(x2, w).reshape(*xs.shape[:-1], w.shape[-1])
+    else:
+        logits = torch.matmul(xs.float(), w.float())
+    return shard_activation(logits, "dp", None, "model")
 
 
 def _stack_names(cfg: ModelConfig):
@@ -264,7 +323,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: Optional[torch.Tensor] = Non
     """Training forward: tokens (B, S) integer, or ``embeds`` (B, S, d) →
     (logits (B, S, V) float32, aux loss).  ``positions`` (B, S), or (3, B,
     S) for M-RoPE, default to ``arange(S)`` for every row."""
-    x = _inputs(cfg, params, tokens, embeds)
+    x = shard_activation(_inputs(cfg, params, tokens, embeds), "dp", None, None)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for stacked, kind, n in _layer_stacks(cfg, params):
         x, aux = _run_stack(cfg, stacked, kind, n, x, positions)
@@ -321,40 +380,55 @@ def prefill(cfg: ModelConfig, params: dict, tokens: Optional[torch.Tensor] = Non
     (``repro.models.ssm.ssm_forward``).  Runs on the device ``tokens`` or
     ``embeds`` and ``params`` live on.
     """
-    x = _inputs(cfg, params, tokens, embeds)
+    x = shard_activation(_inputs(cfg, params, tokens, embeds), "dp", None, None)
     B, S = x.shape[:2]
     W = cfg.attn_window
     rows = W if W > 0 else max(S, max_len or 0)
     caches = {}
+    sharded = isinstance(x, DTensor)
     for (name, kind, n), (stacked, _k2, _n2) in zip(
             _stack_names(cfg), _layer_stacks(cfg, params)):
         if kind == "ssm":
             x, caches[name] = _prefill_ssm_stack(cfg, stacked, n, x)
             continue
         shape = (n, B, rows, cfg.n_kv_heads, cfg.hd)
-        c = {"k": torch.zeros(shape, dtype=cfg.cdtype, device=x.device),
-             "v": torch.zeros(shape, dtype=cfg.cdtype, device=x.device)}
+        # On a mesh each layer's rows are kept and stacked after the loop
+        # (DTensor writes no slice of a sharded buffer in place).
+        c = ({"k": [], "v": []} if sharded else
+             {"k": torch.zeros(shape, dtype=cfg.cdtype, device=x.device),
+              "v": torch.zeros(shape, dtype=cfg.cdtype, device=x.device)})
         if kind == "hybrid":
-            c.update(init_ssm_state(cfg, B, n_layers=n, device=x.device))
+            c.update({"ssm": [], "conv": []} if sharded else
+                     init_ssm_state(cfg, B, n_layers=n, device=x.device))
         for i in range(n):
             lp = layer_slice(stacked, i)
             h = apply_norm(cfg.norm, lp["ln1"], x)
             a, (k, v) = attention(lp["attn"], cfg, h, positions, causal=True,
                                   return_kv=True)
             for key, t in (("k", k), ("v", v)):
+                t = t.to(cfg.cdtype)
                 if W > 0 and S >= W:  # token p at slot p % W
-                    c[key][i] = torch.roll(t[:, S - W:], S % W, dims=1)
+                    t = torch.roll(t[:, S - W:], S % W, dims=1)
+                if sharded:
+                    if rows > t.shape[1]:
+                        t = F.pad(t, (0, 0, 0, 0, 0, rows - t.shape[1]))
+                    c[key].append(t)
+                elif W > 0 and S >= W:
+                    c[key][i] = t
                 else:
                     c[key][i, :, :S] = t
             if kind == "hybrid":
                 s_out, state = ssm_forward(lp["ssm"], cfg, h, return_state=True)
-                c["ssm"][i] = state["ssm"]
-                c["conv"][i] = state["conv"]
+                for key in ("ssm", "conv"):
+                    if sharded:
+                        c[key].append(state[key])
+                    else:
+                        c[key][i] = state[key]
                 x = x + _branch_mean(lp, a, s_out)
             else:
                 x = x + a
             x = x + _ffn(lp, cfg, kind, apply_norm(cfg.norm, lp["ln2"], x))[0]
-        caches[name] = c
+        caches[name] = {k: torch.stack(v) for k, v in c.items()} if sharded else c
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if return_all_logits:
         return _head(cfg, params, x), caches
@@ -370,14 +444,21 @@ def _branch_mean(p: dict, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def _prefill_ssm_stack(cfg: ModelConfig, stacked: dict, n: int, x: torch.Tensor):
     """Run ``n`` SSM blocks over x (B, S, d) → (x, {"ssm", "conv"})."""
-    cache = init_ssm_state(cfg, x.shape[0], n_layers=n, device=x.device)
+    sharded = isinstance(x, DTensor)  # stacked after the loop, as in prefill
+    cache = ({"ssm": [], "conv": []} if sharded else
+             init_ssm_state(cfg, x.shape[0], n_layers=n, device=x.device))
     for i in range(n):
         lp = layer_slice(stacked, i)
         y, state = ssm_forward(lp["ssm"], cfg, apply_norm(cfg.norm, lp["ln1"], x),
                                return_state=True)
-        cache["ssm"][i] = state["ssm"]
-        cache["conv"][i] = state["conv"]
+        for key in ("ssm", "conv"):
+            if sharded:
+                cache[key].append(state[key])
+            else:
+                cache[key][i] = state[key]
         x = x + y
+    if sharded:
+        cache = {k: torch.stack(v) for k, v in cache.items()}
     return x, cache
 
 

@@ -114,7 +114,8 @@ def adamw_init(cfg: AdamWConfig, params: dict) -> dict:
     """``{"step": int32 0, "mu": params' tree of {"m", "v"}}`` on the
     parameters' devices."""
     def one(p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like: a DTensor parameter's moments take its placements
+        z = torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
         if cfg.moments_dtype == "int8":
             return {"m": _quantize(z), "v": _quantize(z, signed=False)}
         return {"m": z, "v": torch.zeros_like(z)}

@@ -17,17 +17,30 @@ backward of a microbatch as one graph.
 
 Gradient compression: optional int8 quantization with error feedback
 before the optimizer (EF-SGD lineage, 1-bit Adam [arXiv:2102.02888]); the
-residual is carried in the step state.  Distribution (``mesh=``) is not
-ported yet.
+residual is carried in the step state.
+
+With ``mesh=`` (a :class:`DeviceMesh` with the reference's axes) the step
+is the reference's sharded one: it takes parameters placed by
+:func:`~repro_torch.distributed.sharding.param_shardings` (DTensors), its
+moments follow their parameter's placements, and the batch (numpy or
+plain tensors, the same on every rank) is split over the data-parallel
+axes where they divide it; every rank runs the same Python, DTensor adds
+the collectives (FSDP gathers and reduce-scatters over ``data``, tensor-
+and expert-parallel all-reduces over ``model``), and the metrics come
+back as plain tensors.  The microbatch loop is not fissioned on a mesh
+(``make_fx`` does not trace DTensors): ``microbatches > 1`` with
+``fission=True`` raises ``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.fission import scan_with_queries
+from repro_torch.distributed.sharding import batch_placements, full, mesh_context
 from repro_torch.models.registry import Arch
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
@@ -38,8 +51,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token CE in float32.  logits (B, S, V), labels (B, S) integer."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    gold = torch.gather(logits, -1, labels.long()[..., None])
+    # (B, S, 1) kept: a vocabulary-sharded DTensor's gathered logit is a
+    # masked partial sum, which DTensor reduces here and not after a slice.
+    return torch.mean(logz[..., None] - gold)
 
 
 def make_loss_fn(arch: Arch):
@@ -92,16 +107,16 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
     moments are written into the tensors passed in (returned as well);
     without it nothing passed in is written.
     """
-    if mesh is not None:
-        raise NotImplementedError("the sharded train step (mesh=) is not ported yet")
+    if mesh is not None and ts_cfg.microbatches > 1 and ts_cfg.fission:
+        raise ValueError("the sharded train step does not fission its microbatch loop "
+                         "(make_fx does not trace DTensors): pass fission=False")
     loss_fn = make_loss_fn(arch)
     n = ts_cfg.microbatches
 
     def init_state(params):
         state = {"opt": adamw_init(opt_cfg, params)}
         if ts_cfg.grad_compression == "int8_ef":
-            state["ef"] = pytree.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+            state["ef"] = pytree.tree_map(_zeros_f32, params)
         return state
 
     def compute_grads(params, batch):
@@ -109,15 +124,8 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
             (loss, metrics), grads = _value_and_grad(loss_fn, params, batch)
             return loss, metrics, grads
 
-        def split(x):
-            b = x.shape[0]
-            if x.dim() >= 1 and b % n == 0:
-                return x.reshape((n, b // n) + tuple(x.shape[1:]))
-            return x.expand((n,) + tuple(x.shape))
-
-        mbatch = {k: split(v) for k, v in batch.items()}
-        zero_g = pytree.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+        mbatch = {k: _split(v, n) for k, v in batch.items()}
+        zero_g = pytree.tree_map(_zeros_f32, params)
 
         def body(carry, mb):
             acc, loss_acc = carry
@@ -131,10 +139,19 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
         metrics = {k: m[-1] for k, m in metricss.items()}
         return loss, metrics, grads
 
-    def train_step(params, state, batch):
+    def step(params, state, batch):
         device = _device_of(params)
-        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        if mesh is None:
+            batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        else:  # placed already, or the same full batch on every rank
+            batch = {k: v if isinstance(v, DTensor) else distribute_tensor(
+                torch.as_tensor(v, device=device), mesh, batch_placements(
+                    mesh, v.shape, 1 if k == "positions" and v.ndim == 3 else 0),
+                src_data_rank=None) for k, v in batch.items()}
         loss, metrics, grads = compute_grads(params, batch)
+        if mesh is not None:  # each gradient laid out as its parameter
+            grads = pytree.tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements),
+                                    grads, params)
         new_ef = None
         if ts_cfg.grad_compression == "int8_ef":
             flat_g, tdef = pytree.tree_flatten(grads)
@@ -150,7 +167,39 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return new_params, new_state, metrics
 
+    if mesh is None:
+        return init_state, step
+
+    def train_step(params, state, batch):
+        with mesh_context(mesh):
+            new_params, new_state, metrics = step(params, state, batch)
+        return new_params, new_state, {k: full(v) for k, v in metrics.items()}
+
     return init_state, train_step
+
+
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """float32 zeros shaped (and, for a DTensor, placed) like ``p``."""
+    return torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
+
+
+def _split(x: torch.Tensor, n: int) -> torch.Tensor:
+    """A batch leaf as ``n`` microbatches on a new leading axis (a leaf
+    whose batch ``n`` does not divide is repeated, as in the reference).  A
+    DTensor splits its own rows: microbatch i of a rank is the i-th slice
+    of that rank's batch shard (each row still in one microbatch)."""
+    b = x.shape[0]
+    if not (x.dim() >= 1 and b % n == 0):
+        return x.expand((n,) + tuple(x.shape))
+    if not isinstance(x, DTensor):
+        return x.reshape((n, b // n) + tuple(x.shape[1:]))
+    loc = x.to_local()
+    if loc.shape[0] % n:
+        raise ValueError(f"a batch shard of {loc.shape[0]} rows does not split into {n} "
+                         "microbatches")
+    loc = loc.reshape((n, loc.shape[0] // n) + tuple(loc.shape[1:]))
+    placements = [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in x.placements]
+    return DTensor.from_local(loc, x.device_mesh, placements, run_check=False)
 
 
 def _device_of(tree) -> torch.device:

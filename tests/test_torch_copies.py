@@ -26,6 +26,8 @@ NOTES = {
         "  (In this package the callable is PyTorch: ``batch_fn`` defaults to\n"
         "  ``torch.func.vmap(single_fn)`` and nothing is compiled.)\n",
         '    "torch_block",\n'],
+    "launch/roofline.py": [
+        'RESULTS = RESULTS.with_name("dryrun_torch.json")  # the port\'s dry run writes its own\n'],
 }
 
 VERBATIM = [
@@ -41,6 +43,8 @@ VERBATIM = [
     "configs/kimi_k2_1t_a32b.py", "configs/olmo_1b.py", "configs/qwen1_5_4b.py",
     "configs/chatglm3_6b.py", "configs/hymba_1_5b.py", "configs/qwen2_vl_2b.py",
     "configs/seamless_m4t_medium.py",
+    # the dry run's report
+    "launch/roofline.py",
 ]
 
 

@@ -345,9 +345,12 @@ def test_donate_writes_in_place_and_only_then(reduced):
 
 
 def test_mesh_is_not_ported():
+    """On a mesh only the fissioned microbatch loop is not ported: it
+    raises instead of running unfissioned."""
     _ja, ta = _archs()
-    with pytest.raises(NotImplementedError):
-        make_train_step(ta, topt.AdamWConfig(), mesh=object())
+    with pytest.raises(ValueError, match="fission"):
+        make_train_step(ta, topt.AdamWConfig(), TrainStepConfig(microbatches=4, fission=True),
+                        mesh=object())
 
 
 def _leaves(tree):
