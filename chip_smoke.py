@@ -196,13 +196,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 11. sharded — the distribution layer on four ranks that share the card
     (``torch.multiprocessing`` processes on ``cuda:0``, gloo, mesh (data,
     model) = (2, 2); each rank first runs once every collective the phase
-    uses; DTensor's all-gathers go through c10d's, since gloo's functional
-    all-gather of CUDA tensors never completes):
+    uses; the functional all-gather's CUDA kernel is c10d's, since gloo's
+    functional all-gather of CUDA tensors never completes):
     a. sharded-train — llama3-8b at full width cut to 4 layers, parameters
        placed by ``param_shardings``, ``make_train_step(..., mesh=)`` on
-       phase 8's 8 x 512 batch in one microbatch (the fissioned loop does
-       not run on a mesh, and unfissioned microbatches multiply the FSDP
-       gathers), 2 steps, held to the same steps unsharded on the card
+       phase 8's 8 x 512 batch in one microbatch (microbatches multiply
+       the FSDP gathers, fissioned or not), 2 steps, held to the same
+       steps unsharded on the card
        (same seed and batches): both losses within 1e-3 relative, layer 0
        of ``wq`` after them within 0.25 of the distance the unsharded
        steps moved it; ``wq``'s local shard (4, 2048, 16, 128), per
@@ -217,19 +217,44 @@ Phases, each ending in ``torch.cuda.synchronize()``:
        around each ``moe`` call, the MoE stacks' local ``w_gate``/``w_in``
        (3, 32, 1024, 1408); then one train step; ``flash_attention`` = 4
        for each;
-    c. dryrun — ``launch.dryrun.run_cell`` of a's configuration and mesh on
-       a fake process group and fake card tensors, on the host: its
-       per-device flops within 1 % of a's counted step and its collectives
-       of each kind as many; then ``llama3-8b|train_4k|single`` on the
-       production mesh, timed, its row printed;
+    c. dryrun — ``launch.dryrun.run_cell`` of a's and e's configurations
+       and mesh on a fake process group and fake card tensors, on the
+       host: per-device flops within 1 % of the counted step and its
+       collectives of each kind and mesh axis as many; then
+       ``llama3-8b|train_4k|single`` on the production mesh, timed, its
+       row printed;
     d. sharded-reduced — reduced llama3-8b (``query_embedding``) and
        deepseek-moe-16b in float32, 2 steps on the ranks against the
-       unsharded CPU step: losses and parameters within 1e-4.
+       unsharded CPU step: losses and parameters within 1e-4; the same
+       llama3-8b at 4 microbatches, fissioned; reduced llama3-8b's decode
+       (4 lanes, 16 rows, 6 steps) in both cache layouts of e's decode:
+       logits and caches within 1e-4 of the CPU decode;
+    e. sharded-fission — a's cut and batch in 2 microbatches, the loop
+       fissioned (Rule A on each rank's traced program), 2 steps, held to
+       an unsharded fissioned twin at 2 microbatches on the card as a is;
+       per rank and step ``batched_gather`` = 1 and ``flash_attention`` =
+       8; its counted step equal to c's dry run in flops and collectives;
+    f. sharded-decode — a's cut decoding on the mesh: an unsharded twin on
+       the card prefills 8 random 256-token prompts into caches of 512
+       rows and takes 16 greedy steps; each rank places the twin's caches
+       as the dry run places a decode cell's, in the default layout
+       (lanes over ``data``, replicated over ``model``) and under
+       ``kv_seq_shard`` (rows over ``model``: the split-KV decode), and
+       takes 16 steps on the twin's tokens: every step's logits within
+       0.05 x max |logit| of the twin's, the new cache rows of layer 0
+       within 1e-2 of their largest entry and of every layer within 0.05,
+       ``decode_attention`` = 4 a step and ``batched_gather`` = 1, and
+       the ``kv_seq_shard`` step 3 all-reduces over ``model`` a layer
+       more than the default layout's and no more all-gathers over
+       ``model`` (no cache gathered); step walls printed, never
+       compared.
 
 Phase 3 also times the flash kernel at a rank's shard in phase 11a (B 1,
-16 / 4 heads, S 512; the JSON line's sub-row 2g) and the host time of one
-call of ``decode_op``, the custom op the model now calls, beside the
-launch it wraps.
+16 / 4 heads, S 512; the JSON line's sub-row 2g), the decode kernel with
+its log-sum-exp at a rank's shard of 11f's ``kv_seq_shard`` cache (B 8,
+32 / 8 heads, 256 of 512 rows; sub-row 3i) and the host time of one call
+of ``decode_op``, the custom op the model calls, beside the launch it
+wraps.
 
 Any failure exits non-zero.  The last lines are the card's name and power
 limit, the kernels' JSON line, and ``{"ok": true, "device": {...}}``.
@@ -636,7 +661,52 @@ def phase_kernels(timer):
     for name, sub in _new_layouts(timer, gen, rng).items():
         rows[name]["sub_rows"] = sub
     rows["flash_attention"]["sub_rows"].append(_sharded_flash_row(timer, gen))
+    rows["decode_attention"]["sub_rows"].append(_split_kv_row(timer, gen, rng))
     return rows
+
+
+def _split_kv_row(timer, gen, rng):
+    """Sub-row 3i: the decode kernel with its log-sum-exp (``return_lse``)
+    at a rank's shard of a ``kv_seq_shard`` cache, phase 11f's layout at
+    full width: bf16, B 8, Hq 32, Hkv 8, D 128, the rank's 256 of 512 rows,
+    local lengths ragged in [0, 256] (0: the lane's rows lie on the other
+    rank).  ``out`` against the plain version at bf16's 1e-2, ``lse`` at
+    float32's 1e-4 (both sum float32 exponentials of the same scores) and
+    ``-inf`` on the length-0 lane; the output the same bits as the launch
+    without ``lse``; a repeated call bit for bit; timed beside the plain
+    version, the bound (q, out, lse and the valid K/V rows) and SDPA (which
+    gives no log-sum-exp)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+
+    b, hq, hkv, t, d = 8, 32, 8, 256, 128
+    dq, dk, dv, dlen = _decode_case(gen, rng, b, hq, hkv, t, d, torch.bfloat16)
+    kern = lambda: decode_attention_cuda(dq, dk, dv, dlen, return_lse=True)  # noqa: E731
+    out, lse = kern()
+    want_out, want_lse = decode_ref(dq, dk, dv, dlen, return_lse=True)
+    label = f"decode_attention bf16 + lse (3i, a rank's 256 of 512 rows) B={b} Hq={hq} " \
+            f"Hkv={hkv} D={d} lengths={dlen.tolist()}"
+    err = _compare(f"{label}: out", out, want_out, 1e-2, 1e-2)
+    live = dlen > 0
+    _compare(f"{label}: lse", lse[live], want_lse[live], 1e-4, 1e-4)
+    if not bool(torch.isneginf(lse[~live]).all()):
+        fail("decode_attention: the length-0 lane's log-sum-exp is not -inf")
+    if not torch.equal(out, decode_attention_cuda(dq, dk, dv, dlen)):
+        fail("decode_attention: return_lse changes the output")
+    _repeat("decode_attention + lse (3i)", lambda: torch.cat(
+        [x.float().flatten() for x in kern()]), torch.cat([out.float().flatten(), lse.flatten()]))
+    kv_tokens = int(dlen.sum())
+    bound = _bound(dq.numel() * 2 * 2 + b * hq * 4 + 2 * kv_tokens * hkv * d * 2 + b * 4,
+                   4 * hq * d * kv_tokens)
+    valid = torch.arange(t, device="cuda")[None, :] < dlen[:, None].long()
+    return _sub_row(
+        "3i decode + lse, a rank's 256 of 512 rows B 8 32/8 D 128", err,
+        timer.ms(kern), timer.ms(lambda: decode_ref(dq, dk, dv, dlen, return_lse=True)), bound,
+        timer.ms(lambda: F.scaled_dot_product_attention(
+            dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
+            attn_mask=valid[:, None, None, :], enable_gqa=True)))
 
 
 def _sharded_flash_row(timer, gen):
@@ -3566,10 +3636,14 @@ def phase_fission(v: int = 10_000, d: int = 256, n: int = 2048, device: str = "c
 
 # ---------------------------------------------------------------- phase 11
 SHARD_MESH = (2, 2)  # (data, model): four ranks sharing the one card, over gloo
-# 11a: phase 8's batch in one microbatch (the mesh step's loop is not
-# fissioned, and 4 unfissioned microbatches move 13.2 GB a step through
-# gloo: 4 x the FSDP gathers)
+# 11a: phase 8's batch in one microbatch (4 microbatches move 13.2 GB a
+# step through gloo: 4 x the FSDP gathers, which the fissioned loop's
+# consumer recomputes each microbatch too); 11e: the same batch in 2
+# microbatches, the loop fissioned
 SHARD_TRAIN = dict(steps=2, batch=8, seq=512)
+SHARD_FISSION_MB = 2
+# 11f: decode on the mesh, 8 lanes of 256-token prompts, caches of 512 rows
+SHARD_DECODE = dict(lanes=8, prompt=256, max_len=512, steps=16)
 MOE_EP_LAYERS = 4  # 11b: deepseek-moe-16b's dense block and 3 MoE blocks
 MOE_EP_BATCH = (8, 256)
 
@@ -3599,50 +3673,47 @@ def _moe_ep_arch(reduced: bool = False):
     return _cut("deepseek-moe-16b", n_layers=MOE_EP_LAYERS, remat=False)
 
 
-def _process_group(group):
+def _c10d_all_gather(x, group_size: int, group_name: str):
+    """``_c10d_functional::all_gather_into_tensor`` through c10d's
+    synchronous ``all_gather_into_tensor``: the ranks' shards concatenated
+    along dim 0, in rank order, ready when it returns (the op's
+    ``wait_tensor`` finds no work to wait for)."""
     import torch.distributed as dist
-    if isinstance(group, tuple):  # DTensor's (mesh, mesh_dim)
-        mesh, dim = group
-        return mesh.get_group(dim)
-    if isinstance(group, str):
-        return dist.distributed_c10d._resolve_process_group(group)
-    return group
+    pg = dist.distributed_c10d._resolve_process_group(group_name)
+    out = x.new_empty((group_size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=pg)
+    return out
 
 
-def _c10d_all_gather(self, gather_dim: int, group, tag: str = ""):
-    """``funcol.all_gather_single`` through c10d's synchronous
-    ``all_gather_into_tensor``: the shards concatenated along
-    ``gather_dim``, in rank order."""
-    import torch.distributed as dist
-    pg = _process_group(group)
-    x = self.movedim(gather_dim, 0).contiguous()
-    out = x.new_empty((dist.get_world_size(pg) * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=pg)
-    return out.movedim(0, gather_dim).contiguous()
+_C10D_GATHER = []  # the library that holds the override, kept alive
 
 
-def use_c10d_all_gather() -> None:
-    """Route the functional all-gather (what DTensor calls) in this rank's
-    process through c10d's: gloo's functional all-gather of CUDA tensors
-    never completes when ranks share one card (PyTorch 2.11), c10d's does.
-    NCCL ranks, one a card, need no such patch."""
-    import torch.distributed._functional_collectives as funcol
-
-    for name in ("all_gather_single", "all_gather_tensor"):
-        if hasattr(funcol, name):
-            setattr(funcol, name, _c10d_all_gather)
+def use_c10d_all_gather(device: str) -> None:
+    """Run the functional all-gather on ``device`` in this rank's process
+    through c10d's: gloo's functional all-gather of CUDA tensors never
+    completes when ranks share one card (PyTorch 2.11), c10d's does.  The
+    op's kernel is replaced, not its name, so DTensor calls it as before,
+    a traced graph (the fissioned train step's) records and replays it as
+    the pure functional collective it is, and ``OpCost`` counts it as an
+    all-gather.  NCCL ranks, one a card, need no such patch."""
+    import torch
+    if not _C10D_GATHER:
+        lib = torch.library.Library("_c10d_functional", "IMPL")
+        lib.impl("all_gather_into_tensor", _c10d_all_gather,
+                 "CUDA" if device == "cuda" else "CPU")
+        _C10D_GATHER.append(lib)
 
 
 def _rank_start(device: str):
-    """A rank's set-up: the card, TF32 off, DTensor's all-gathers through
-    c10d's (``use_c10d_all_gather``), the (data, model) mesh."""
+    """A rank's set-up: the card, TF32 off, the functional all-gather
+    through c10d's (``use_c10d_all_gather``), the (data, model) mesh."""
     import torch
     from repro_torch.launch.mesh import make_test_mesh
     if device == "cuda":
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    use_c10d_all_gather()
+    use_c10d_all_gather(device)
     return make_test_mesh(*SHARD_MESH, device_type=device)
 
 
@@ -3681,10 +3752,11 @@ def _collective_probe(mesh, device: str) -> dict:
     return out
 
 
-def _rank_11a(mesh, device: str, reduced: bool) -> dict:
+def _rank_11a(mesh, device: str, reduced: bool, mb: int = 1) -> dict:
     """11a on one rank: llama3-8b at full width cut to 4 layers, its
     parameters placed by ``param_shardings``, ``SHARD_TRAIN["steps"]``
-    sharded steps; the last under ``OpCost``."""
+    sharded steps; the last under ``OpCost``.  With ``mb`` > 1 (11e) the
+    batch is split into ``mb`` microbatches and the loop fissioned."""
     import torch
     from repro_torch.data.pipeline import SyntheticLMStream
     from repro_torch.distributed.sharding import distribute_params
@@ -3698,7 +3770,7 @@ def _rank_11a(mesh, device: str, reduced: bool) -> dict:
     params = distribute_params(mesh, arch.init(seed=0, device=device))
     _free(device)
     init, step = make_train_step(arch, AdamWConfig(lr=1e-3),
-                                 TrainStepConfig(), mesh=mesh)
+                                 TrainStepConfig(microbatches=mb), mesh=mesh)
     state = init(params)
     stream = SyntheticLMStream(arch.cfg.vocab_size, seq_len=t["seq"], batch=t["batch"], seed=0)
     out = dict(wq_local=tuple(params["layers"]["attn"]["wq"].to_local().shape),
@@ -3717,11 +3789,10 @@ def _rank_11a(mesh, device: str, reduced: bool) -> dict:
         out["walls"].append(time.perf_counter() - t0)
         out["launches"].append(registry.launch_counts())
         out["peaks"].append(_peak(device))
-    out["wq0"] = params["layers"]["attn"]["wq"].full_tensor()[0].float().cpu()
+    out["wq0"] = params["layers"]["attn"]["wq"].full_tensor()[0].float().cpu().numpy()
     out["flops"] = oc.flops
     out["collectives"] = oc.collectives_row()
-    out["by_axis"] = {f"{k} over {'+'.join(map(str, a))}": n
-                      for (k, a), n in sorted(oc.by_axis.items(), key=str)}
+    out["by_axis"] = oc.by_axis_row()
     del params, state
     _free(device)
     return out
@@ -3790,43 +3861,156 @@ def _rank_11b(mesh, device: str, reduced: bool, tokens, routes) -> dict:
 
 def _rank_11d(mesh, device: str, cases) -> dict:
     """11d on one rank: each reduced float32 case's parameters (numpy, the
-    CPU run's) placed on the mesh and trained 2 steps."""
+    CPU run's) placed on the mesh and trained 2 steps (the ``/fission``
+    cases at 4 microbatches, the loop fissioned); the ``/decode`` cases'
+    decode steps in both cache layouts (``_reduced_decode``)."""
     from repro_torch.distributed.sharding import distribute_params
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.step import TrainStepConfig, make_train_step
 
     out = {}
-    for name, (overrides, tree, batches) in cases.items():
-        arch = _reduced_cut(name, **overrides)
+    for key, (overrides, ts_kw, tree, data) in cases.items():
+        arch = _reduced_cut(key.split("/")[0], **overrides)
         params = distribute_params(mesh, params_from_numpy(tree, arch.cfg, device=device))
-        init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig(), mesh=mesh)
+        if key.endswith("/decode"):
+            out[key] = _reduced_decode(arch, params, data, mesh, device)
+            continue
+        init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig(**ts_kw),
+                                     mesh=mesh)
         state, losses = init(params), []
-        for b in batches:
+        for b in data:
             params, state, m = step(params, state, b)
             losses.append(float(m["loss"]))
         full = {k: v.full_tensor().float().cpu().numpy() for k, v in _flat(params).items()}
-        out[name] = (losses, full)
+        out[key] = (losses, full)
     _sync(device)
     return out
 
 
-def _rank_phase11(rank, world, device, reduced, tokens, routes, reduced_cases) -> dict:
+def _reduced_decode(arch, params, data, mesh=None, device: str = "cpu"):
+    """``REDUCED_DECODE["steps"]`` decode steps of ``arch`` from ``data``'s
+    cache (numpy), lengths and tokens: on one device without ``mesh``, else
+    in both cache layouts of a decode cell.  → (logits, caches), numpy, per
+    layout (one entry, "single", without a mesh)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from torch.utils import _pytree as pytree
+    from repro_torch.distributed.sharding import full, mesh_context
+    from repro_torch.launch.dryrun import _input_placements
+
+    cache0, tokens, lengths = data
+    out = {}
+    for layout in (("default", "kv_seq_shard") if mesh is not None else ("single",)):
+        inputs = {"token": torch.as_tensor(tokens[0], device=device),
+                  "cache": _map_leaves(lambda a: torch.tensor(a, device=device), cache0),
+                  "lengths": torch.as_tensor(lengths, device=device)}
+        if mesh is not None:
+            inputs = pytree.tree_map(
+                lambda t, pl: distribute_tensor(t, mesh, pl, src_data_rank=None), inputs,
+                _input_placements(mesh, inputs, frozenset({layout}) - {"default"}),
+                is_leaf=lambda x: isinstance(x, tuple))
+        cache, logits = inputs["cache"], []
+        with mesh_context(mesh) if mesh is not None else contextlib.nullcontext():
+            for i in range(len(tokens)):
+                tok = torch.as_tensor(tokens[i], device=device)
+                if mesh is not None:
+                    tok = distribute_tensor(tok, mesh, inputs["token"].placements,
+                                            src_data_rank=None)
+                lg, cache = arch.decode_step(params, tok, cache, inputs["lengths"] + i)
+                logits.append(full(lg).float().cpu().numpy())
+        out[layout] = (np.stack(logits), {k: _gathered(v).float().cpu().numpy()
+                                          for k, v in _flat(cache).items()})
+    return out
+
+
+def _rank_11f(mesh, device: str, reduced: bool, case) -> dict:
+    """11f on one rank: 11a's cut decoding on the mesh, its parameters
+    placed by ``param_shardings``; the twin's caches and tokens placed as
+    the dry run places a decode cell's (``_input_placements``), in the
+    default layout and under ``kv_seq_shard``, ``SHARD_DECODE["steps"]``
+    steps each, the last under ``OpCost``; per layout the logits, the new
+    tokens' cache rows (rank 0), launches, step walls and collectives."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from torch.utils import _pytree as pytree
+    from repro_torch.distributed.sharding import distribute_params, full, mesh_context
+    from repro_torch.kernels import registry
+    from repro_torch.launch.dryrun import _input_placements
+    from repro_torch.launch.op_cost import OpCost
+
+    cache0, tokens, lengths = case
+    arch = _sharded_train_arch(reduced)
+    params = distribute_params(mesh, arch.init(seed=0, device=device))
+    _free(device)
+    out = {}
+    for layout in ("default", "kv_seq_shard"):
+        inputs = {"token": torch.as_tensor(tokens[0], device=device),
+                  "cache": _to(cache0, device),
+                  "lengths": torch.as_tensor(lengths, device=device)}
+        placed = pytree.tree_map(
+            lambda t, pl: distribute_tensor(t, mesh, pl, src_data_rank=None), inputs,
+            _input_placements(mesh, inputs, frozenset({layout}) - {"default"}),
+            is_leaf=lambda x: isinstance(x, tuple))
+        del inputs
+        cache, f = placed["cache"], dict(logits=[], walls=[])
+        registry.reset_launches()
+        with mesh_context(mesh):
+            for i in range(len(tokens)):
+                tok = distribute_tensor(torch.as_tensor(tokens[i], device=device), mesh,
+                                        placed["token"].placements, src_data_rank=None)
+                oc = OpCost(mesh) if i == len(tokens) - 1 else contextlib.nullcontext()
+                t0 = time.perf_counter()
+                with oc:
+                    logits, cache = arch.decode_step(params, tok, cache, placed["lengths"] + i)
+                    logits = full(logits)
+                _sync(device)
+                f["walls"].append(time.perf_counter() - t0)
+                f["logits"].append(logits.float().cpu().numpy())
+        f["launches"] = registry.launch_counts()
+        f["by_axis"], f["collectives"] = oc.by_axis_row(), oc.collectives_row()
+        f["rows"] = {k: v.numpy() for k, v in _new_rows(cache, len(tokens)).items()}
+        out[layout] = f
+        del placed, cache
+        _free(device)
+    del params
+    _free(device)
+    return out
+
+
+def _new_rows(cache, steps: int) -> dict:
+    """The rows the decode steps wrote: ``[prompt, prompt + steps)`` of each
+    K/V stack, float32 on the host (a DTensor's gathered first)."""
+    p = SHARD_DECODE["prompt"]
+    return {k: _gathered(v)[:, :, p:p + steps].float().cpu() for k, v in _flat(cache).items()}
+
+
+def _gathered(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _rank_phase11(rank, world, device, reduced, tokens, routes, reduced_cases,
+                  decode_case) -> dict:
     """Everything phase 11 runs on one rank, in order; rank 0's outputs
     carry the logits and parameters the parent compares."""
     mesh = _rank_start(device)
     out = {"probe": _collective_probe(mesh, device)}
     for name, fn in (("11a", lambda: _rank_11a(mesh, device, reduced)),
                      ("11b", lambda: _rank_11b(mesh, device, reduced, tokens, routes)),
-                     ("11d", lambda: _rank_11d(mesh, device, reduced_cases))):
+                     ("11d", lambda: _rank_11d(mesh, device, reduced_cases)),
+                     ("11e", lambda: _rank_11a(mesh, device, reduced, SHARD_FISSION_MB)),
+                     ("11f", lambda: _rank_11f(mesh, device, reduced, decode_case))):
         t0 = time.perf_counter()
         out[name] = fn()
         if rank == 0:
             log(f"[sharded] rank 0: {name} done in {time.perf_counter() - t0!r} s")
     if rank:
-        out["11a"]["wq0"] = None
+        out["11a"]["wq0"] = out["11e"]["wq0"] = None
         out["11b"]["logits"] = None
-        out["11d"] = {k: (v[0], None) for k, v in out["11d"].items()}
+        out["11d"] = {k: None if k.endswith("/decode") else (v[0], None)
+                      for k, v in out["11d"].items()}
+        for f in out["11f"].values():
+            f["logits"] = f["rows"] = None
     return out
 
 
@@ -3851,40 +4035,63 @@ def _flat(tree, prefix: str = "") -> dict:
     return out
 
 
+# 11d's decode cases: 4 lanes, caches of 16 rows, 6 steps; lane 1 starts
+# empty, and under kv_seq_shard the second rank holds none of lanes 0, 1, 3
+REDUCED_DECODE = dict(lanes=4, rows=16, steps=6, lengths=(2, 0, 9, 1))
+
+
 def _reduced_sharded_cases():
     """11d's cases: reduced llama3-8b (``query_embedding``: the masked
     vocabulary-parallel gather) and deepseek-moe-16b in float32, their
     parameters drawn on the CPU, 2 batches of 8 x 16, and the unsharded
-    CPU run's losses and parameters."""
+    CPU run's losses and parameters; ``llama3-8b/fission``, the same at 4
+    microbatches fissioned; ``llama3-8b/decode``, a random cache and 6
+    steps of fixed tokens (``REDUCED_DECODE``) and the CPU decode's logits
+    and caches."""
     from repro_torch.models.convert import params_to_numpy
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.step import TrainStepConfig, make_train_step
 
     cases, refs = {}, {}
     rng = np.random.default_rng(11)
-    for name, overrides in (("llama3-8b", dict(query_embedding=True)), ("deepseek-moe-16b", {})):
-        arch = _reduced_cut(name, **overrides)
+    for key, overrides, ts_kw in (("llama3-8b", dict(query_embedding=True), {}),
+                                  ("deepseek-moe-16b", {}, {}),
+                                  ("llama3-8b/fission", dict(query_embedding=True),
+                                   dict(microbatches=4)),
+                                  ("llama3-8b/decode", {}, {})):
+        arch = _reduced_cut(key.split("/")[0], **overrides)
         params = arch.init(seed=0, device="cpu")
         # copies: on the CPU .numpy() shares memory, and the step donates params
         tree = _map_leaves(np.copy, params_to_numpy(params))
+        if key.endswith("/decode"):
+            d = REDUCED_DECODE
+            spec = arch.init_cache(d["lanes"], d["rows"], device="meta")
+            cache0 = _map_leaves(lambda t: rng.standard_normal(t.shape).astype(np.float32),
+                                 spec)
+            data = (cache0, rng.integers(0, arch.cfg.vocab_size, size=(d["steps"], d["lanes"]))
+                    .astype(np.int32), np.asarray(d["lengths"], np.int32))
+            cases[key] = (overrides, ts_kw, tree, data)
+            refs[key] = _reduced_decode(arch, params, data)["single"]
+            continue
         batches = []
         for _ in range(2):
             t = rng.integers(0, arch.cfg.vocab_size, size=(8, 16)).astype(np.int64)
             batches.append({"tokens": t, "labels": t})
-        init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig())
+        init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig(**ts_kw))
         state, losses = init(params), []
         for b in batches:
             params, state, m = step(params, state, b)
             losses.append(float(m["loss"]))
-        cases[name] = (overrides, tree, batches)
-        refs[name] = (losses, {k: v.detach().numpy().copy() for k, v in _flat(params).items()})
+        cases[key] = (overrides, ts_kw, tree, batches)
+        refs[key] = (losses, {k: v.detach().numpy().copy() for k, v in _flat(params).items()})
     return cases, refs
 
 
-def _train_reference(smi, device: str = "cuda", reduced: bool = False):
+def _train_reference(smi, device: str = "cuda", reduced: bool = False, mb: int = 1):
     """11a's unsharded twin on the card: the same cut llama3-8b, seed and
-    batches, ``SHARD_TRAIN["steps"]`` steps in one microbatch.  Returns
-    the losses and layer 0 of ``wq`` before and after (float32, host)."""
+    batches, ``SHARD_TRAIN["steps"]`` steps in ``mb`` microbatches (11e's:
+    2, the loop fissioned).  Returns the losses and layer 0 of ``wq``
+    before and after (float32, host)."""
     from repro_torch.data.pipeline import SyntheticLMStream
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.step import TrainStepConfig, make_train_step
@@ -3893,7 +4100,7 @@ def _train_reference(smi, device: str = "cuda", reduced: bool = False):
     arch = _sharded_train_arch(reduced)
     params = arch.init(seed=0, device=device)
     wq_init = params["layers"]["attn"]["wq"][0].float().cpu().clone()  # the step writes params
-    init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig())
+    init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig(microbatches=mb))
     state = init(params)
     stream = SyntheticLMStream(arch.cfg.vocab_size, seq_len=t["seq"], batch=t["batch"], seed=0)
     losses = []
@@ -3903,8 +4110,44 @@ def _train_reference(smi, device: str = "cuda", reduced: bool = False):
     wq_after = params["layers"]["attn"]["wq"][0].float().cpu()
     del params, state, m
     _free(device)
-    log(f"[sharded-train] unsharded reference on {smi}: losses {losses}")
+    log(f"[sharded-train] unsharded reference on {smi}, {mb} microbatch(es): losses {losses}")
     return losses, wq_init, wq_after
+
+
+def _decode_reference(smi, device: str = "cuda", reduced: bool = False):
+    """11f's unsharded twin on the card: 11a's cut and seed, the prefill of
+    8 random 256-token prompts into caches of 512 rows, then
+    ``SHARD_DECODE["steps"]`` greedy decode steps.  Returns the caches
+    after the prefill (host), the steps' tokens and starting lengths
+    (numpy), each step's logits and the rows the steps wrote (float32,
+    host)."""
+    import torch
+    d = SHARD_DECODE
+    arch = _sharded_train_arch(reduced)
+    params = arch.init(seed=0, device=device)
+    prompts = np.random.default_rng(13).integers(
+        0, arch.cfg.vocab_size, size=(d["lanes"], d["prompt"])).astype(np.int64)
+    logits, cache = arch.prefill(params, {"tokens": torch.as_tensor(prompts, device=device)},
+                                 max_len=d["max_len"])
+    cache0 = _map_leaves(lambda t: t.cpu(), cache)
+    lengths = np.full(d["lanes"], d["prompt"], np.int32)
+    tokens, step_logits, walls = [], [], []
+    for i in range(d["steps"]):
+        tok = logits.argmax(-1).to(torch.int32)
+        tokens.append(tok.cpu().numpy())
+        t0 = time.perf_counter()
+        logits, cache = arch.decode_step(params, tok, cache,
+                                         torch.as_tensor(lengths + i, device=device))
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+        step_logits.append(logits.float().cpu())
+    rows = _new_rows(cache, d["steps"])
+    del params, logits, cache
+    _free(device)
+    log(f"[sharded-decode] unsharded twin on {smi}: {arch.cfg.name} {arch.cfg.n_layers} layers, "
+        f"prefill {prompts.shape} into {d['max_len']} rows, {d['steps']} decode steps, step "
+        f"walls {walls} s")
+    return (cache0, np.stack(tokens), lengths), step_logits, rows
 
 
 def _moe_reference(smi, device: str = "cuda", reduced: bool = False):
@@ -3928,26 +4171,31 @@ def _moe_reference(smi, device: str = "cuda", reduced: bool = False):
     return out
 
 
-def _gate_11a(smi, res, ref, reduced: bool = False) -> dict:
+def _gate_11a(smi, res, ref, reduced: bool = False, key: str = "11a", mb: int = 1) -> dict:
+    """11a's gates, or 11e's (``key``, ``mb`` microbatches, fissioned): per
+    rank and step ``batched_gather`` once either way, ``flash_attention``
+    once a layer and microbatch; the losses and ``wq`` against the
+    unsharded twin ``ref``."""
     import torch
     cfg = _sharded_train_arch(reduced).cfg
-    want = {"flash_attention": cfg.n_layers, "batched_gather": 1,
+    want = {"flash_attention": cfg.n_layers * mb, "batched_gather": 1,
             "paged_decode_attention": 0, "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     dm, mm = SHARD_MESH
     wq = (cfg.n_layers, cfg.d_model // dm, cfg.n_heads // mm, cfg.hd)  # (4, 2048, 16, 128)
+    tag = "sharded-train" if mb == 1 else "sharded-fission"
     for r, out in enumerate(res):
-        a = out["11a"]
-        log(f"[sharded-train] rank {r} on {smi}: wq local {a['wq_local']}, losses "
+        a = out[key]
+        log(f"[{tag}] rank {r} on {smi}: {mb} microbatch(es), wq local {a['wq_local']}, losses "
             f"{a['losses']}, step walls {a['walls']} s (the last under OpCost), peak device "
             f"memory {[p / 2**30 for p in a['peaks']]} GiB, launches {a['launches']}")
-        log(f"[sharded-train] rank {r} collectives of a step: {a['collectives']}; by mesh "
+        log(f"[{tag}] rank {r} collectives of a step: {a['collectives']}; by mesh "
             f"axis {a['by_axis']}; flops {a['flops']!r}")
         if a["wq_local"] != wq:
-            fail(f"sharded-train: rank {r}'s wq shard is {a['wq_local']}, not {wq}")
+            fail(f"{tag}: rank {r}'s wq shard is {a['wq_local']}, not {wq}")
         if not all(np.isfinite(a["losses"])):
-            fail(f"sharded-train: rank {r} has a loss that is not finite")
+            fail(f"{tag}: rank {r} has a loss that is not finite")
         for i, got in enumerate(a["launches"]):
-            _expect(f"sharded-train rank {r} step {i}", got, want)
+            _expect(f"{tag} rank {r} step {i}", got, want)
     # Losses to 1e-3 relative: the sharded step sums its bf16 gradients in
     # another order; the first step moves the loss by about a fifth, so a
     # wrong gradient or moment layout shows in the second loss.  wq's layer
@@ -3955,19 +4203,78 @@ def _gate_11a(smi, res, ref, reduced: bool = False) -> dict:
     # distance the unsharded steps moved it (an update unrelated to the
     # right one gives about 1.4, a flipped one 2).
     want_losses, w0, w_ref = ref
-    losses, w = res[0]["11a"]["losses"], res[0]["11a"]["wq0"]
+    losses, w = res[0][key]["losses"], torch.from_numpy(res[0][key]["wq0"])
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
     moved = float(torch.linalg.vector_norm(w_ref - w0))
     dist_w = float(torch.linalg.vector_norm(w - w_ref)) / moved
-    log(f"[sharded-train] rank 0's losses {losses} against the unsharded steps' "
+    log(f"[{tag}] rank 0's losses {losses} against the unsharded steps' "
         f"{want_losses} (same seed and batches): relative differences {rel} (gate 1e-3); "
         f"wq layer 0 after {len(losses)} steps: distance from the unsharded one "
         f"{dist_w!r} of the {moved!r} the steps moved it (gate 0.25)")
     if max(rel) > 1e-3:
-        fail("sharded-train: the sharded steps' losses differ from the unsharded ones")
+        fail(f"{tag}: the sharded steps' losses differ from the unsharded ones")
     if not dist_w <= 0.25:
-        fail("sharded-train: the sharded steps moved wq elsewhere than the unsharded ones")
-    return {k: sum(sum(l[k] for l in out["11a"]["launches"]) for out in res) for k in want}
+        fail(f"{tag}: the sharded steps moved wq elsewhere than the unsharded ones")
+    return {k: sum(sum(l[k] for l in out[key]["launches"]) for out in res) for k in want}
+
+
+def _gate_11f(smi, res, twin_logits, twin_rows, reduced: bool = False) -> dict:
+    """11f's gates: per rank and layout ``decode_attention`` once a layer
+    and step and ``batched_gather`` once a step (``query_embedding``); the
+    ``kv_seq_shard`` step 3 all-reduces over ``model`` a layer more than
+    the default layout's and no all-gather over ``model`` more (q's, which
+    both gather: no cache is gathered); rank 0's logits at each step
+    against the twin's (``_report_logits``' gate) and the new rows against
+    the twin's: layer 0's within 1e-2 of their largest entry (bf16's
+    tolerance: they come from the token's embedding through one
+    projection), every layer's within 0.05 of it, the logits' gate (the
+    deeper layers' rows carry the hidden state, which the mesh's bf16
+    partial sums round apart from the twin's as they do the logits).  A
+    row written into a copy instead would miss by its whole size."""
+    import torch
+    cfg = _sharded_train_arch(reduced).cfg
+    steps = SHARD_DECODE["steps"]
+    want = {"flash_attention": 0, "batched_gather": steps, "paged_decode_attention": 0,
+            "decode_attention": cfg.n_layers * steps, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    tol = 1e-2 if cfg.cdtype == torch.bfloat16 else 1e-4
+    for r, out in enumerate(res):
+        for layout, f in out["11f"].items():
+            log(f"[sharded-decode] rank {r} on {smi}, {layout}: step walls {f['walls']} s, "
+                f"launches {f['launches']}, the last step's collectives {f['collectives']}, by "
+                f"mesh axis {f['by_axis']}")
+            _expect(f"sharded-decode rank {r} {layout}", f["launches"], want)
+        d, k = out["11f"]["default"]["by_axis"], out["11f"]["kv_seq_shard"]["by_axis"]
+        extra = k.get("all-reduce@model", 0) - d.get("all-reduce@model", 0)
+        if extra != 3 * cfg.n_layers or k.get("all-gather@model", 0) != d.get(
+                "all-gather@model", 0):
+            fail(f"sharded-decode: rank {r}'s kv_seq_shard step holds {extra} all-reduces over "
+                 f"model more than the default layout's (want {3 * cfg.n_layers}) and "
+                 f"{k.get('all-gather@model', 0)} all-gathers over model against "
+                 f"{d.get('all-gather@model', 0)}")
+    for layout, f in res[0]["11f"].items():
+        ratios, agree = [], []
+        for got, want_l in zip(f["logits"], twin_logits):
+            got = torch.from_numpy(got)
+            ratios.append(float((got - want_l).abs().max() / want_l.abs().max()))
+            agree.append(int((got.argmax(-1) == want_l.argmax(-1)).sum()))
+        log(f"[check] sharded-decode {layout}: rank 0's logits against the twin's at each of "
+            f"{len(ratios)} steps: max abs diff over max |logit| {ratios} (gate 0.05), argmax "
+            f"agreement {agree} of {got.shape[0]} (gate: at most 2 off)")
+        if not all(np.isfinite(x).all() for x in f["logits"]) or max(ratios) > 0.05 or \
+                min(agree) < got.shape[0] - 2:
+            fail(f"sharded-decode: the {layout} layout's logits disagree with the twin's")
+        for name, rows in f["rows"].items():
+            rows, want_r = torch.from_numpy(rows), twin_rows[name]
+            scale = float(want_r.abs().max())
+            ratios = [float((rows[i] - want_r[i]).abs().max()) / scale
+                      for i in range(rows.shape[0])]
+            log(f"[sharded-decode] {layout}: the steps' new rows of {name} {tuple(rows.shape)} "
+                f"against the twin's: max abs diff over max |row| ({scale!r}) by layer {ratios} "
+                f"(gates: layer 0 {tol}, every layer 0.05)")
+            if not (np.isfinite(ratios).all() and ratios[0] <= tol and max(ratios) <= 0.05):
+                fail(f"sharded-decode: {layout} wrote other {name} rows than the twin")
+    return {k: sum(sum(f["launches"][k] for f in out["11f"].values()) for out in res)
+            for k in want}
 
 
 def _gate_11b(smi, res, ref_logits, reduced: bool = False) -> dict:
@@ -4001,38 +4308,73 @@ def _gate_11b(smi, res, ref_logits, reduced: bool = False) -> dict:
 
 
 def _gate_11d(res, refs) -> None:
+    """Losses within 1e-4 of the CPU step's, and parameters within 1e-4;
+    the ``/fission`` case's parameters as ``tests/test_torch_train.py``
+    holds a microbatched step's (``_assert_params_close``): every entry
+    within 2 x lr and at most 0.1 % of a leaf's (at least one) above 1e-4.
+    Adam's update of a gradient near its eps (1e-8) turns on rounding:
+    one entry of this case's ``layers/ln1/w`` has a first gradient of
+    8.6e-9 on the CPU, so, unlike that test, a norm gain may hold it."""
     for name, (want_losses, want) in refs.items():
+        if name.endswith("/decode"):
+            _gate_11d_decode(name, res, want_losses, want)
+            continue
         losses, got = res[0]["11d"][name]
         dl = max(abs(a - b) for a, b in zip(losses, want_losses))
-        dp = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        diffs = {k: np.abs(got[k] - want[k]) for k in want}
+        dp = max(float(d.max()) for d in diffs.values())
+        above = {k: int((d > 1e-4).sum()) for k, d in diffs.items() if (d > 1e-4).any()}
         log(f"[sharded-reduced] {name}: mesh {SHARD_MESH} against the unsharded CPU step, "
-            f"losses {losses} vs {want_losses} (max diff {dl!r}), parameters max diff {dp!r} "
-            f"(gate 1e-4)")
-        if dl > 1e-4 or dp > 1e-4 or any(r["11d"][name][0] != losses for r in res):
+            f"losses {losses} vs {want_losses} (max diff {dl!r}), parameters max diff {dp!r}, "
+            f"entries above 1e-4 by leaf {above} (gate 1e-4"
+            f"{'; 2 x lr and 0.1 % above 1e-4' if name.endswith('/fission') else ''})")
+        if name.endswith("/fission"):
+            params_ok = dp <= 2e-3 and all(n <= max(1, diffs[k].size // 1000)
+                                           for k, n in above.items())
+        else:
+            params_ok = dp <= 1e-4
+        if dl > 1e-4 or not params_ok or any(r["11d"][name][0] != losses for r in res):
             fail(f"sharded-reduced: {name} on the mesh differs from the CPU step")
 
 
-def _phase_11c(smi, a_rank0, reduced: bool = False) -> None:
-    """11c on the host: the dry run of 11a's configuration and mesh, held
-    to 11a's counted step; then one production cell, timed."""
+def _gate_11d_decode(name, res, want_logits, want_cache) -> None:
+    """A ``/decode`` case: each layout's logits and caches on the ranks
+    against the CPU decode's, within 1e-4 (float32 on both sides)."""
+    for layout, (logits, cache) in res[0]["11d"][name].items():
+        dl = float(np.abs(logits - want_logits).max())
+        dc = max(float(np.abs(cache[k] - want_cache[k]).max()) for k in want_cache)
+        log(f"[sharded-reduced] {name} {layout}: mesh {SHARD_MESH} against the unsharded CPU "
+            f"decode, {len(logits)} steps: logits max diff {dl!r}, caches max diff {dc!r} "
+            f"(gate 1e-4)")
+        if dl > 1e-4 or dc > 1e-4:
+            fail(f"sharded-reduced: {name} in the {layout} layout differs from the CPU decode")
+
+
+def _phase_11c(smi, res, reduced: bool = False) -> None:
+    """11c on the host: the dry run of 11a's configuration and mesh, and of
+    11e's (2 microbatches, fissioned), each held to the step rank 0
+    counted; then one production cell, timed."""
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.models.config import ShapeSpec
 
     t = SHARD_TRAIN
-    t0 = time.perf_counter()
-    row = run_cell(_sharded_train_arch(reduced),
-                   ShapeSpec("sharded-train", t["seq"], t["batch"], "train"), "single",
-                   mesh_shape=SHARD_MESH)
-    wall = time.perf_counter() - t0
-    rel = abs(row["flops_per_device"] - a_rank0["flops"]) / a_rank0["flops"]
-    kinds = {k: v["count"] for k, v in row["collectives"].items() if isinstance(v, dict)}
-    real = {k: v["count"] for k, v in a_rank0["collectives"].items() if isinstance(v, dict)}
-    log(f"[dryrun] 11a's cell on fake ranks ({row['traced_on']} fakes, {wall!r} s): flops per "
-        f"device {row['flops_per_device']!r} against the step's {a_rank0['flops']!r} "
-        f"(relative {rel!r}, gate 1e-2); collectives {kinds} against {real}; live bytes "
-        f"{row['live_bytes']!r}")
-    if rel > 1e-2 or kinds != real:
-        fail("dryrun: the dry run of 11a's cell does not count what the step ran")
+    for key, mb in (("11a", 1), ("11e", SHARD_FISSION_MB)):
+        counted = res[0][key]
+        t0 = time.perf_counter()
+        row = run_cell(_sharded_train_arch(reduced),
+                       ShapeSpec("sharded-train", t["seq"], t["batch"], "train"), "single",
+                       mesh_shape=SHARD_MESH, microbatches=mb)
+        wall = time.perf_counter() - t0
+        rel = abs(row["flops_per_device"] - counted["flops"]) / counted["flops"]
+        kinds = {k: v["count"] for k, v in row["collectives"].items() if isinstance(v, dict)}
+        real = {k: v["count"] for k, v in counted["collectives"].items() if isinstance(v, dict)}
+        log(f"[dryrun] {key}'s cell ({mb} microbatch(es)) on fake ranks ({row['traced_on']} "
+            f"fakes, {wall!r} s): flops per device {row['flops_per_device']!r} against the "
+            f"step's {counted['flops']!r} (relative {rel!r}, gate 1e-2); collectives {kinds} "
+            f"against {real}; by mesh axis {row['collectives_by_axis']} against "
+            f"{counted['by_axis']}; live bytes {row['live_bytes']!r}")
+        if rel > 1e-2 or kinds != real or row["collectives_by_axis"] != counted["by_axis"]:
+            fail(f"dryrun: the dry run of {key}'s cell does not count what the step ran")
     if reduced:
         return
     t0 = time.perf_counter()
@@ -4052,17 +4394,22 @@ def phase_sharded(smi, device: str = "cuda", reduced: bool = False) -> dict:
     from repro_torch.distributed.launch import run_ranks
 
     train_ref = _train_reference(smi, device, reduced)
+    fission_ref = _train_reference(smi, device, reduced, SHARD_FISSION_MB)
+    decode_case, twin_logits, twin_rows = _decode_reference(smi, device, reduced)
     tokens, routes, ref_logits = _moe_reference(smi, device, reduced)
     cases, refs = _reduced_sharded_cases()
     t0 = time.perf_counter()
     res = run_ranks(_rank_phase11, SHARD_MESH[0] * SHARD_MESH[1], device, reduced, tokens,
-                    routes, cases, timeout_s=420)
+                    routes, cases, decode_case, timeout_s=600)
     log(f"[sharded] {len(res)} ranks on {smi}, mesh (data, model) = {SHARD_MESH} over gloo, "
         f"{time.perf_counter() - t0!r} s; collectives taken: {res[0]['probe']}")
     paths = {"sharded-train": _gate_11a(smi, res, train_ref, reduced),
-             "moe-ep": _gate_11b(smi, res, ref_logits, reduced)}
+             "moe-ep": _gate_11b(smi, res, ref_logits, reduced),
+             "sharded-fission": _gate_11a(smi, res, fission_ref, reduced, "11e",
+                                          SHARD_FISSION_MB),
+             "sharded-decode": _gate_11f(smi, res, twin_logits, twin_rows, reduced)}
     _gate_11d(res, refs)
-    _phase_11c(smi, res[0]["11a"], reduced)
+    _phase_11c(smi, res, reduced)
     return paths
 
 

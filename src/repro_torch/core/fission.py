@@ -40,15 +40,36 @@ Differences from the reference, each keeping its results:
   earlier reader.
 * Leaves of ``init`` and ``xs`` are tensors; the graphs are traced for
   contiguous ones, and every input is made contiguous before each call.
+
+On a mesh (leaves of ``init`` or ``xs`` that are DTensors, the sharded
+train step's gradients and microbatches) ``make_fx`` cannot trace the
+DTensors themselves: it would record a step's result as a constant.  So
+the pass traces each rank's own program instead (:func:`_fission_sharded`):
+a body that takes the carry's and the microbatch's **local shards**, wraps
+them as DTensors under their recorded placements, runs ``f`` and returns
+the results' local shards.  DTensor turns into local aten ops and
+functional collectives (``_c10d_functional.all_gather_into_tensor``,
+``all_reduce``, ``reduce_scatter_tensor``, ``wait_tensor``), which are pure
+to the DDG: they write nothing and have no effect.  Every rank traces the
+same graph and runs the same producer, batched query and consumer, so the
+collectives keep one order on all ranks.  The closed-over parameters'
+local shards enter as constants, and their FSDP gathers are loop
+invariant, recomputed on each side that reads them.  A carry whose body
+changes its placement (a replicated accumulator plus a partial-sum
+gradient is a partial sum) is traced again under the placement it comes
+out with, and ``init`` is redistributed to it; the results come back as
+DTensors under the placements the trace recorded.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
 import torch
 import torch.fx as fx
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import _disable_current_modes
@@ -232,6 +253,7 @@ def fission_scan(
     *,
     report: Optional[FissionReport] = None,
     _depth: int = 0,
+    _traced: Optional[_Traced] = None,
 ):
     """:func:`scan` with Rule A applied at every query in the body.
 
@@ -242,9 +264,11 @@ def fission_scan(
     """
     if _depth > 8:
         raise RecursionError("fission_scan: too many chained queries")
+    if any(isinstance(t, DTensor) for t in pytree.tree_leaves((init, xs))):
+        return _fission_sharded(f, init, xs, length, report)
 
     # ---- trace the body ------------------------------------------------
-    tr = trace_body(f, init, xs)
+    tr = _traced if _traced is not None else trace_body(f, init, xs)
     gm = tr.gm
     flat_init = [c.contiguous() for c in pytree.tree_leaves(init)]
     flat_xs = [x.contiguous() for x in pytree.tree_leaves(xs)]
@@ -418,6 +442,113 @@ def fission_scan(
         flat_ys[k] = ys_c_stacked[idx]
     return (pytree.tree_unflatten(flat_carry, tr.carry_tree),
             pytree.tree_unflatten(flat_ys, tr.y_tree))
+
+
+def _placements(t, mesh):
+    """A leaf's placements (a plain tensor counts as replicated)."""
+    return tuple(t.placements) if isinstance(t, DTensor) else (Replicate(),) * mesh.ndim
+
+
+def _shift(placements, by: int) -> tuple:
+    """Placements of a stacked leaf's slice (``by`` -1) or of a stack of
+    slices (``by`` +1): a sharded dim moves with the leading axis."""
+    return tuple(Shard(p.dim + by) if isinstance(p, Shard) else p for p in placements)
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _local_as(t, mesh, placements) -> torch.Tensor:
+    """This rank's shard of ``t`` laid out as ``placements``.  DTensor
+    refuses to make a partial result of a replicated value, so that is done
+    here: every rank keeps the value for a partial mean, max or min, and
+    for a partial sum the value stays on coordinate 0 of the mesh dim and
+    the others hold zeros."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    to_partial = [isinstance(p, Partial) and isinstance(q, Replicate)
+                  for p, q in zip(placements, t.placements)]
+    keep = tuple(q if m else p for p, q, m in zip(placements, t.placements, to_partial))
+    loc = (t if tuple(t.placements) == keep else t.redistribute(mesh, keep)).to_local()
+    if any(m and placements[d].reduce_op == "sum" and mesh.get_local_rank(d)
+           for d, m in enumerate(to_partial)):
+        loc = torch.zeros_like(loc)
+    return loc
+
+
+@contextlib.contextmanager
+def _strided_offsets_untraced():
+    """DTensor finds a strided shard's size (``_StridedShard.
+    local_shard_size_and_offset``, which the MoE branch's backward reaches)
+    from an index tensor it builds and reads with ``.tolist()``; under the
+    trace's fake mode that tensor is fake and the read raises.  It is shape
+    arithmetic on integers, so it runs outside the trace's modes here."""
+    from torch.distributed.tensor import placement_types
+
+    cls = getattr(placement_types, "_StridedShard", None)
+    orig = getattr(cls, "local_shard_size_and_offset", None)
+    if orig is None:
+        yield
+        return
+
+    def untraced(self, *args, **kwargs):
+        with _disable_current_modes():
+            return orig(self, *args, **kwargs)
+
+    cls.local_shard_size_and_offset = untraced
+    try:
+        yield
+    finally:
+        cls.local_shard_size_and_offset = orig
+
+
+def _fission_sharded(f: Callable, init, xs, length, report):
+    """:func:`fission_scan` over DTensor leaves: Rule A on each rank's own
+    traced program (module docstring)."""
+    flat_init, carry_tree = pytree.tree_flatten(init)
+    flat_xs, xs_tree = pytree.tree_flatten(xs)
+    mesh = next(t for t in flat_init + flat_xs if isinstance(t, DTensor)).device_mesh
+    carry_pl = [_placements(t, mesh) for t in flat_init]
+    x_pl = [_shift(_placements(t, mesh), -1) for t in flat_xs]
+    seen: dict = {}
+
+    def wrap(ts, pls):
+        return [DTensor.from_local(t, mesh, pl, run_check=False) for t, pl in zip(ts, pls)]
+
+    def local_f(carry, x):
+        c = wrap(pytree.tree_leaves(carry), carry_pl)
+        new_carry, y = f(pytree.tree_unflatten(c, carry_tree),
+                         pytree.tree_unflatten(wrap(pytree.tree_leaves(x), x_pl), xs_tree))
+        flat_c = pytree.tree_leaves(new_carry)
+        flat_y, seen["y_tree"] = pytree.tree_flatten(y)
+        seen["carry"] = [_placements(t, mesh) for t in flat_c]
+        seen["y"] = [None if t is None else _placements(t, mesh) for t in flat_y]
+        return (pytree.tree_unflatten([_local(t) for t in flat_c], carry_tree),
+                pytree.tree_unflatten([None if t is None else _local(t) for t in flat_y],
+                                      seen["y_tree"]))
+
+    def local_init():
+        return pytree.tree_unflatten([_local_as(t, mesh, pl) for t, pl in
+                                      zip(flat_init, carry_pl)], carry_tree)
+
+    local_xs = pytree.tree_unflatten([_local(t) for t in flat_xs], xs_tree)
+    with _strided_offsets_untraced():
+        for _ in range(3):  # the carry's placements to a fixed point
+            tr = trace_body(local_f, local_init(), local_xs)
+            if seen["carry"] == carry_pl:
+                break
+            carry_pl = seen["carry"]
+        else:
+            raise FissionPreconditionError(f"the carry's placements do not settle: {carry_pl}")
+        carry, ys = fission_scan(local_f, local_init(), local_xs, length=length, report=report,
+                                 _traced=tr)
+    flat_carry = wrap(pytree.tree_leaves(carry), carry_pl)
+    flat_ys = [None if t is None else DTensor.from_local(t, mesh, _shift(pl, 1),
+                                                         run_check=False)
+               for t, pl in zip(pytree.tree_leaves(ys), seen["y"])]
+    return (pytree.tree_unflatten(flat_carry, carry_tree),
+            pytree.tree_unflatten(flat_ys, seen["y_tree"]))
 
 
 def scan_with_queries(f: Callable, init, xs, *, fission: bool = True, length=None):

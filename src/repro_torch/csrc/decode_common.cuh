@@ -216,13 +216,18 @@ __device__ __forceinline__ void stage_tile(unsigned char* dst, const Keys& keys,
 // One block of a (lane b = blockIdx.z, kv head h = blockIdx.y) cluster:
 // keys [rank * kpb, (rank + 1) * kpb) of the lane's first min(length, t_len),
 // then the cluster's combine.  `smem` is the block's dynamic shared memory
-// (make_layout's bytes).
-template <typename T, int MAXG, int W, typename Keys>
+// (make_layout's bytes).  With LSE, block 0 of the cluster also writes each
+// query head's log-sum-exp of its scaled scores, m + log(l) from the
+// combine's max and total sum (-inf for a lane with no keys), to
+// lse[b * hq + h * g + gi]; without it (the paged kernel, the plain decode)
+// the instance is the same code as before the option existed.
+template <typename T, int MAXG, int W, bool LSE = false, typename Keys>
 __device__ __forceinline__ void decode_body(unsigned char* smem, const Keys& keys,
                                             const T* __restrict__ q,
                                             const int* __restrict__ lengths,
                                             T* __restrict__ out, int t_len, int hq, int hkv,
-                                            int d, int kpb, float scale) {
+                                            int d, int kpb, float scale,
+                                            float* __restrict__ lse = nullptr) {
   constexpr int CPT = W == 1 ? 2 : 1;  // PV column chunks per thread (D <= 256)
   cg::cluster_group cluster = cg::this_cluster();
   const int g = hq / hkv;
@@ -468,6 +473,9 @@ __device__ __forceinline__ void decode_body(unsigned char* smem, const Keys& key
       l = fmaf(cl[r * g + tid], w, l);
     }
     ctot[tid] = fmaxf(l, 1e-30f);
+    if constexpr (LSE) {
+      if (rank == 0) lse[(long long)b * hq + (long long)h * g + tid] = mx + logf(l);
+    }
   }
   __syncthreads();
   const long long obase = ((long long)b * hq + (long long)h * g) * d;

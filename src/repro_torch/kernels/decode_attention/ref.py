@@ -19,10 +19,12 @@ __all__ = ["decode_ref"]
 
 
 def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               lengths: torch.Tensor) -> torch.Tensor:
+               lengths: torch.Tensor, return_lse: bool = False):
     """q: (B, Hq, D) one token; k/v: (B, T, Hkv, D); lengths: (B,) integer.
 
-    Attends slots [0, lengths); returns (B, Hq, D) in q.dtype.
+    Attends slots [0, lengths); returns (B, Hq, D) in q.dtype, and with
+    ``return_lse`` also the float32 (B, Hq) log-sum-exp of the scaled
+    scores over those slots (``-inf`` for a length-0 lane).
     """
     b, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -33,5 +35,9 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, v.float()).reshape(b, hq, d)
-    out = torch.where((lengths > 0)[:, None, None], out, torch.zeros_like(out))
-    return out.to(q.dtype)
+    has = (lengths > 0)[:, None, None]
+    out = torch.where(has, out, torch.zeros_like(out)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(scores, dim=-1).reshape(b, hq)
+    return out, torch.where(has[:, :, 0], lse, torch.full_like(lse, -math.inf))

@@ -34,8 +34,12 @@ Differences from the reference: the cell keeps its config's dtypes (the
 reference lowers in float32 and halves bytes with ``BYTE_SCALE = 0.5`` to
 undo XLA's CPU bf16 emulation, which a trace of the card's ops does not
 have); bytes have no fusion model (``op_cost``); ``lower_s`` is the
-trace's seconds and nothing is compiled; the microbatch loop is not
-fissioned on a mesh (``train.step``).
+trace's seconds and nothing is compiled.  The microbatch loop is fissioned
+(``TrainStepConfig.fission``, the default, as in the reference): where the
+model has a query (``query_embedding``) the cell counts the fissioned
+program, whose producer, one batched query and consumer each rank runs.
+A row's ``collectives_by_axis`` counts the collectives by the mesh axes
+of their group.
 """
 from __future__ import annotations
 
@@ -165,11 +169,13 @@ def _state_tensors(state) -> list:
 
 def run_cell(arch_name: Union[str, Arch], shape_name: Union[str, ShapeSpec],
              mesh_kind: str = "single", check_fit: bool = True,
-             opts: frozenset = frozenset(), *, mesh_shape: Optional[tuple] = None) -> dict:
+             opts: frozenset = frozenset(), *, mesh_shape: Optional[tuple] = None,
+             microbatches: Optional[int] = None) -> dict:
     """Trace one cell (module docstring) and return its row.  ``arch_name``
     and ``shape_name`` may be an :class:`Arch` or :class:`ShapeSpec` (a cut
     configuration); ``mesh_shape`` overrides the production mesh with a
-    (data, model) test mesh of that shape."""
+    (data, model) test mesh of that shape; ``microbatches`` a train cell's
+    count (else 8 under ``microbatch8``, 1 without)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     arch = get_arch(arch_name) if isinstance(arch_name, str) else arch_name
@@ -204,8 +210,9 @@ def run_cell(arch_name: Union[str, Arch], shape_name: Union[str, ShapeSpec],
                         moments_dtype="int8" if "int8_moments" in opts else "float32")
                     init_state, train_step = make_train_step(
                         arch, opt_cfg,
-                        TrainStepConfig(donate=False, fission=False,
-                                        microbatches=8 if "microbatch8" in opts else 1),
+                        TrainStepConfig(donate=False,
+                                        microbatches=microbatches or (
+                                            8 if "microbatch8" in opts else 1)),
                         mesh=mesh)
                     state = init_state(params)
                     args_bytes += _local_bytes(_state_tensors(state))
@@ -253,6 +260,7 @@ def run_cell(arch_name: Union[str, Arch], shape_name: Union[str, ShapeSpec],
         "flops_per_device": flops,
         "bytes_per_device": lcost.bytes,
         "collectives": oc.collectives_row(),
+        "collectives_by_axis": oc.by_axis_row(),
         "flops_by_op": dict(sorted(oc.flops_by_op.items(), key=lambda kv: -kv[1])),
         "collective_bytes_loop_aware": lcost.collective_bytes,
         "collective_counts_loop_aware": lcost.collective_counts,

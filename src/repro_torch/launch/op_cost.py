@@ -110,6 +110,7 @@ CUSTOM_OP_FLOPS = {
     _ops.ssd_scan: _scan_flops,
     _ops.ssd_scan_bwd: _scan_bwd_flops,
     _ops.decode_attention: _decode_flops,
+    _ops.decode_attention_lse: _decode_flops,  # the same work, no cache write
 }
 for _op, _fn in CUSTOM_OP_FLOPS.items():
     if _op not in flop_registry:
@@ -270,3 +271,9 @@ class OpCost(TorchDispatchMode):
         out["total_bytes"] = sum(v["bytes"] for v in self.collectives.values())
         out["total_count"] = sum(v["count"] for v in self.collectives.values())
         return out
+
+    def by_axis_row(self) -> dict:
+        """``{"<kind>@<axes>": count}``: the collectives by the mesh axes
+        of their group (``+``-joined)."""
+        return {f"{kind}@{'+'.join(map(str, axes))}": n
+                for (kind, axes), n in sorted(self.by_axis.items())}

@@ -36,6 +36,12 @@ always the slots ``[0, min(length + 1, S_max))``, in ring order: the op
 attends them with that length.  Softmax does not depend on the keys'
 order, so the result is the reference's up to rounding.
 
+On a mesh a decode runs where its cache lives: over caches sharded by
+lanes or kv heads (or replicated) the op runs on each rank's shards, and
+over caches whose rows are sharded (``kv_seq_shard``) the split-KV decode
+of :mod:`repro_torch.distributed.split_kv` runs each rank's rows and
+combines them with three all-reduces.
+
 Shapes:
   x          (B, S, d_model)
   q          (B, S, H, hd)      k/v (B, S, Hkv, hd)
@@ -49,6 +55,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.sharding import gather_dp, shard_activation
+from repro_torch.distributed.split_kv import rows_split, split_kv_decode
 from repro_torch.kernels.decode_attention.ops import decode_op
 from repro_torch.kernels.flash_attention.ops import attention_op
 from repro_torch.models.config import ModelConfig
@@ -152,6 +159,13 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return y
 
 
+def _decode(q, k, v, lengths, **new):
+    """The decode op, or the split-KV decode over caches sharded by rows."""
+    if rows_split(k):
+        return split_kv_decode(q, k, v, lengths, **new)
+    return decode_op(q, k, v, lengths, **new)
+
+
 def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      lengths: torch.Tensor, *, window: Optional[int] = None):
@@ -179,8 +193,8 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         slot = torch.clamp(lengths, max=s_max - 1).long()
         att_len = slot + 1
-    out = decode_op(q[:, 0], cache_k, cache_v, att_len.to(torch.int32),
-                    k_new=k_new[:, 0], v_new=v_new[:, 0], slot=slot)
+    out = _decode(q[:, 0], cache_k, cache_v, att_len.to(torch.int32),
+                  k_new=k_new[:, 0], v_new=v_new[:, 0], slot=slot)
     y = _out_proj(p, cfg, out.reshape(b, 1, cfg.n_heads, cfg.hd))
     return y, cache_k, cache_v
 
@@ -194,7 +208,7 @@ def cross_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, xk: torch.Tensor,
     b, s_src = x.shape[0], xk.shape[1]
     q = _proj(x, p["wq"], cfg.cdtype)
     lengths = torch.full((b,), s_src, dtype=torch.int32, device=x.device)
-    out = decode_op(q[:, 0], xk, xv, lengths)
+    out = _decode(q[:, 0], xk, xv, lengths)
     return _out_proj(p, cfg, out.reshape(b, 1, cfg.n_heads, cfg.hd))
 
 

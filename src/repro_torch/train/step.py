@@ -27,9 +27,10 @@ plain tensors, the same on every rank) is split over the data-parallel
 axes where they divide it; every rank runs the same Python, DTensor adds
 the collectives (FSDP gathers and reduce-scatters over ``data``, tensor-
 and expert-parallel all-reduces over ``model``), and the metrics come
-back as plain tensors.  The microbatch loop is not fissioned on a mesh
-(``make_fx`` does not trace DTensors): ``microbatches > 1`` with
-``fission=True`` raises ``ValueError``.
+back as plain tensors.  The microbatch loop is fissioned on a mesh too, as
+the reference's is under pjit: the pass traces each rank's program on the
+local shards (:mod:`repro_torch.core.fission`), so each rank launches the
+gather once a step.
 """
 from __future__ import annotations
 
@@ -107,9 +108,6 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
     moments are written into the tensors passed in (returned as well);
     without it nothing passed in is written.
     """
-    if mesh is not None and ts_cfg.microbatches > 1 and ts_cfg.fission:
-        raise ValueError("the sharded train step does not fission its microbatch loop "
-                         "(make_fx does not trace DTensors): pass fission=False")
     loss_fn = make_loss_fn(arch)
     n = ts_cfg.microbatches
 
@@ -120,11 +118,11 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
         return state
 
     def compute_grads(params, batch):
+        """``batch``: the step's batch, or with ``n > 1`` its microbatches."""
         if n <= 1:
             (loss, metrics), grads = _value_and_grad(loss_fn, params, batch)
             return loss, metrics, grads
 
-        mbatch = {k: _split(v, n) for k, v in batch.items()}
         zero_g = pytree.tree_map(_zeros_f32, params)
 
         def body(carry, mb):
@@ -135,7 +133,7 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
 
         loss0 = torch.zeros((), dtype=torch.float32, device=_device_of(zero_g))
         (grads, loss), metricss = scan_with_queries(
-            body, (zero_g, loss0), mbatch, fission=ts_cfg.fission)
+            body, (zero_g, loss0), batch, fission=ts_cfg.fission)
         metrics = {k: m[-1] for k, m in metricss.items()}
         return loss, metrics, grads
 
@@ -143,11 +141,10 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
         device = _device_of(params)
         if mesh is None:
             batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        else:  # placed already, or the same full batch on every rank
-            batch = {k: v if isinstance(v, DTensor) else distribute_tensor(
-                torch.as_tensor(v, device=device), mesh, batch_placements(
-                    mesh, v.shape, 1 if k == "positions" and v.ndim == 3 else 0),
-                src_data_rank=None) for k, v in batch.items()}
+            if n > 1:
+                batch = {k: _split(v, n) for k, v in batch.items()}
+        else:
+            batch = {k: _placed_batch(mesh, k, v, n, device) for k, v in batch.items()}
         loss, metrics, grads = compute_grads(params, batch)
         if mesh is not None:  # each gradient laid out as its parameter
             grads = pytree.tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements),
@@ -187,7 +184,9 @@ def _split(x: torch.Tensor, n: int) -> torch.Tensor:
     """A batch leaf as ``n`` microbatches on a new leading axis (a leaf
     whose batch ``n`` does not divide is repeated, as in the reference).  A
     DTensor splits its own rows: microbatch i of a rank is the i-th slice
-    of that rank's batch shard (each row still in one microbatch)."""
+    of that rank's batch shard (each row still in one microbatch, but
+    grouped with other rows than on one device: a MoE layer's capacity and
+    aux loss per microbatch see other tokens)."""
     b = x.shape[0]
     if not (x.dim() >= 1 and b % n == 0):
         return x.expand((n,) + tuple(x.shape))
@@ -200,6 +199,23 @@ def _split(x: torch.Tensor, n: int) -> torch.Tensor:
     loc = loc.reshape((n, loc.shape[0] // n) + tuple(loc.shape[1:]))
     placements = [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in x.placements]
     return DTensor.from_local(loc, x.device_mesh, placements, run_check=False)
+
+
+def _placed_batch(mesh, key: str, v, n: int, device):
+    """A batch leaf on the mesh, split into ``n`` microbatches when ``n > 1``.
+    The same full batch on every rank (numpy or a plain tensor) is split as
+    on one device, microbatch i the rows [i·b/n, (i+1)·b/n) as in the
+    reference, and each microbatch's rows are placed over the data-parallel
+    axes: no rank communicates.  A leaf placed already splits its own rows
+    (:func:`_split`)."""
+    if isinstance(v, DTensor):
+        return _split(v, n) if n > 1 else v
+    t = torch.as_tensor(v, device=device)
+    axis = 1 if key == "positions" and t.dim() == 3 else 0
+    if n > 1:
+        t, axis = _split(t, n), axis + 1
+    return distribute_tensor(t, mesh, batch_placements(mesh, t.shape, axis),
+                             src_data_rank=None)
 
 
 def _device_of(tree) -> torch.device:

@@ -15,6 +15,12 @@ the elastic restore.
   ``model``) and reduced kimi-k2 with DTensor operands: output and aux
   within 1e-5 of the port's single-device ``moe`` and 1e-4 of the JAX
   package's, and one all-reduce over ``model`` per call.
+* Rule A on the sharded step: reduced llama3-8b and deepseek-moe-16b
+  (``query_embedding``), 4 microbatches, 2 steps, fissioned and not, on
+  the mesh: each rank executes the gather query once a step fissioned and
+  4 times not; losses within 1e-5 and parameters within 1e-4 of each
+  other, losses within 1e-4 of the JAX package's unsharded fissioned
+  ``make_train_step(microbatches=4)``.
 * The twin of ``test_checkpoint.py::test_elastic_restore_onto_8_devices``.
 """
 from __future__ import annotations
@@ -43,6 +49,8 @@ from repro_torch.train.step import TrainStepConfig, make_train_step
 LR = 1e-3
 TIMEOUT_S = 600
 STEP_ARCHS = ("llama3-8b", "deepseek-moe-16b", "mamba2-1.3b")
+FISSION_ARCHS = ("llama3-8b", "deepseek-moe-16b")
+MICROBATCHES = 4
 
 
 def _archs(name: str, **overrides):
@@ -75,13 +83,43 @@ def _moe_case(name: str, seed: int):
     return p, rng.standard_normal((8, 12, d)).astype(np.float32)
 
 
-def _steps(ta, params, batches, mesh=None):
-    init, step = make_train_step(ta, topt.AdamWConfig(lr=LR), TrainStepConfig(), mesh=mesh)
+def _steps(ta, params, batches, mesh=None, **ts_kw):
+    init, step = make_train_step(ta, topt.AdamWConfig(lr=LR), TrainStepConfig(**ts_kw),
+                                 mesh=mesh)
     state, losses = init(params), []
     for b in batches:
         params, state, m = step(params, state, b)
         losses.append(float(m["loss"]))
     return losses, params
+
+
+def _fissioned_steps(ta, tree, batches, mesh, fission: bool):
+    """The sharded step at ``MICROBATCHES`` microbatches: its losses, the
+    gather query's executions in each step, and the full parameters."""
+    from repro_torch.core import query
+    from repro_torch.distributed.sharding import distribute_params
+
+    calls, inner = [], query.gather_op
+
+    def counted(*args):
+        calls.append(1)
+        return inner(*args)
+
+    params = distribute_params(mesh, params_from_numpy(tree, ta.cfg, device="cpu"))
+    init, step = make_train_step(ta, topt.AdamWConfig(lr=LR),
+                                 TrainStepConfig(microbatches=MICROBATCHES, fission=fission),
+                                 mesh=mesh)
+    state, losses, gathers = init(params), [], []
+    query.gather_op = counted
+    try:
+        for b in batches:
+            calls.clear()
+            params, state, m = step(params, state, b)
+            gathers.append(len(calls))
+            losses.append(float(m["loss"]))
+    finally:
+        query.gather_op = inner
+    return {"losses": losses, "gathers": gathers, "params": _full_numpy(params)}
 
 
 def _full_numpy(tree):
@@ -111,6 +149,12 @@ def _worker(rank, world, np_params, batches, moe_cases):
         out[name]["losses"], params = _steps(ta, params, batches, mesh)
         full = _full_numpy(params)  # a collective: every rank takes part
         out[name]["params"] = full if rank == 0 else None
+        if name in FISSION_ARCHS:
+            for fission in (False, True):
+                run = _fissioned_steps(ta, tree, batches, mesh, fission)
+                if rank:
+                    run["params"] = None
+                out[name][f"microbatched_fission_{fission}"] = run
     for name, (p, x) in moe_cases.items():
         _ja, ta = _archs(name[: -len("-moe")])
         tp = distribute_params(mesh, params_from_numpy({"moe": p}, ta.cfg, device="cpu"))
@@ -168,6 +212,48 @@ def test_sharded_step_matches_jax_unsharded(ranks):
         jp, state, m = step(jp, state, {k: jnp.asarray(v) for k, v in b.items()})
         losses.append(float(m["loss"]))
     np.testing.assert_allclose(results[0]["llama3-8b"]["losses"], losses, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", FISSION_ARCHS)
+def test_fissioned_sharded_step_matches_unfissioned(ranks, name):
+    """Rule A on the mesh: the fissioned microbatch loop gives the
+    unfissioned one's losses (1e-5) and parameters (1e-4): the same float32
+    arithmetic, the microbatches' gathers done in one."""
+    results = ranks[3]
+    for r in results:
+        fis, plain = (r[name][f"microbatched_fission_{f}"] for f in (True, False))
+        np.testing.assert_allclose(fis["losses"], plain["losses"], rtol=0, atol=1e-5)
+    fis, plain = (results[0][name][f"microbatched_fission_{f}"] for f in (True, False))
+    for path, a in jax.tree_util.tree_flatten_with_path(plain["params"])[0]:
+        b = dict(jax.tree_util.tree_flatten_with_path(fis["params"])[0])[path]
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-4, err_msg=str(path))
+
+
+@pytest.mark.parametrize("name", FISSION_ARCHS)
+def test_fissioned_sharded_step_gathers_once_a_step(ranks, name):
+    """Each rank executes the gather query once a step fissioned (one
+    ``batched_gather`` launch on the card) and once a microbatch not."""
+    for r in ranks[3]:
+        assert r[name]["microbatched_fission_True"]["gathers"] == [1, 1]
+        assert r[name]["microbatched_fission_False"]["gathers"] == [MICROBATCHES] * 2
+
+
+@pytest.mark.parametrize("name", FISSION_ARCHS)
+def test_fissioned_sharded_step_matches_jax_fissioned(ranks, name):
+    """Against the JAX package's unsharded ``make_train_step`` with the
+    same 4 microbatches, fissioned: losses within 1e-4."""
+    np_params, batches, _moe, results = ranks
+    ja, _ta = _archs(name, query_embedding=True, remat=False)
+    init, step = jmake_train_step(ja, jopt.AdamWConfig(lr=LR),
+                                  JTSConfig(microbatches=MICROBATCHES, fission=True,
+                                            donate=False))
+    jp = jax.tree_util.tree_map(jnp.asarray, np_params[name])
+    state, losses = init(jp), []
+    for b in batches:
+        jp, state, m = step(jp, state, {k: jnp.asarray(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    got = results[0][name]["microbatched_fission_True"]["losses"]
+    np.testing.assert_allclose(got, losses, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("name", ["llama3-8b", "deepseek-moe-16b"])

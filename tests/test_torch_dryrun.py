@@ -89,14 +89,21 @@ def test_each_option_traces_on_fake_ranks(name, opt, kind, b):
     loop, not the model's products; a rank's share of the small ones can
     move, as mamba2's decode with its state split over ``model``, or
     deepseek's router and capacity per microbatch), and for each its own
-    effect on the row."""
+    effect on the row.  Under ``kv_seq_shard`` a rank's decode attention
+    covers half the rows (the default layout's covers all of them on each
+    ``model`` rank, its caches replicated there), so those flops halve."""
     base = _cell(name, kind, b=b)
     row = _cell(name, kind, b=b, opts=frozenset({opt}))
     assert row["opts"] == [opt]
     flops = base["flops_per_device"]
+    if opt == "kv_seq_shard":  # each rank decodes its half of the rows
+        assert _decode_flops(row) * 2 == _decode_flops(base)
+        flops -= _decode_flops(base) / 2
     assert abs(row["flops_per_device"] - flops) <= 1e-2 * flops
     if opt == "kv_seq_shard":  # the cache split over `model` too
         assert row["argument_size_bytes"] < base["argument_size_bytes"]
+        assert row["live_bytes"] <= base["live_bytes"]
+        _assert_split_kv_counts(row, base, _attention_layers(name))
     elif opt == "int8_moments":  # 1 byte + a float32 scale per 64, not 4 bytes, per moment
         assert row["argument_size_bytes"] < base["argument_size_bytes"]
     elif opt == "microbatch8":  # one FSDP gather of each weight per microbatch
@@ -106,6 +113,46 @@ def test_each_option_traces_on_fake_ranks(name, opt, kind, b):
     else:  # the port's decode writes its cache in place anyway; flash is chunked anyway
         assert row["argument_size_bytes"] == base["argument_size_bytes"]
         assert row["live_bytes"] == base["live_bytes"]
+
+
+def _decode_flops(row) -> float:
+    """A row's flops in the decode kernels' ops."""
+    return sum(f for op, f in row["flops_by_op"].items() if op.startswith("decode_attention"))
+
+
+def _attention_layers(name: str) -> int:
+    """Decode attentions a step: every layer of a dense, MoE or hybrid
+    stack; an encoder-decoder's self and cross attention; none in mamba2."""
+    cfg = _reduced(name).cfg
+    if cfg.is_encoder_decoder:
+        return 2 * cfg.n_layers
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def _assert_split_kv_counts(row, base, n_attn: int) -> None:
+    """The split-KV decode against the default layout: three all-reduces
+    over ``model`` (max, sum, out) per attention, and no all-gather over
+    ``model`` that the default layout does not make (q's, which both
+    make): no KV cache is gathered."""
+    got, want = row["collectives_by_axis"], base["collectives_by_axis"]
+    assert got.get("all-reduce@model", 0) - want.get("all-reduce@model", 0) == 3 * n_attn
+    if n_attn:
+        assert got.get("all-gather@model", 0) == want.get("all-gather@model", 0)
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "seamless-m4t-medium"])
+def test_kv_seq_shard_decode_splits_each_attention(name):
+    """hymba's ring layers and seamless's self and cross attention under
+    ``kv_seq_shard``: the split-KV decode's three all-reduces over
+    ``model`` for each, and no more live bytes than the default layout."""
+    base = _cell(name, "decode")
+    row = _cell(name, "decode", opts=frozenset({"kv_seq_shard"}))
+    assert row["live_bytes"] <= base["live_bytes"]
+    got, want = row["collectives_by_axis"], base["collectives_by_axis"]
+    n_attn = _attention_layers(name)
+    assert got["all-reduce@model"] - want["all-reduce@model"] == 3 * n_attn
+    if name == "seamless-m4t-medium":  # no SSM state, whose heads hymba gathers
+        assert got["all-gather@model"] == want["all-gather@model"]
 
 
 def test_each_moe_call_holds_one_all_reduce_over_model(monkeypatch):
@@ -155,6 +202,8 @@ def test_custom_op_flop_formulas_equal_hand_counts():
     cache = torch.empty(b, 32, hkv, d)
     assert f[ops.decode_attention](torch.empty(b, hq, d), cache, cache,
                                    torch.empty(b), None, None, None) == 4 * b * hq * d * 32
+    assert f[ops.decode_attention_lse](torch.empty(b, hq, d), cache, cache,
+                                       torch.empty(b)) == 4 * b * hq * d * 32
 
 
 def test_op_cost_counts_a_custom_op_once_on_real_tensors():
@@ -239,6 +288,8 @@ def test_decode_op_equals_the_launch_it_wraps(dtype):
 
 
 def _rule_cases(dtype):
+    from repro_torch.kernels.decode_attention.ops import decode_op
+
     g = torch.Generator(device="cuda").manual_seed(1)
 
     def r(*s):
@@ -248,10 +299,9 @@ def _rule_cases(dtype):
     return [
         ("flash", ops.flash_attention.default, (r(2, 4, 32, 64), r(2, 2, 32, 64),
                                                 r(2, 2, 32, 64), True, 0, None)),
-        ("decode", ops.decode_attention.default, (r(2, 4, 64), r(2, 16, 2, 64), r(2, 16, 2, 64),
-                                                  torch.tensor([3, 16], device="cuda",
-                                                               dtype=torch.int32),
-                                                  None, None, None)),
+        # the decode op has no DTensor rule: decode_op runs it on the shards
+        ("decode", decode_op, (r(2, 4, 64), r(2, 16, 2, 64), r(2, 16, 2, 64),
+                               torch.tensor([3, 16], device="cuda", dtype=torch.int32))),
     ]
 
 

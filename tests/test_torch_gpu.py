@@ -222,6 +222,37 @@ def test_decode_kernel_matches_plain(gen, dtype, t, shape):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 32, 8, 128, 256), (3, 4, 2, 64, 130),
+                                   (2, 16, 1, 16, 77), (1, 16, 1, 128, 512)])
+def test_decode_kernel_lse_matches_plain(gen, dtype, shape):
+    """``return_lse``: the output is the same bits as the launch without
+    it, and the float32 log-sum-exp is the plain version's within 1e-4
+    (both sum exponentials in float32 from the same operands), ``-inf``
+    for a length-0 lane; one launch a call."""
+    b, hq, hkv, d, t = shape
+    lengths = ([0, t, 1] + [int(x) for x in np.linspace(2, t - 1, max(b - 3, 0))])[:b]
+    if b == 1:
+        lengths = [t - 5]
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, t, hkv, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    before = decode_attention_cuda.launches
+    out, lse = decode_attention_cuda(q, k, v, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq)
+    assert torch.equal(out, decode_attention_cuda(q, k, v, lens))
+    want_out, want_lse = decode_ref(q, k, v, lens, return_lse=True)
+    tol = TOLS[dtype]
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+    if 0 in lengths:
+        assert bool(torch.isneginf(lse[lengths.index(0)]).all())
+    live = lens > 0
+    torch.testing.assert_close(lse[live], want_lse[live], rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 257, 512])

@@ -151,6 +151,31 @@ def test_decode_ragged_lengths_match_jnp_ref_and_pallas(t):
     np.testing.assert_allclose(got[1:], want[1:], **DECODE_TOL)
 
 
+@pytest.mark.parametrize("t", [32, 128])
+def test_decode_lse_matches_jnp_logsumexp(t):
+    """``decode_ref(..., return_lse=True)``: the output is the op's, and the
+    log-sum-exp is ``jax.nn.logsumexp`` of the reference's scaled scores
+    over ``[0, lengths)`` (the Pallas kernel returns none), ``-inf`` for a
+    length-0 lane."""
+    rng = np.random.default_rng(100 + t)
+    b, hq, hkv, d = 5, 8, 2, 32
+    q = rng.standard_normal((b, hq, d), dtype=np.float32)
+    k = rng.standard_normal((b, t, hkv, d), dtype=np.float32)
+    v = rng.standard_normal((b, t, hkv, d), dtype=np.float32)
+    lengths = np.array([0, 1, t, 7, t - 3], np.int32)
+    out, lse = decode_ref(_t(q), _t(k), _t(v), _t(lengths), return_lse=True)
+    np.testing.assert_array_equal(out.numpy(), decode_ref(_t(q), _t(k), _t(v),
+                                                          _t(lengths)).numpy())
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq)
+    qg = jnp.asarray(q).reshape(b, hkv, hq // hkv, d)
+    scores = jnp.einsum("bkgd,btkd->bkgt", qg, jnp.asarray(k)) / np.sqrt(d)
+    valid = jnp.arange(t)[None, :] < jnp.asarray(lengths)[:, None]
+    want = jax.nn.logsumexp(jnp.where(valid[:, None, None, :], scores, -jnp.inf), axis=-1)
+    want = np.asarray(want).reshape(b, hq)
+    assert np.isneginf(lse[0].numpy()).all() and np.isneginf(want[0]).all()
+    np.testing.assert_allclose(lse[1:].numpy(), want[1:], **DECODE_TOL)
+
+
 def test_decode_split_sizes_fill_the_card():
     """Cluster size and keys per block of the CUDA kernel: the dense
     engine's 8 lanes get 256 blocks of 128 keys, the batch-1 chunk side the

@@ -344,13 +344,47 @@ def test_donate_writes_in_place_and_only_then(reduced):
         assert (new is params) == donate
 
 
-def test_mesh_is_not_ported():
-    """On a mesh only the fissioned microbatch loop is not ported: it
-    raises instead of running unfissioned."""
-    _ja, ta = _archs()
-    with pytest.raises(ValueError, match="fission"):
-        make_train_step(ta, topt.AdamWConfig(), TrainStepConfig(microbatches=4, fission=True),
-                        mesh=object())
+def test_mesh_step_fissions_its_microbatch_loop():
+    """``make_train_step(..., mesh=)`` with 4 microbatches and
+    ``fission=True`` runs, and fissions: on a ``fake`` process group of 4
+    ranks (mesh (2, 2), as the dry run traces) the step finds the one query
+    and batches it, so the gather runs once a step instead of once a
+    microbatch.  The numbers against the unfissioned and the JAX steps are
+    ``test_torch_distributed.py``'s, on real ranks."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.core import query
+    from repro_torch.distributed.sharding import batch_placements, distribute_params
+    from repro_torch.launch.dryrun import fake_process_group
+    from repro_torch.launch.mesh import make_test_mesh
+
+    _ja, ta = _archs(query_embedding=True, remat=False)
+    reports, gathers, inner = [], [], query.gather_op
+
+    def reported(f, init, xs, *, fission=True, length=None):
+        assert fission
+        rep = fission_mod.FissionReport()
+        reports.append(rep)
+        return fission_mod.fission_scan(f, init, xs, length=length, report=rep)
+
+    with fake_process_group(4), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(query, "gather_op", lambda *a: (gathers.append(1), inner(*a))[1])
+        mesh = make_test_mesh(2, 2, device_type="cpu")
+        for fission in (False, True):
+            mp.setattr(step_mod, "scan_with_queries", reported if fission else
+                       fission_mod.scan_with_queries)
+            params = distribute_params(mesh, ta.init(0, "cpu"))
+            init, step = make_train_step(ta, topt.AdamWConfig(lr=LR),
+                                         TrainStepConfig(microbatches=4, fission=fission),
+                                         mesh=mesh)
+            batch = {k: distribute_tensor(torch.from_numpy(v), mesh,
+                                          batch_placements(mesh, v.shape), src_data_rank=None)
+                     for k, v in _tokens(1).items()}
+            gathers.clear()
+            _p, _s, m = step(params, init(params), batch)
+            assert set(m) >= {"loss", "ce", "aux"}
+            assert len(gathers) == (1 if fission else 4)
+    assert [(r.n_queries_found, r.n_queries_batched) for r in reports] == [(1, 1)]
 
 
 def _leaves(tree):
