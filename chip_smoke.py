@@ -39,13 +39,20 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    any attention kernel must give the same bits; its time, the plain
    version's, one library call's as a yardstick where one exists (never
    called by the port) and the least time the card could take
-   (``bound_ms``);
+   (``bound_ms``); rows 1 and 3b again inside one captured CUDA graph of
+   100 back-to-back launches, operands cold and in L2 (sub-rows 1j, 3j;
+   3j's library time is row 3b's SDPA call in the same kind of graph);
 4. serving paths — llama3-8b at full width (32 layers, bf16, weights
    drawn from seed 0 on the card) served through
    ``ContinuousBatchingScheduler``, 32 new tokens a request, three paths,
    each with every kernel launch count zeroed just before it and read
    just after, and held to exact counts (one launch per layer per
-   dispatch or per token):
+   dispatch or per token).  Every engine dispatch but the prefill is a
+   compiled step (``serving/graphs.py``) captured as a CUDA graph when
+   the engine is built: each path also checks that its engine's tick and
+   chunk steps were captured, that every decode tick was one replay of
+   the tick and, where it feeds tokens through ``_extend``, every such
+   token one replay of a chunk step (replays count their launches):
    a. main — the synchronous path, ``PagedInferenceEngine``, 16 requests:
       ``paged_decode_attention`` = decode steps x 32, ``flash_attention``
       = prefill dispatches x 32;
@@ -81,6 +88,10 @@ Phases, each ending in ``torch.cuda.synchronize()``:
       request a prefill, fault-free and inside ``ChaosEngine`` (seeded
       decode and prefill faults) with ``Resilience``: faults of both
       kinds, quarantined lanes, spills = restores, streams equal 16/16;
+   s. graphs — a, b and d again under ``graphs.eager()`` (every compiled
+      step run as plain ops on its static buffers, the counterpart of
+      ``jax.disable_jit``): the same greedy tokens and the same exact
+      launch counts as the graphed runs, both walls and tokens/s printed;
    then mamba2-1.3b at full width (48 layers, bf16, weights drawn from
    seed 0 on the card) through ``InferenceEngine(n_lanes=8,
    max_prompt_len=2048, max_len=2080)``:
@@ -136,15 +147,22 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    text path's prefill and paged tick, seamless-m4t's prefill and a
    step;
 6. profile — ``torch.profiler`` over one full-width llama3-8b prefill
-   dispatch, a few decode ticks, one fused tick (a 64-token prompt chunk
-   folded into the decode) and one ``_shared_tail`` beside a flash
-   prefill of the same prompt, then one mamba2 prefill dispatch and a
-   few of its decode ticks: host wall time, device busy time, the kernels
-   that take the most of it, ``paged_decode_attention``'s device time in
-   a decode tick, ``decode_attention``'s in the tail and ``ssd_scan``'s
-   share of the prefill; then one deepseek-moe-16b decode tick: wall,
-   busy time, kernels, the MoE layers' device time and the routed expert
-   weights' byte bound;
+   dispatch, a few decode ticks (graph replays), one fused tick (a
+   64-token prompt chunk folded into the decode: 64 chunk-step replays
+   and a tick replay) and one ``_shared_tail`` beside a flash prefill of
+   the same prompt, then one mamba2 prefill dispatch and a few of its
+   decode ticks: host wall time, device busy time, the kernels that take
+   the most of it, ``paged_decode_attention``'s device time in a decode
+   tick, ``decode_attention``'s in the tail and ``ssd_scan``'s share of
+   the prefill; each tick's, the fused tick's and the tail's wall also
+   without the profiler, replayed and under ``graphs.eager()``; then
+   deepseek-moe-16b's decode tick the same way, and one eager tick:
+   wall, busy time, kernels, the MoE layers' device time and the routed
+   expert weights' byte bound; and the device memory a llama3-8b paged
+   engine takes while it is built and its graphs captured, with a page
+   pool of 0.6 of the free memory: the peak above what was allocated
+   before, against the pool's own bytes (fails at 1.1 x the pool), then
+   4 ticks on it;
 7. reduced check — the reduced llama3-8b in float32 served on the card
    with the kernels against the same model served on the CPU with the
    plain versions, on the synchronous paged path, the dense engine, the
@@ -662,7 +680,103 @@ def phase_kernels(timer):
         rows[name]["sub_rows"] = sub
     rows["flash_attention"]["sub_rows"].append(_sharded_flash_row(timer, gen))
     rows["decode_attention"]["sub_rows"].append(_split_kv_row(timer, gen, rng))
+    for name, sub in _in_graph_rows(timer, gen, rng).items():
+        rows[name]["sub_rows"].append(sub)
     return rows
+
+
+def _graph_ms(fns, n: int) -> float:
+    """Device time of one of ``n`` back-to-back calls captured in one CUDA
+    graph, call i being ``fns[i % len(fns)]`` (median of 5 replays, CUDA
+    events around each).  The capture's launches are tallied apart:
+    timing is no path's."""
+    import torch
+    from repro_torch.kernels import registry
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), registry.capture_tally():
+        fns[0]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with registry.capture_tally(), torch.cuda.graph(graph):
+        for i in range(n):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    ms = float(np.median([a.elapsed_time(b) for a, b in times])) / n
+    del graph
+    return ms
+
+
+def _in_graph_rows(timer, gen, rng) -> dict:
+    """Sub-rows 1j and 3j: rows 1 (paged decode, the tick's shape) and 3b
+    (decode at B 1, the chunk step's) timed inside one captured CUDA graph
+    of 100 back-to-back launches, where no host launch sits between two
+    kernels.  ``ms``: each launch on its own copy of q, K and V, the
+    copies cycled so that they exceed twice the 50 MB L2 and every launch
+    finds its operands in device memory, as rows 1 and 3b do after their
+    flush; ``warm_ms``: every launch on the same operands, left in L2;
+    ``eager_ms``: rows 1 and 3b's event-timed lone launch.  ``eager_ms``
+    less ``ms`` is the device-side cost of a lone launch; the plain
+    version and the bound as for the rows.  3j's ``library_ms`` is row
+    3b's yardstick, SDPA with the boolean mask, in the same kind of graph
+    on the same cycled copies (row 1 has no library call)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention_cuda
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
+
+    n, out = 100, {}
+    q, kp, vp, tabs, lens = _paged_case(gen, rng, 8, 32, 8, 128, 16, 32, torch.bfloat16)
+    dq, dk, dv, dlen = _decode_case(gen, rng, 1, 32, 8, 512, 128, torch.bfloat16)
+    valid = (torch.arange(512, device="cuda")[None, :] < dlen[:, None].long())
+
+    def sdpa(c):  # row 3b's library call
+        return F.scaled_dot_product_attention(
+            c[0][:, :, None], c[1].transpose(1, 2), c[2].transpose(1, 2),
+            attn_mask=valid[:, None, None, :], enable_gqa=True)[:, :, 0]
+
+    cases = (  # (row, label, kernel on a copy, plain, library on a copy, copies,
+        #         valid keys, other bytes)
+        ("paged_decode_attention", "1j paged, 100 launches in one graph B 8 32/8 ps 16 NP 32",
+         lambda c: paged_decode_attention_cuda(c[0], c[1], c[2], tabs, lens),
+         lambda: paged_decode_ref(q, kp, vp, tabs, lens), None, (q, kp, vp), 8,
+         int(lens.sum()), q.numel() * 2 * 2 + tabs.numel() * 4 + lens.numel() * 4),
+        ("decode_attention", "3j decode B 1, 100 launches in one graph 32/8 T 512",
+         lambda c: decode_attention_cuda(c[0], c[1], c[2], dlen),
+         lambda: decode_ref(dq, dk, dv, dlen), sdpa, (dq, dk, dv), 64,
+         int(dlen.sum()), dq.numel() * 2 * 2 + 4))
+    for name, label, kern, plain, lib, ops, n_copies, kv_tokens, small_bytes in cases:
+        copies = [ops] + [tuple(t.clone() for t in ops) for _ in range(n_copies - 1)]
+        err = _compare(f"{name} bf16 ({label[:2]})", kern(copies[-1]), plain(), 1e-2, 1e-2)
+        bound = _bound(small_bytes + 2 * kv_tokens * 8 * 128 * 2, 4 * 32 * 128 * kv_tokens)
+        library_ms = None
+        if lib is not None:
+            _compare(f"scaled_dot_product_attention (yardstick, {label[:2]}) vs plain",
+                     lib(copies[-1]), plain(), 1e-2, 1e-2)
+            library_ms = _graph_ms([lambda c=c: lib(c) for c in copies], n)
+        row = _sub_row(label, err, _graph_ms([lambda c=c: kern(c) for c in copies], n),
+                       timer.ms(plain), bound, library_ms)
+        row["warm_ms"] = _graph_ms([lambda: kern(ops)], n)
+        row["eager_ms"] = timer.ms(lambda: kern(ops))
+        log(f"[kernels] {label}: in a graph {row['ms']!r} ms a launch (operands from device "
+            f"memory), {row['warm_ms']!r} ms (operands in L2), against {row['eager_ms']!r} "
+            f"ms for one event-timed launch after a flush")
+        del copies
+        out[name] = row
+    return out
 
 
 def _split_kv_row(timer, gen, rng):
@@ -1237,15 +1351,35 @@ def _async_requests(Request, vocab: int, max_new: int = 32):
             for i, m in enumerate(lens)]
 
 
+# Each serving run's streams, launches, wall and tokens by label, for
+# phase 4s's comparison of the graphed runs with their eager() twins.
+RUNS: dict = {}
+
+
+def _replays(eng) -> tuple[int, int]:
+    """(tick replays, chunk-step replays) of an engine's compiled
+    dispatches so far (``serving/graphs.py``)."""
+    return (eng._tick_step.replays,
+            sum(s.replays for s in eng._chunk_steps.values()))
+
+
 def _drive(label, eng, sched, reqs, device):
     """Submit ``reqs`` at once and drain them, with every launch count set
     to 0 just before and read just after.  Checks that each request got
-    its tokens, all in the vocabulary; logs tokens/s, TTFT and the
-    counters.  Returns (launch counts, wall seconds)."""
+    its tokens, all in the vocabulary, and, on the card outside
+    ``graphs.eager()``, that every decode tick was one replay of the
+    engine's captured tick; logs tokens/s, TTFT, the counters and the
+    graph replays.  Returns (launch counts, wall seconds)."""
     import torch
     from repro_torch.kernels import registry
+    from repro_torch.serving import graphs
 
     vocab = eng.arch.cfg.vocab_size
+    graphed = device == "cuda" and not graphs.is_eager()
+    if graphed and not (eng._tick_step.captured
+                        and all(s.captured for s in eng._chunk_steps.values())):
+        fail(f"{label}: the engine's dispatches were not captured as graphs")
+    replays0, steps0 = _replays(eng), eng.decode_steps
     _sync(device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1260,6 +1394,7 @@ def _drive(label, eng, sched, reqs, device):
     wall = time.perf_counter() - t0
     launches = registry.launch_counts()
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    replays = tuple(b - a for a, b in zip(replays0, _replays(eng)))
     for r in reqs:
         if (len(r.generated) != r.max_new_tokens
                 or not all(0 <= t < vocab for t in r.generated)):
@@ -1270,13 +1405,28 @@ def _drive(label, eng, sched, reqs, device):
     log(f"[{label}] prompt lengths {[len(r.prompt) for r in reqs]}")
     log(f"[{label}] launches {launches}; decode_steps {eng.decode_steps}, "
         f"dispatches {eng.dispatches}, prefill_calls {eng.prefill_calls}, "
-        f"scheduler ticks {sched.stats.decode_ticks}")
+        f"scheduler ticks {sched.stats.decode_ticks}; graph replays: tick {replays[0]}, "
+        f"chunk step {replays[1]} ({'graphs' if graphed else 'eager'})")
     log(f"[{label}] {len(reqs)} requests, {n_tok} tokens in {wall!r} s: "
         f"{n_tok / wall!r} tokens/s; TTFT p50 {float(np.median(ttft)) * 1e3!r} ms, "
         f"max {ttft[-1] * 1e3!r} ms; decode ticks {eng.decode_steps}; "
         f"dispatches {eng.dispatches}; peak memory {peak / 2**30!r} GiB")
     log(f"[{label}] admission trace {sched.stats.admission_trace}")
+    if graphed and replays[0] != eng.decode_steps - steps0:
+        fail(f"{label}: {replays[0]} tick replays for {eng.decode_steps - steps0} decode "
+             "ticks")
+    RUNS[label] = dict(streams=[list(r.generated) for r in reqs], launches=launches,
+                       wall=wall, tokens=n_tok, chunk_replays=replays[1])
     return launches, wall
+
+
+def _expect_chunk_replays(label, fed: int, device) -> None:
+    """On the card outside ``graphs.eager()``: each token fed through
+    ``_extend`` was one replay of a captured chunk step."""
+    from repro_torch.serving import graphs
+    got = RUNS[label]["chunk_replays"]
+    if device == "cuda" and not graphs.is_eager() and got != fed:
+        fail(f"{label}: {got} chunk-step replays for {fed} tokens fed through _extend")
 
 
 def _expect(label, launches, want: dict) -> None:
@@ -1376,6 +1526,7 @@ def phase_async(arch, params, device="cuda", chunk: int = 256, label="async"):
     _expect(label, launches, {"paged_decode_attention": eng.decode_steps * L,
                                 "flash_attention": n_prefill[0] * L,
                                 "decode_attention": fed[0] * L, "ssd_scan": 0})
+    _expect_chunk_replays(label, fed[0], device)
     _sync(device)
     return launches, wall
 
@@ -1421,7 +1572,7 @@ def _ttft_ms(reqs) -> str:
     return f"p50 {float(np.median(ttft))!r} ms, max {ttft[-1]!r} ms ({len(reqs)} requests)"
 
 
-def phase_prefix(arch, params, device="cuda"):
+def phase_prefix(arch, params, device="cuda", suffix: str = ""):
     """A chat service whose requests share one system prompt: the paged
     engine with ``prefix_share=True`` on the synchronous path.  The first
     request prefills whole (flash); every later one aliases the 12
@@ -1436,7 +1587,7 @@ def phase_prefix(arch, params, device="cuda"):
 
     L = arch.cfg.n_layers
     out, streams, moved = {}, {}, {}
-    for label, share in (("prefix", True), ("prefix-unshared", False)):
+    for label, share in (("prefix" + suffix, True), ("prefix-unshared" + suffix, False)):
         eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256, max_len=512,
                                    page_size=16, prefix_share=share, device=device)
         sched = ContinuousBatchingScheduler(
@@ -1444,7 +1595,7 @@ def phase_prefix(arch, params, device="cuda"):
         n_prefill = _count_calls(eng, "_prefill")
         hit_rids = []
         _count_calls(eng, "_admit_prefix_hit", lambda r, *_a: hit_rids.append(r.rid) or 1)
-        tail = _count_calls(eng, "_shared_tail", lambda _i, toks, _s: int(toks.shape[1]))
+        tail = _count_calls(eng, "_shared_tail", lambda _i, toks, *_r: int(toks.shape[1]))
         reqs = _prefix_requests(Request, arch.cfg.vocab_size)
         out[label], wall = _drive(label, eng, sched, reqs, device)
         streams[label] = [r.generated for r in reqs]
@@ -1463,17 +1614,48 @@ def phase_prefix(arch, params, device="cuda"):
                                     "decode_attention": tail[0] * L,
                                     "paged_decode_attention": eng.decode_steps * L,
                                     "ssd_scan": 0})
+        _expect_chunk_replays(label, tail[0], device)
         if share and (eng.prefix_hits < 1 or sched.stats.prefix_hits != eng.prefix_hits):
             fail("prefix: no prefix hit, or the scheduler's count differs from the engine's")
-    if moved["prefix"] >= moved["prefix-unshared"]:
+    if moved["prefix" + suffix] >= moved["prefix-unshared" + suffix]:
         fail("prefix: sharing did not move fewer KV bytes than the unshared run")
-    a, b = streams["prefix"], streams["prefix-unshared"]
+    a, b = streams["prefix" + suffix], streams["prefix-unshared" + suffix]
     log(f"[prefix] against the unshared run: first tokens equal in "
         f"{sum(x[0] == y[0] for x, y in zip(a, b))}/{len(a)} requests, whole streams in "
         f"{sum(x == y for x, y in zip(a, b))}/{len(a)} (bf16: near-ties may differ; not "
-        f"gated); kv_bytes_moved {moved['prefix']} against {moved['prefix-unshared']}")
+        f"gated); kv_bytes_moved {moved['prefix' + suffix]} against "
+        f"{moved['prefix-unshared' + suffix]}")
     _sync(device)
     return out
+
+
+def phase_graph_twins(arch, params, device="cuda"):
+    """4s. The compiled dispatches against their ``graphs.eager()`` twins
+    (the counterpart of ``jax.disable_jit``: every step runs as plain ops
+    on its static buffers): phases 4a, 4b and 4d again, eagerly, on the
+    same weights and traffic, held to the graphed runs those phases made:
+    the same greedy tokens and the same exact launch counts (a replay
+    counts its kernels), both walls and tokens/s printed."""
+    from repro_torch.serving import graphs
+
+    with graphs.eager():
+        phase_main_path(arch, params, device, label="main-eager")
+        phase_async(arch, params, device, label="async-eager")
+        phase_prefix(arch, params, device, suffix="-eager")
+    for label in ("main", "async", "prefix", "prefix-unshared"):
+        g, e = RUNS[label], RUNS[label + "-eager"]
+        same = sum(a == b for a, b in zip(g["streams"], e["streams"]))
+        log(f"[graphs] {label}: graphs {g['tokens']} tokens in {g['wall']!r} s "
+            f"({g['tokens'] / g['wall']!r} tokens/s), eager() {e['tokens']} tokens in "
+            f"{e['wall']!r} s ({e['tokens'] / e['wall']!r} tokens/s): wall ratio "
+            f"{e['wall'] / g['wall']!r}; greedy streams equal in {same}/{len(g['streams'])}, "
+            f"launch counts {'equal' if g['launches'] == e['launches'] else 'DIFFER'}")
+        if same != len(g["streams"]) or g["tokens"] != e["tokens"]:
+            fail(f"graphs: {label}'s greedy tokens differ from its eager() twin's")
+        if g["launches"] != e["launches"]:
+            fail(f"graphs: {label}'s launch counts {g['launches']} differ from its eager() "
+                 f"twin's {e['launches']}")
+    _sync(device)
 
 
 def phase_spill(arch, params, device="cuda", n_pages: int = 128):
@@ -2037,6 +2219,7 @@ def phase_ssm_async(arch, params, device="cuda", chunk: int = 1024):
         fail("ssm-async: dispatches != prefills + extends + decode ticks")
     _expect("ssm-async", launches, {"ssd_scan": n_prefill[0] * L, "flash_attention": 0,
                                     "decode_attention": 0, "paged_decode_attention": 0})
+    _expect_chunk_replays("ssm-async", fed[0], device)
     _sync(device)
     return launches, wall
 
@@ -2294,6 +2477,7 @@ def phase_hymba_chunked(arch, params, device="cuda", chunk: int = 512, n: int = 
     _expect("hymba-chunked", launches, {"flash_attention": L, "ssd_scan": L,
                                         "decode_attention": (fed[0] + eng.decode_steps) * L,
                                         "paged_decode_attention": 0})
+    _expect_chunk_replays("hymba-chunked", fed[0], device)
     _sync(device)
     return launches, wall
 
@@ -2619,11 +2803,13 @@ def phase_prefix_check(arch, params, device="cuda"):
     dense cache, the tail fed through ``decode_step``) against a flash
     prefill of the same whole prompt, same weights (phase 5's gate, 0.05 x
     max |logit|).  Then what the tail costs: wall time of one
-    ``_shared_tail`` and of one flash prefill dispatch of the whole prompt,
+    ``_shared_tail`` (chunk-step replays, and under ``graphs.eager()``) and
+    of one flash prefill dispatch of the whole prompt,
     and, on the card, both under the profiler with ``decode_attention``'s
     launches and device time in the tail."""
     import torch
     from repro_torch.models import transformer as tf
+    from repro_torch.serving import graphs
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
 
@@ -2645,8 +2831,9 @@ def phase_prefix_check(arch, params, device="cuda"):
                    "prompt", kern, full)
     walls = {}
     for label, fn in (("_shared_tail", lambda: eng._shared_tail(idx, tail, start)),
+                      ("eager", lambda: eng._shared_tail(idx, tail, start)),
                       ("flash prefill dispatch", lambda: eng.prefill_dispatch([hit]))):
-        with torch.no_grad():
+        with torch.no_grad(), graphs.eager() if label == "eager" else contextlib.nullcontext():
             fn()
             _sync(device)
             t0 = time.perf_counter()
@@ -2655,7 +2842,8 @@ def phase_prefix_check(arch, params, device="cuda"):
             _sync(device)
         walls[label] = (time.perf_counter() - t0) / 3 * 1e3
     log(f"[profile] prefix hit, {tail.shape[1]}-token tail: _shared_tail "
-        f"{walls['_shared_tail']!r} ms wall, a flash prefill dispatch of the whole "
+        f"{walls['_shared_tail']!r} ms wall (chunk-step replays; under eager() "
+        f"{walls['eager']!r} ms), a flash prefill dispatch of the whole "
         f"{len(hit.prompt)}-token prompt {walls['flash prefill dispatch']!r} ms wall "
         "(no profiler, mean of 3)")
     if device != "cuda":
@@ -2771,13 +2959,37 @@ def _window(label, fn, n):
     return rows
 
 
+def _tick_walls(label, eng, ticks: int) -> None:
+    """Host wall time of a decode tick, no profiler, mean of ``ticks``: the
+    captured tick replayed, then the same tick under ``graphs.eager()``."""
+    import torch
+    from repro_torch.serving import graphs
+
+    walls = {}
+    for mode in ("graph replay", "eager()"):
+        with graphs.eager() if mode == "eager()" else contextlib.nullcontext():
+            eng.decode_tick()  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                eng.decode_tick()
+            torch.cuda.synchronize()
+        walls[mode] = (time.perf_counter() - t0) / ticks * 1e3
+    log(f"[profile] {label}, no profiler (mean of {ticks}): graph replay "
+        f"{walls['graph replay']!r} ms wall, eager() {walls['eager()']!r} ms wall")
+
+
 def phase_profile(arch, params, ticks: int = 8):
     """Where a decode tick's time goes at full width: host wall time per
-    tick against the device time ``torch.profiler`` records (busy share),
-    and the kernels that take the most device time; the same for one
-    prefill dispatch of 8 prompts.  Runs after the main path, so its
-    launches are not in the main path's counts."""
+    tick, replayed and under ``graphs.eager()``, against the device time
+    ``torch.profiler`` records for the replayed tick (busy share), and the
+    kernels that take the most of it; the same for one prefill dispatch
+    of 8 prompts and for one fused tick (a 64-token chunk folded into the
+    decode: 64 chunk-step replays and one tick replay), whose wall is also
+    taken under ``eager()``.  Runs after the main path, so its launches
+    are not in the main path's counts."""
     import torch
+    from repro_torch.serving import graphs
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
 
@@ -2793,27 +3005,81 @@ def phase_profile(arch, params, ticks: int = 8):
         eng.commit_prefill(eng.prefill_dispatch(reqs))
         for _ in range(2):
             eng.decode_tick()  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            eng.decode_tick()
-        torch.cuda.synchronize()
-        log(f"[profile] decode tick, 8 lanes, no profiler: "
-            f"{(time.perf_counter() - t0) / ticks * 1e3!r} ms wall (mean of {ticks})")
-        rows = _window(f"decode tick, 8 lanes (mean of {ticks})", eng.decode_tick, ticks)
+        _tick_walls("decode tick, 8 lanes", eng, ticks)
+        rows = _window(f"decode tick (graph replay), 8 lanes (mean of {ticks})",
+                       eng.decode_tick, ticks)
         paged = [(ms, c) for key, ms, c in rows if "paged_cluster_kernel" in key]
         log(f"[profile] decode tick: paged_decode_attention {sum(ms for ms, _c in paged)!r} "
             f"ms device time in {sum(c for _ms, c in paged)} launches per tick")
-        # One fused tick of the asynchronous path: the 8 lanes' paged decode
+        # Fused ticks of the asynchronous path: the 8 lanes' paged decode
         # plus a 64-token prompt chunk fed through the dense decode path.
         prompt = np.random.default_rng(2).integers(
             0, arch.cfg.vocab_size, size=320).astype(np.int32)
-        staged = eng.prefill_dispatch([Request(rid=99, prompt=prompt)], chunk=256)
-        torch.cuda.synchronize()
-        if not eng.stage_chunk(staged):
-            fail("profile: the fused tick declined the chunk")
-        _window("fused tick, 8 lanes + a 64-token chunk", eng.decode_tick, 1)
+        walls = {}
+        for mode in ("eager()", "graph replay", "profiled"):
+            staged = eng.prefill_dispatch([Request(rid=99, prompt=prompt)], chunk=256)
+            torch.cuda.synchronize()
+            if not eng.stage_chunk(staged):
+                fail("profile: the fused tick declined the chunk")
+            if mode == "profiled":
+                _window("fused tick (graph replays), 8 lanes + a 64-token chunk",
+                        eng.decode_tick, 1)
+                continue
+            with graphs.eager() if mode == "eager()" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                eng.decode_tick()
+                torch.cuda.synchronize()
+            walls[mode] = (time.perf_counter() - t0) * 1e3
+        log(f"[profile] fused tick, 8 lanes + a 64-token chunk, no profiler: graph replays "
+            f"{walls['graph replay']!r} ms wall, eager() {walls['eager()']!r} ms wall")
     torch.cuda.synchronize()
+
+
+def phase_build_memory(arch, params, share: float = 0.6, ticks: int = 4):
+    """6m. Device memory a paged engine takes while it is built: a page
+    pool of ``share`` of the free memory, its tick and chunk steps
+    captured.  The warm-up before each capture writes into the zeroed
+    cache and zeroes it again, with no copy of it, so the peak above what
+    was allocated before is the pool plus the staging caches and the
+    graphs' memory; fails at 1.1 x the pool.  Then ``ticks`` ticks on 8
+    admitted prompts, with finite logits."""
+    import torch
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    cfg, ps = arch.cfg, 16
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    item = torch.empty((), dtype=cfg.cdtype).element_size()
+    page = cfg.n_layers * 2 * ps * cfg.n_kv_heads * cfg.hd * item  # K and V of every layer
+    n_pages = int(share * free / page)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256, max_len=512,
+                               page_size=ps, n_pages=n_pages)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    pool = sum(a.numel() * a.element_size() for a in _leaves(eng.cache))
+    log(f"[memory] {cfg.name} paged engine, {n_pages} pages of {page} bytes ({share} of "
+        f"{free} free bytes): built and captured in {build_s!r} s; peak {peak} bytes above "
+        f"the {before} allocated before, against the pool's {pool} bytes "
+        f"({peak / pool!r} x)")
+    if peak >= 1.1 * pool:
+        fail(f"memory: building the engine took {peak / pool!r} x its pool's bytes")
+    reqs = _requests(Request, cfg.vocab_size, n=8)
+    with torch.no_grad():
+        eng.commit_prefill(eng.prefill_dispatch(reqs))
+        for _ in range(ticks):
+            eng.decode_tick()
+        if not bool(torch.isfinite(eng._tick_step.out[0]).all()):
+            fail("memory: the large-pool engine's tick logits are not finite")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_ssm_profile(arch, params, ticks: int = 4):
@@ -2837,27 +3103,25 @@ def phase_ssm_profile(arch, params, ticks: int = 4):
         eng.commit_prefill(eng.prefill_dispatch(reqs))
         for _ in range(2):
             eng.decode_tick()  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            eng.decode_tick()
-        torch.cuda.synchronize()
-        log(f"[profile] mamba2 decode tick, 8 lanes, no profiler: "
-            f"{(time.perf_counter() - t0) / ticks * 1e3!r} ms wall (mean of {ticks})")
-        _window(f"mamba2 decode tick, 8 lanes (mean of {ticks})", eng.decode_tick, ticks)
+        _tick_walls("mamba2 decode tick, 8 lanes", eng, ticks)
+        _window(f"mamba2 decode tick (graph replay), 8 lanes (mean of {ticks})",
+                eng.decode_tick, ticks)
     torch.cuda.synchronize()
 
 
 def phase_moe_profile(arch, params, ticks: int = 4):
-    """One full-width deepseek-moe-16b decode tick of 8 lanes under the
-    profiler: host wall time, device busy time, kernel count, the device
-    time of the MoE layers (kernels launched inside ``moe``, through a
+    """One full-width deepseek-moe-16b decode tick of 8 lanes: its wall
+    replayed and under ``graphs.eager()``, the replayed tick under the
+    profiler (wall, busy time, kernels); then one tick under ``eager()``
+    and the profiler: host wall time, device busy time, kernel count, the
+    device time of the MoE layers (kernels launched inside ``moe``, through a
     ``record_function`` range around each call) and the least time that
     reading every routed expert's weights once takes (the capacity form
     runs every expert over its slots each tick)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.models import transformer as tf
+    from repro_torch.serving import graphs
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
 
@@ -2877,14 +3141,11 @@ def phase_moe_profile(arch, params, ticks: int = 4):
         eng.commit_prefill(eng.prefill_dispatch(_requests(Request, cfg.vocab_size, n=8)))
         for _ in range(2):
             eng.decode_tick()  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            eng.decode_tick()
-        torch.cuda.synchronize()
-        log(f"[profile] {cfg.name} decode tick, 8 lanes, no profiler: "
-            f"{(time.perf_counter() - t0) / ticks * 1e3!r} ms wall (mean of {ticks})")
-        with mock.patch.object(tf, "moe", moe_range), \
+        _tick_walls(f"{cfg.name} decode tick, 8 lanes", eng, ticks)
+        _window(f"{cfg.name} decode tick (graph replay), 8 lanes (mean of {ticks})",
+                eng.decode_tick, ticks)
+        # The MoE layers' ranges exist only where moe() is called: eagerly.
+        with graphs.eager(), mock.patch.object(tf, "moe", moe_range), \
                 profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             eng.decode_tick()
@@ -2901,8 +3162,8 @@ def phase_moe_profile(arch, params, ticks: int = 4):
                  if e.key == "moe_layer" and e.device_type.name == "CPU") / 1e3
     span = sum(e.self_device_time_total for e in events
                if e.key == "moe_layer" and e.device_type.name == "CUDA") / 1e3
-    log(f"[profile] {cfg.name} decode tick under the profiler: {wall!r} ms wall, "
-        f"{busy!r} ms device busy ({busy / wall!r} busy share), "
+    log(f"[profile] {cfg.name} decode tick under eager() and the profiler: {wall!r} ms "
+        f"wall, {busy!r} ms device busy ({busy / wall!r} busy share), "
         f"{sum(e.count for e in kernels)} kernels")
     log(f"[profile]   MoE layers ({n_moe}): "
         + (f"{moe_ms!r} ms of kernels ({moe_ms / busy!r} of the busy time), spanning "
@@ -4464,10 +4725,13 @@ def main() -> None:
     paths["model-service"] = phase_model_service(arch, params)
     log(f"[chaos] on {smi}")
     paths.update(phase_chaos(arch, params))
+    log(f"[graphs] on {smi}")
+    phase_graph_twins(arch, params)
     phase_logits_check(arch, params)
     log(f"[check] on {smi}")
     phase_prefix_check(arch, params)
     phase_profile(arch, params)
+    phase_build_memory(arch, params)
     del params
     gc.collect()  # engines and their threads can hold the weights in cycles
     torch.cuda.empty_cache()

@@ -18,9 +18,19 @@ clear them, so a run can show that it went through the kernels.  All
 three hold one lock: the scheduler's speculation thread and the main
 thread launch kernels at the same time, and a bare ``+= 1`` can lose an
 update.
+
+A CUDA graph's capture runs the wrappers without launching anything, and
+its replays launch without calling them.  So while a thread captures
+(:func:`capture_tally`), its ``count_launch`` calls go into that capture's
+tally instead of the counts, and each replay adds the tally once
+(:func:`add_launches`).  The counts keep meaning launches that ran.  The
+tally is per thread: the speculation thread launches while the main
+thread may capture, so a before-and-after difference of the counts would
+take in the other thread's launches.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Callable, Optional
@@ -29,7 +39,8 @@ import numpy as np
 import torch
 
 __all__ = ["KernelOp", "OpSample", "register", "get", "names", "dispatch",
-           "count_launch", "launch_counts", "reset_launches"]
+           "count_launch", "launch_counts", "reset_launches", "capture_tally",
+           "add_launches"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +76,7 @@ class KernelOp:
 
 _OPS: dict[str, KernelOp] = {}
 _LAUNCH_LOCK = threading.Lock()
+_CAPTURE = threading.local()  # .tally: this thread's capture tally, or None
 
 
 def register(name: str, *, ref: Callable, kernel: Callable,
@@ -119,9 +131,35 @@ def dispatch(name: str, args: tuple, *, common: Optional[dict] = None):
 
 def count_launch(kernel: Callable) -> None:
     """Add one to ``kernel.launches``; every wrapper calls this right
-    after its launch succeeds."""
+    after its launch succeeds.  Inside :func:`capture_tally` on this
+    thread the launch was only recorded into a graph, and it goes into the
+    capture's tally instead."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[kernel] = tally.get(kernel, 0) + 1
+        return
     with _LAUNCH_LOCK:
         kernel.launches += 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Collect this thread's ``count_launch`` calls into the yielded
+    ``{kernel: launches}`` dict instead of the counts (a graph capture;
+    module docstring).  Other threads keep counting as before."""
+    prev = getattr(_CAPTURE, "tally", None)
+    _CAPTURE.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = prev
+
+
+def add_launches(tally: dict) -> None:
+    """Add a capture's tally to the counts: once per replay of its graph."""
+    with _LAUNCH_LOCK:
+        for kernel, n in tally.items():
+            kernel.launches += n
 
 
 def launch_counts() -> dict[str, int]:

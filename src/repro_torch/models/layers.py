@@ -155,8 +155,14 @@ def apply_mrope(q: torch.Tensor, k: torch.Tensor, positions3: torch.Tensor,
     if sum(sections) != d // 2:
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not cover d/2 = {d // 2}")
     inv = rope_freqs(d, theta, device=q.device)               # (d/2,)
-    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
-                          device=q.device)                    # (d/2,) row of each frequency
+    # (d/2,) row of each frequency, built on the device: no host copy, so
+    # a CUDA graph of the decode step can hold it.
+    idx = torch.arange(d // 2, device=q.device)
+    sec_id = torch.zeros_like(idx)
+    edge = 0
+    for n in sections[:-1]:
+        edge += n
+        sec_id += (idx >= edge).long()
     pos = positions3.float()[sec_id]                          # (d/2, B, S)
     ang = pos.permute(1, 2, 0) * inv                          # (B, S, d/2)
     cos = torch.cos(ang)[:, :, None, :]

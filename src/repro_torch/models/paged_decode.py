@@ -49,40 +49,60 @@ from repro_torch.models.transformer import (
 __all__ = ["supports_paged_decode", "paged_decode_step", "sample_tokens"]
 
 
-def _mix(seed: int, position: int) -> int:
-    """A 64-bit seed that is a function of (seed, position) only
-    (splitmix64's finalizer over the packed pair)."""
-    z = ((seed & 0xFFFFFFFF) << 32 | (position & 0xFFFFFFFF))
-    z = (z + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    return z ^ (z >> 31)
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in ``[0, 2**32)``, in halves of
+    16 bits so that no product leaves the int64 range."""
+    return ((x & 0xFFFF) * c + (((x >> 16) * (c & 0xFFFF)) << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer (a bijection with full avalanche) on
+    int64 tensors holding 32-bit values."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _uniforms(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(B, V) float32 uniforms in ``[0, 1)``, a counter hash of (seed,
+    position, vocabulary index) alone: the hash's top 24 bits over
+    ``2**24``, exact in float32."""
+    key = _fmix32(_fmix32(seeds.long() & _M32) ^ (positions.long() & _M32))
+    col = _fmix32(torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+                  * 0x9E3779B9 & _M32)
+    h = _fmix32(key[:, None] ^ col[None, :])
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
 def sample_tokens(logits: torch.Tensor, temps, seeds, lengths) -> torch.Tensor:
-    """Per-lane next-token selection for the decode megabatch.
+    """Per-lane next-token selection for the decode megabatch, on the
+    logits' device and with no host sync (a CUDA graph holds it).
 
-    ``logits`` (B, V); ``temps``/``seeds``/``lengths`` (B,).  Temperature-0
-    lanes take ``argmax`` (first maximum on ties, as ``jnp.argmax``).  A
-    positive-temperature lane draws from the temperature-scaled
-    categorical with a ``torch.Generator`` seeded from (seed, position)
-    alone, so the draw at a given token index repeats across batch
-    compositions and lane assignments.  It keeps the reference's contract,
-    not its bits: the reference draws with threefry keys.
+    ``logits`` (B, V); ``temps``/``seeds``/``lengths`` (B,), tensors or
+    arrays.  Temperature-0 lanes take ``argmax`` (first maximum on ties,
+    as ``jnp.argmax``).  A positive-temperature lane draws from the
+    temperature-scaled categorical by Gumbel-max: ``argmax(logits / T -
+    log(-log(u)))`` with ``u`` from :func:`_uniforms`, a function of
+    (seed, position, vocabulary index) alone, so the draw at a given token
+    index repeats across batch compositions, lane assignments and
+    spill/restore.  It keeps the reference's contract, not its bits: the
+    reference draws with threefry keys.
     """
-    out = logits.argmax(dim=-1).to(torch.int32)
-    temps = torch.as_tensor(temps).tolist()
-    hot = [i for i, t in enumerate(temps) if t > 0]
-    if not hot:
-        return out
-    seeds = torch.as_tensor(seeds).tolist()
-    lengths = torch.as_tensor(lengths).tolist()
-    for i in hot:
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(_mix(int(seeds[i]), int(lengths[i])))
-        probs = torch.softmax(logits[i].float() / max(temps[i], 1e-6), dim=-1)
-        out[i] = torch.multinomial(probs, 1, generator=gen)[0].to(torch.int32)
-    return out
+    dev = logits.device
+    temps = torch.as_tensor(temps, device=dev)
+    seeds = torch.as_tensor(seeds, device=dev)
+    lengths = torch.as_tensor(lengths, device=dev)
+    greedy = logits.argmax(dim=-1)
+    u = _uniforms(seeds, lengths, logits.shape[-1])
+    gumbel = -torch.log(-torch.log(u))  # u = 0 gives -inf: never drawn
+    scaled = logits.float() / temps.float().clamp_min(1e-6)[:, None]
+    drawn = (scaled + gumbel).argmax(dim=-1)
+    return torch.where(temps > 0, drawn, greedy).to(torch.int32)
 
 
 def supports_paged_decode(cfg: ModelConfig) -> bool:

@@ -23,7 +23,7 @@ from repro_torch.models import encdec as _encdec
 from repro_torch.models import transformer as _tf
 from repro_torch.models.config import ModelConfig, ShapeSpec
 
-__all__ = ["Arch", "get_arch", "ARCH_IDS"]
+__all__ = ["Arch", "get_arch", "list_archs", "ARCH_IDS"]
 
 ARCH_IDS = [
     "chatglm3-6b",
@@ -133,3 +133,8 @@ def get_arch(name: str) -> Arch:
     mod_name = name.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return Arch(cfg=mod.CONFIG)
+
+
+def list_archs() -> list[str]:
+    """The names :func:`get_arch` takes, in :data:`ARCH_IDS` order."""
+    return list(ARCH_IDS)

@@ -25,6 +25,29 @@ place.  Lane state (``lengths``, ``last_token``, ``active``) lives on the
 host as numpy arrays and is uploaded once per tick; the reference keeps
 ``lengths``/``last_token`` as device arrays.
 
+**Compiled dispatches** (:mod:`repro_torch.serving.graphs`, the
+counterpart of the reference's ``jax.jit``).  At construction the engine
+builds two kinds of :class:`~repro_torch.serving.graphs.CompiledStep`,
+each captured as one CUDA graph on the card:
+
+* the tick: one ``decode_step`` over the engine's cache, whose address is
+  fixed for the engine's life, with the token and lengths in static
+  buffers; the host's lane arrays are copied in before each replay and
+  the next tokens read back after it;
+* the chunk step, under ``_extend`` (chunked prefill, the fused tick's
+  chunk side, the paged engine's prefix tail): one batch-1 ``decode_step``
+  over a staging cache of ``max_len`` rows, reading token ``j`` of a
+  static token buffer at a position counter on the device and advancing
+  both, so a chunk of C tokens is C replays.  The staged prefill's cache
+  is copied into the staging cache before them and back after them.
+
+There is one chunk step per stream the engine issues on (the main
+stream's, and on the card the engine's own stream's, on which the
+speculation thread resumes chunks), each held by its lock from copy-in
+to the enqueue of copy-out.  The tick and the main stream's chunk step
+share a graph memory pool; the other chunk step, which replays beside
+them, has its own.
+
 **Streams.**  Dispatch on the card is asynchronous as in JAX, and the
 scheduler's speculation thread dispatches prefills while the main thread
 runs a decode tick.  Work issued by ``prefill_dispatch`` and
@@ -53,14 +76,48 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as _tf
 from repro_torch.models.registry import Arch
+from repro_torch.serving import graphs
 
-__all__ = ["HostSpillPool", "InferenceEngine", "KVPartition", "StagedPrefill"]
+__all__ = ["HostSpillPool", "InferenceEngine", "KVPartition", "StagedPrefill",
+           "proportional_shares"]
 
 _SHARED = "__shared__"  # KVPartition pool key for unreserved lanes
 
 
 def _bucket(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
+
+
+def proportional_shares(weights: Mapping[str, float], n_lanes: int,
+                        reserve: float = 0.5) -> dict[str, int]:
+    """Derive ``kv_shares`` from :class:`LanePolicy` ``lane_weights``.
+
+    Distributes ``floor(n_lanes * reserve)`` reserved lanes across the
+    weighted templates proportionally to their weights (largest-remainder
+    rounding, name breaking ties), leaving the rest as the shared pool —
+    so the templates the operator already marked as mattering
+    (``lane_weights``) get KV residency guarantees in the same proportion
+    as their service shares.  Zero-lane templates are dropped from the map
+    (they use the shared pool like any unreserved template).
+    """
+    if not 0.0 <= reserve <= 1.0:
+        raise ValueError("reserve must be in [0, 1]")
+    budget = int(n_lanes * reserve)
+    if not weights or budget <= 0:
+        return {}
+    for t, w in weights.items():
+        if w <= 0:
+            raise ValueError(f"weights[{t!r}] must be > 0, got {w}")
+    total = float(sum(weights.values()))
+    quotas = {t: budget * w / total for t, w in weights.items()}
+    shares = {t: int(q) for t, q in quotas.items()}
+    remaining = budget - sum(shares.values())
+    for t in sorted(quotas, key=lambda t: (-(quotas[t] - shares[t]), t)):
+        if remaining <= 0:
+            break
+        shares[t] += 1
+        remaining -= 1
+    return {t: s for t, s in shares.items() if s > 0}
 
 
 class HostSpillPool:
@@ -336,7 +393,8 @@ class InferenceEngine:
     without CUDA the caller passes ``device="cpu"``.  ``kv_shares``
     reserves decode lanes per template (:class:`KVPartition`);
     ``kv_spill`` stages retired lanes' KV in host memory for
-    :meth:`try_restore`.
+    :meth:`try_restore`.  Construction builds the compiled dispatches
+    (module docstring), capturing their graphs on the card.
     """
 
     arch: Arch
@@ -349,6 +407,12 @@ class InferenceEngine:
     device: str = "cuda"
 
     def __post_init__(self):
+        self._setup()
+        self._compile()
+
+    def _setup(self) -> None:
+        """Lanes, cache, counters and streams (subclasses extend this; the
+        compiled dispatches are built after it, over the final cache)."""
         self.device = resolve_device(self.device)
         where = self.params["embed"]["table"].device
         if where.type != self.device.type:
@@ -429,18 +493,85 @@ class InferenceEngine:
         return last.argmax(dim=-1).to(torch.int32), cache
 
     def _extend(self, cache: dict, toks: np.ndarray, lengths: torch.Tensor):
-        """Feed ``toks`` (B, C) — C further prompt tokens per row — through
-        the decode path one position at a time, extending ``cache`` in
-        place from ``lengths``: exactly the computation prefill performs
-        for those positions, split in time (the reference's ``lax.scan``).
-        Returns (logits of the last position, cache, advanced lengths)."""
-        tok = torch.as_tensor(toks, device=self.device)
-        logits = None
-        for j in range(tok.shape[1]):
-            logits, cache = self.arch.decode_step(self.params, tok[:, j], cache,
-                                                  lengths)
-            lengths = lengths + 1
+        """Feed ``toks`` (1, C) — C further prompt tokens of one row —
+        through the decode path one position at a time, extending the
+        batch-1 ``cache`` in place from ``lengths`` (1,): exactly the
+        computation prefill performs for those positions, split in time
+        (the reference's ``lax.scan``).  C replays of the current stream's
+        chunk step, between a copy of ``cache`` into its staging cache and
+        one back (none when ``cache`` is the staging cache).  Returns
+        (logits of the last position, cache, advanced lengths)."""
+        toks = np.asarray(toks, np.int32)
+        c = toks.shape[1]
+        if toks.shape[0] != 1 or c >= self.max_len:
+            raise ValueError(f"_extend feeds one row of fewer than max_len "
+                             f"{self.max_len} tokens, got {toks.shape}")
+        step = self._chunk_step()
+        staging = step.staging
+        with step.exclusive():
+            if cache is not staging:
+                _copy_cache(staging, cache)
+            inputs = step.inputs
+            inputs.put("j", [0])
+            inputs.put("toks", toks[0])
+            inputs.upload(2 + c)  # j, a stale length, the chunk's tokens
+            inputs["length"].copy_(lengths.reshape(1))
+            for _ in range(c):
+                step()
+            logits = step.out.clone() if c else None
+            lengths = inputs["length"].clone()
+            if cache is not staging:
+                _copy_cache(cache, staging)
         return logits, cache, lengths
+
+    # ------------------------------------------------------ compiled steps
+    def _compile(self) -> None:
+        """Build the tick and the chunk steps (module docstring)."""
+        pool = graphs.new_pool(self.device)
+        self._tick_step = self._make_tick(pool)
+        self._chunk_steps = {None: self._make_chunk(pool)}
+        if self._stream is not None:
+            self._chunk_steps[self._stream] = self._make_chunk(None)
+
+    def _make_tick(self, pool) -> graphs.CompiledStep:
+        """The dense tick: ``decode_step`` over every lane of the cache →
+        (logits (n_lanes, V), argmax tokens (n_lanes,) int32)."""
+        inputs = graphs.StaticInputs({"token": (self.n_lanes,),
+                                      "lengths": (self.n_lanes,)}, self.device)
+        arch, params, cache = self.arch, self.params, self.cache
+
+        def tick():
+            logits, _ = arch.decode_step(params, inputs["token"], cache, inputs["lengths"])
+            return logits, logits.argmax(dim=-1).to(torch.int32)
+
+        return graphs.CompiledStep(tick, inputs, _tensors(cache), self.device, pool)
+
+    def _make_chunk(self, pool) -> graphs.CompiledStep:
+        """One batch-1 ``decode_step`` over a staging cache of ``max_len``
+        rows: token ``toks[j]`` at position ``length``, then ``j`` and
+        ``length`` advance on the device → logits (1, V)."""
+        staging = self.arch.init_cache(1, self.max_len, self.device)
+        inputs = graphs.StaticInputs({"j": (1,), "length": (1,), "toks": (self.max_len,)},
+                                     self.device)
+        arch, params = self.arch, self.params
+
+        def chunk_step():
+            tok = inputs["toks"].index_select(0, inputs["j"])
+            logits, _ = arch.decode_step(params, tok, staging, inputs["length"])
+            inputs["length"].add_(1)
+            inputs["j"].add_(1)
+            return logits
+
+        step = graphs.CompiledStep(chunk_step, inputs, _tensors(staging), self.device, pool)
+        step.staging = staging
+        return step
+
+    def _chunk_step(self) -> graphs.CompiledStep:
+        """The chunk step of the stream the caller issues on."""
+        if self._stream is not None and \
+                torch.cuda.current_stream(self.device) == self._stream:
+            return self._chunk_steps[self._stream]
+        return self._chunk_steps[None]
 
     # ------------------------------------------------------------- admission
     def _check_prompts(self, requests: Sequence) -> None:
@@ -626,14 +757,15 @@ class InferenceEngine:
     def decode_tick(self) -> dict[int, int]:
         """One batched decode step over all lanes → ``{lane: token}``.
         Every lane decodes (inactive lanes' rows are rewritten by the next
-        commit); lengths stop at ``max_len - 1``."""
+        commit); lengths stop at ``max_len - 1``.  One replay of the tick
+        step between copying the lane arrays in and the tokens out."""
         if not self.active.any():
             return {}
-        dev = self.device
-        logits, self.cache = self.arch.decode_step(
-            self.params, torch.as_tensor(self.last_token, device=dev), self.cache,
-            torch.as_tensor(self.lengths, device=dev))
-        nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        step = self._tick_step
+        step.inputs.put("token", self.last_token)
+        step.inputs.put("lengths", self.lengths)
+        step.inputs.upload()
+        nxt = step()[1].cpu().numpy()
         self._count_dispatch()
         self.lengths = np.where(self.active,
                                 np.minimum(self.lengths + 1, self.max_len - 1),
@@ -719,6 +851,18 @@ class InferenceEngine:
     def free_lanes(self) -> list[int]:
         """Sorted snapshot of every free lane."""
         return self.partition.free_lanes
+
+
+def _copy_cache(dst: dict, src: dict) -> None:
+    """Copy every leaf of ``src`` into the leaf of ``dst`` of the same
+    stack and name, in place (equal shapes)."""
+    for name, stack in dst.items():
+        for key, d in stack.items():
+            s = src[name][key]
+            if s.shape != d.shape:
+                raise ValueError(f"cache {name}/{key}: {tuple(s.shape)} does not fit "
+                                 f"the staging cache's {tuple(d.shape)}")
+            d.copy_(s)
 
 
 def _tensors(tree):

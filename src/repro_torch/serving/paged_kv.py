@@ -36,6 +36,18 @@ block table references it and the pool never allocates it.  On top:
   reference counts its one fused program.  The chunk side runs on the
   main stream after waiting for the staged prefill's event.
 
+The paged tick is a compiled dispatch (:mod:`repro_torch.serving.graphs`,
+the reference's ``_paged``): one CUDA graph on the card of
+:func:`~repro_torch.models.paged_decode.paged_decode_step` and
+:func:`~repro_torch.models.paged_decode.sample_tokens` over static
+buffers for the tokens, lengths, active flags, block tables, temperatures
+and seeds.  Restore tails, table growth, copy-on-write forks and the
+block tables stay host work before the replay, as they are host work
+around the reference's jitted call.  Spill and restore write the page
+arrays in place and never reallocate them: the graph reads them at
+their addresses.  The fused tick's chunk side and the prefix tail run
+the inherited chunk step, C replays for C tokens.
+
 Architectures paged decode cannot cover (SSM and hybrid state, sliding
 windows) keep the reference's dense-compute mode: the per-lane cache
 stays, page frames are the identity (``lane * pages_per_lane + j``),
@@ -51,7 +63,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from collections import OrderedDict
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,6 +74,7 @@ from repro_torch.models.paged_decode import (
     sample_tokens,
     supports_paged_decode,
 )
+from repro_torch.serving import graphs
 from repro_torch.serving.engine import (
     InferenceEngine,
     KVPartition,
@@ -432,8 +445,8 @@ class PagedInferenceEngine(InferenceEngine):
     n_pages: Optional[int] = None
     prefix_share: bool = False
 
-    def __post_init__(self):
-        super().__post_init__()
+    def _setup(self) -> None:
+        super()._setup()
         if self.max_len % self.page_size:
             raise ValueError("page_size must divide max_len")
         if self.prefetch_pages < 1:
@@ -653,24 +666,39 @@ class PagedInferenceEngine(InferenceEngine):
             self.prefix_index.remove(owner)
 
     def _shared_tail(self, prefix_idx: torch.Tensor, tail: np.ndarray,
-                     start: int):
-        """Prefix-hit tail prefill: gather the aliased pages
-        ``prefix_idx`` into a zeroed dense batch-1 cache of ``max_len``
-        rows, then feed the novel ``tail`` (1, T) through the decode path
-        (:meth:`_extend`) from position ``start``, computing exactly the
-        positions the alias did not cover.  Returns (the last position's
-        logits (1, V), the dense cache)."""
-        dcache = {}
-        for name, stack in self.cache.items():
-            dcache[name] = {}
-            for key, a in stack.items():
-                pre = a[:, prefix_idx].reshape(a.shape[0], 1, -1, *a.shape[3:])
-                dense = torch.zeros((a.shape[0], 1, self.max_len) + tuple(a.shape[3:]),
-                                    dtype=a.dtype, device=a.device)
-                dense[:, :, : pre.shape[2]] = pre
-                dcache[name][key] = dense
-        logits, dcache, _ = self._extend(
-            dcache, tail, torch.tensor([start], dtype=torch.int32, device=self.device))
+                     start: int, tail_pages: Sequence[int] = ()):
+        """Prefix-hit tail prefill: zero the chunk step's batch-1 staging
+        cache of ``max_len`` rows and gather the aliased pages
+        ``prefix_idx`` straight into it, then feed the novel ``tail`` (1,
+        T) through the decode path (:meth:`_extend`) from position
+        ``start``, computing exactly the positions the alias did not cover.
+        Under the same hold of the step, scatter the staging cache's pages
+        after the aliased ones into the frames ``tail_pages`` and count
+        their bytes (the aliased pages cost zero bytes by construction).
+        Returns (the last position's logits (1, V), the staging cache, whose
+        rows last until the chunk step's next use)."""
+        step = self._chunk_step()
+        dcache = step.staging
+        k, ps = len(prefix_idx), self.page_size
+        with step.exclusive():
+            for name, stack in self.cache.items():
+                for key, a in stack.items():
+                    pre = a[:, prefix_idx].reshape(a.shape[0], 1, -1, *a.shape[3:])
+                    dense = dcache[name][key]
+                    dense[:, :, : pre.shape[2]] = pre
+                    dense[:, :, pre.shape[2]:].zero_()
+            logits, dcache, _ = self._extend(
+                dcache, tail, torch.tensor([start], dtype=torch.int32, device=self.device))
+            if len(tail_pages):
+                n = len(tail_pages)
+                idx = torch.as_tensor(np.asarray(tail_pages), device=self.device)
+                for name, stack in self.cache.items():
+                    for key, dst in stack.items():
+                        s = dcache[name][key][:, 0, k * ps: (k + n) * ps]
+                        dst[:, idx] = s.reshape(s.shape[0], n, ps, *s.shape[2:]).to(dst.dtype)
+                for a in _tensors(dcache):
+                    self.kv_bytes_moved += (a.element_size() * a.shape[0]
+                                            * n * ps * math.prod(a.shape[3:]))
         return logits, dcache
 
     def _admit_prefix_hit(self, r, template: Optional[str],
@@ -700,23 +728,12 @@ class PagedInferenceEngine(InferenceEngine):
         self.pool.pin(lane)
         self._lane_meta[lane] = (getattr(r, "rid", lane), template)
         pages = self.pool.pages(lane)
-        logits, dcache = self._shared_tail(
-            torch.as_tensor(pages[:k], device=self.device),
-            np.ascontiguousarray(prompt[None, shared_rows:], np.int32), shared_rows)
-        self._count_dispatch()
-        # Scatter only the tail pages into their frames; the k aliased
-        # pages cost zero bytes by construction.
         npg = max(1, self.pool.pages_for(plen))
-        if npg > k:
-            idx = torch.as_tensor(pages[k:npg], device=self.device)
-            for name, stack in self.cache.items():
-                for key, dst in stack.items():
-                    s = dcache[name][key][:, 0, k * ps: npg * ps]
-                    dst[:, idx] = s.reshape(s.shape[0], npg - k, ps,
-                                            *s.shape[2:]).to(dst.dtype)
-            for a in _tensors(dcache):
-                self.kv_bytes_moved += (a.element_size() * a.shape[0]
-                                        * (npg - k) * ps * math.prod(a.shape[3:]))
+        logits, _ = self._shared_tail(
+            torch.as_tensor(pages[:k], device=self.device),
+            np.ascontiguousarray(prompt[None, shared_rows:], np.int32), shared_rows,
+            pages[k:npg])
+        self._count_dispatch()
         self.prefix_index.insert(lane, prompt)
         first = int(logits.argmax(dim=-1)[0])
         r.lane = lane
@@ -865,15 +882,14 @@ class PagedInferenceEngine(InferenceEngine):
                 part.first = clogits.argmax(dim=-1).to(torch.int32)
             self._mark(part)
             self.fused_folds += 1
-        dev = self.device
-        tables = self._device_tables()
-        lengths = torch.as_tensor(self.lengths, device=dev)
-        logits, self.cache = paged_decode_step(
-            self.arch.cfg, self.params,
-            torch.as_tensor(self.last_token, device=dev), self.cache, tables,
-            lengths, torch.as_tensor(self.active, device=dev))
-        nxt = sample_tokens(logits, self.lane_temps, self.lane_seeds,
-                            self.lengths).cpu().numpy()
+        inputs = self._tick_step.inputs
+        inputs.put("token", self.last_token)
+        inputs.put("lengths", self.lengths)
+        inputs.put("active", self.active)
+        inputs.put("temps", self.lane_temps)
+        inputs.put("seeds", self.lane_seeds)
+        self._device_tables()
+        nxt = self._tick_step()[1].cpu().numpy()
         self._count_dispatch()
         self.lengths = np.where(self.active,
                                 np.minimum(self.lengths + 1, self.max_len - 1),
@@ -882,16 +898,40 @@ class PagedInferenceEngine(InferenceEngine):
         self.decode_steps += 1
         return {int(lane): int(nxt[lane]) for lane in np.nonzero(self.active)[0]}
 
+    def _make_tick(self, pool) -> graphs.CompiledStep:
+        """The paged tick (the reference's ``_paged``): ``paged_decode_step``
+        over the page arrays and ``sample_tokens`` → (logits (n_lanes, V),
+        tokens (n_lanes,) int32).  Dense-compute mode keeps the dense tick."""
+        if not self.paged_compute:
+            return super()._make_tick(pool)
+        n = self.n_lanes
+        inputs = graphs.StaticInputs(
+            {"token": (n,), "lengths": (n,), "active": (n,), "seeds": (n,),
+             "temps": ((n,), torch.float32), "tables": (n, self.pages_per_lane)},
+            self.device)
+        cfg, params, cache = self.arch.cfg, self.params, self.cache
+
+        def tick():
+            lengths = inputs["lengths"]
+            logits, _ = paged_decode_step(cfg, params, inputs["token"], cache,
+                                          inputs["tables"], lengths, inputs["active"] != 0)
+            return logits, sample_tokens(logits, inputs["temps"], inputs["seeds"], lengths)
+
+        return graphs.CompiledStep(tick, inputs, _tensors(cache), self.device, pool)
+
     def _device_tables(self) -> torch.Tensor:
-        """All lanes' block tables as one (n_lanes, pages_per_lane) int32
-        tensor on the device (tableless lanes read page 0, masked by
-        length)."""
-        tabs = np.zeros((self.n_lanes, self.pages_per_lane), np.int32)
+        """All lanes' block tables into the tick's static (n_lanes,
+        pages_per_lane) int32 buffer (tableless lanes read page 0, masked by
+        length), uploaded with the tick's other static inputs in one copy.
+        Returns the device buffer."""
+        tabs = self._tick_step.inputs.host_view("tables")
+        tabs[:] = 0
         for lane in range(self.n_lanes):
             if self.pool.has_table(lane):
                 pages = self.pool.pages(lane)
                 tabs[lane, : len(pages)] = pages
-        return torch.as_tensor(tabs, device=self.device)
+        self._tick_step.inputs.upload()
+        return self._tick_step.inputs["tables"]
 
     def _cow_guard(self, lane: int, length: int) -> None:
         """Copy-on-write fence for this tick's KV write: if the page

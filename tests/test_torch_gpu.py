@@ -16,6 +16,7 @@ card has none.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -1698,3 +1699,214 @@ def _unflat(flat):
             node = node.setdefault(k, {})
         node[leaf] = v
     return tree
+
+
+# ------------------------------------------------ compiled dispatches (graphs)
+
+GRAPH_ARCHS = ("llama3-8b", "deepseek-moe-16b", "mamba2-1.3b", "hymba-1.5b")
+
+
+def _graph_drive(arch, params, kind):
+    """One reduced run on the card through ``serving/graphs.py``'s steps:
+    ``main`` (synchronous paged engine), ``async`` (``overlap=True`` with
+    chunks, fused where the arch pages its compute), ``prefix``
+    (``prefix_share``) or ``spill`` (an oversubscribed pool, or in
+    dense-compute mode ``lane_timeout``).  Returns (streams, counters,
+    launches, the engine)."""
+    from repro_torch.core.strategies import GrowingUpperThreshold, OneOrAll
+    from repro_torch.serving.engine import HostSpillPool
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    paged = arch.cfg.name.startswith(("llama", "deepseek"))
+    ekw = dict(n_lanes=3, max_prompt_len=16, max_len=48, page_size=8)
+    skw, strat = {}, GrowingUpperThreshold(initial_upper=2)
+    rng = np.random.default_rng(4)
+    lens, new = (4, 9, 3, 12, 6), 8
+    if kind == "async":
+        skw, lens = dict(overlap=True, chunk_tokens=4), (5, 13, 7, 15, 3, 11)
+    elif kind == "prefix":  # a 16-token prefix (2 pages) and tails of 3-12 tokens
+        ekw.update(n_lanes=4, max_prompt_len=32, prefix_share=True)
+    elif kind == "spill":
+        strat, lens, new = OneOrAll(), (6, 5, 9), 16
+        ekw["kv_spill"] = HostSpillPool(8)
+        if paged:
+            ekw.update(max_len=32, n_pages=6, prefetch_pages=2)
+        else:
+            skw = dict(lane_timeout=3)
+    prefix = rng.integers(1, 200, size=16)
+    prompts = [np.concatenate([prefix, rng.integers(1, 200, size=n)]) if kind == "prefix"
+               else rng.integers(1, 200, size=n) for n in lens]
+    eng = PagedInferenceEngine(arch, params, device="cuda", **ekw)
+    sched = ContinuousBatchingScheduler(eng, strategy=strat, **skw)
+    reqs = [Request(rid=i, prompt=p.astype(np.int32), max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    registry.reset_launches()
+    for r in reqs:
+        sched.submit(r)
+    sched.producer_done()
+    sched.run_until_drained(max_ticks=2000)
+    torch.cuda.synchronize()
+    counters = {a: getattr(eng, a) for a in ("dispatches", "decode_steps", "fused_folds",
+                                             "kv_bytes_moved", "prefix_hits")}
+    counters.update(spilled=sched.stats.kv_spilled, restored=sched.stats.kv_restored,
+                    spec_chunks=sched.stats.spec_chunks)
+    return [r.generated for r in reqs], counters, registry.launch_counts(), eng
+
+
+@pytest.mark.parametrize("name, kind", [
+    (n, k) for n in GRAPH_ARCHS for k in ("main", "async", "prefix", "spill")
+    if k != "prefix" or n in ("llama3-8b", "deepseek-moe-16b")])
+def test_graphs_match_eager_on_card(gen, name, kind):
+    """Reduced configs in float32 on the card: the captured dispatches give
+    ``eager()``'s streams, counters and launch counts exactly (replays
+    count their kernels), on the main, async, prefix-hit and spill paths;
+    the graphs were captured and replayed."""
+    from repro_torch.serving import graphs
+
+    arch, cpu_params = _reduced(name)
+    params = _to(cpu_params, "cuda")
+    got = _graph_drive(arch, params, kind)
+    with graphs.eager():
+        want = _graph_drive(arch, params, kind)
+    assert got[:3] == want[:3]
+    eng = got[3]
+    assert eng._tick_step.captured and all(s.captured for s in eng._chunk_steps.values())
+    assert eng._tick_step.replays == got[1]["decode_steps"]
+    assert want[3]._tick_step.replays == 0  # run under eager(): nothing replayed
+    if kind == "async":
+        assert got[1]["spec_chunks"] >= 2
+        assert sum(s.replays for s in eng._chunk_steps.values()) > 0
+    if kind == "prefix":
+        assert got[1]["prefix_hits"] >= 2
+    if kind == "spill":
+        assert got[1]["restored"] == got[1]["spilled"] >= 1
+
+
+@pytest.mark.parametrize("name", GRAPH_ARCHS)
+def test_graph_tick_logits_equal_eager(gen, name):
+    """The second tick's logits from the replayed graph against the same
+    tick under ``eager()`` on an engine given the same prompts: within
+    1e-3 x max |logit| (expected equal: the same kernels on the same
+    inputs)."""
+    from repro_torch.serving import graphs
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    arch, cpu_params = _reduced(name)
+    params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 200, size=n).astype(np.int32) for n in (5, 11)]
+    logits = []
+    for mode in ("graph", "eager"):
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            eng = PagedInferenceEngine(arch, params, n_lanes=3, max_prompt_len=16,
+                                       max_len=48, page_size=8, device="cuda")
+            eng.admit([Request(rid=i, prompt=p, max_new_tokens=8)
+                       for i, p in enumerate(prompts)])
+            eng.decode_tick()
+            eng.decode_tick()
+            logits.append(eng._tick_step.out[0].clone())
+    torch.cuda.synchronize()
+    top = float(logits[1].abs().max())
+    assert float((logits[0] - logits[1]).abs().max()) <= 1e-3 * top
+
+
+def test_chunk_steps_replay_on_two_streams_at_once(gen):
+    """The main stream's and the engine stream's chunk steps replayed by
+    two threads at once (each its own staged cache, many chunks) give the
+    caches and logits the same chunks give one after the other under
+    ``eager()``."""
+    import threading
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import graphs
+    from repro_torch.serving.engine import InferenceEngine
+
+    arch, cpu_params = _reduced("llama3-8b")
+    params = _to(cpu_params, "cuda")
+    eng = InferenceEngine(arch, params, n_lanes=2, max_prompt_len=16, max_len=64,
+                          device="cuda")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 200, size=60).astype(np.int32) for _ in range(2)]
+
+    def start(p):
+        _l, cache = tf.prefill(arch.cfg, params, torch.as_tensor(p[None, :4], device="cuda"),
+                               max_len=64)
+        return cache, torch.tensor([4], dtype=torch.int32, device="cuda")
+
+    def run(p, side, out, key):
+        cache, length = start(p)
+        with eng._side() if side else contextlib.nullcontext():
+            for lo in range(4, 60, 7):
+                logits, cache, length = eng._extend(cache, p[None, lo:min(lo + 7, 60)],
+                                                    length)
+            torch.cuda.current_stream().synchronize()
+        out[key] = (logits, cache)
+
+    got, want = {}, {}
+    threads = [threading.Thread(target=run, args=(p, side, got, side))
+               for p, side in zip(prompts, (False, True))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    with graphs.eager():
+        for p, side in zip(prompts, (False, True)):
+            run(p, side, want, side)
+    torch.cuda.synchronize()
+    assert set(got) == {False, True}
+    for side in (False, True):
+        assert torch.equal(got[side][0], want[side][0])
+        for name, stack in want[side][1].items():
+            for k, a in stack.items():
+                assert torch.equal(got[side][1][name][k], a)
+
+
+@pytest.mark.parametrize("first", ["eager", "graph"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_switching_modes_on_one_engine_keeps_the_graphs_outputs(gen, paged, first):
+    """One engine runs its first two ticks and chunks in one mode and the
+    next two in the other (``eager()`` then replays, and the reverse):
+    each tick's tokens and logits and each chunk's logits equal those of a
+    fresh engine that only replays, and the tick step's outputs stay the
+    capture's tensors."""
+    from repro_torch.serving import graphs
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    arch, cpu_params = _reduced("llama3-8b")
+    params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, 200, size=n).astype(np.int32) for n in (5, 11)]
+    chunk = rng.integers(1, 200, size=(1, 6)).astype(np.int32)
+
+    def run(modes):
+        kw = dict(page_size=8) if paged else {}
+        eng = (PagedInferenceEngine if paged else InferenceEngine)(
+            arch, params, n_lanes=3, max_prompt_len=16, max_len=48, device="cuda", **kw)
+        outs = eng._tick_step.out
+        eng.admit([Request(rid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)])
+        got = []
+        for mode in modes:
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                toks = eng.decode_tick()
+                tick = eng._tick_step.out[0].clone()
+                part, _c, _l = eng._extend(arch.init_cache(1, 48, "cuda"), chunk,
+                                           torch.zeros(1, dtype=torch.int32, device="cuda"))
+            got.append((toks, tick, part))
+        assert all(a is b for a, b in zip(eng._tick_step.out, outs))
+        assert eng._tick_step.replays == modes.count("graph")
+        return got
+
+    other = "graph" if first == "eager" else "eager"
+    got = run([first, first, other, other])
+    want = run(["graph"] * 4)
+    torch.cuda.synchronize()
+    for (toks, tick, part), (w_toks, w_tick, w_part) in zip(got, want):
+        assert toks == w_toks
+        assert float((tick - w_tick).abs().max()) <= 1e-3 * float(w_tick.abs().max())
+        assert float((part - w_part).abs().max()) <= 1e-3 * float(w_part.abs().max())
