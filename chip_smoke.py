@@ -47,12 +47,16 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    ``ContinuousBatchingScheduler``, 32 new tokens a request, three paths,
    each with every kernel launch count zeroed just before it and read
    just after, and held to exact counts (one launch per layer per
-   dispatch or per token).  Every engine dispatch but the prefill is a
-   compiled step (``serving/graphs.py``) captured as a CUDA graph when
-   the engine is built: each path also checks that its engine's tick and
-   chunk steps were captured, that every decode tick was one replay of
-   the tick and, where it feeds tokens through ``_extend``, every such
-   token one replay of a chunk step (replays count their launches):
+   dispatch or per token).  Every engine dispatch is a compiled step
+   (``serving/graphs.py``) captured as a CUDA graph: the tick and chunk
+   steps when the engine is built, a prefill step per (batch, prompt)
+   bucket at the bucket's first dispatch.  Each path also checks that its
+   engine's tick and chunk steps were captured, that every decode tick
+   was one replay of the tick, every prefill dispatch one replay of its
+   bucket's prefill step and, where it feeds tokens through ``_extend``,
+   every such token one replay of a chunk step (replays count their
+   launches; the reduced runs of phase 7 and the app traces check the
+   prefill replays too):
    a. main — the synchronous path, ``PagedInferenceEngine``, 16 requests:
       ``paged_decode_attention`` = decode steps x 32, ``flash_attention``
       = prefill dispatches x 32;
@@ -83,15 +87,18 @@ Phases, each ending in ``torch.cuda.synchronize()``:
       gathers a row of the llama3-8b embedding table through
       ``batched_gather`` and scores it, 4096 ids, synchronous and
       transformed (with and without ``pad_batches``): equal totals,
-      ``batched_gather`` = single queries + batches;
+      ``batched_gather`` = single queries + batches, each forward one
+      replay of the service's compiled step for its shape; the three
+      runs again under ``graphs.eager()``, totals equal within 1e-5;
    h. chaos — phase a's traffic on a paged engine with a spill pool, one
       request a prefill, fault-free and inside ``ChaosEngine`` (seeded
       decode and prefill faults) with ``Resilience``: faults of both
       kinds, quarantined lanes, spills = restores, streams equal 16/16;
    s. graphs — a, b and d again under ``graphs.eager()`` (every compiled
-      step run as plain ops on its static buffers, the counterpart of
-      ``jax.disable_jit``): the same greedy tokens and the same exact
-      launch counts as the graphed runs, both walls and tokens/s printed;
+      step, the prefill steps included, run as plain ops on its static
+      buffers, the counterpart of ``jax.disable_jit``): the same greedy
+      tokens and the same exact launch counts as the graphed runs, both
+      walls and tokens/s printed;
    then mamba2-1.3b at full width (48 layers, bf16, weights drawn from
    seed 0 on the card) through ``InferenceEngine(n_lanes=8,
    max_prompt_len=2048, max_len=2080)``:
@@ -147,7 +154,10 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    text path's prefill and paged tick, seamless-m4t's prefill and a
    step;
 6. profile — ``torch.profiler`` over one full-width llama3-8b prefill
-   dispatch, a few decode ticks (graph replays), one fused tick (a
+   dispatch (a replay of the 8 x 256 bucket's step, whose first dispatch
+   with its capture, replayed and ``eager()`` walls and copy-out of the
+   staging cache are also timed), a few decode ticks (graph replays), one
+   fused tick (a
    64-token prompt chunk folded into the decode: 64 chunk-step replays
    and a tick replay) and one ``_shared_tail`` beside a flash prefill of
    the same prompt, then one mamba2 prefill dispatch and a few of its
@@ -162,7 +172,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    engine takes while it is built and its graphs captured, with a page
    pool of 0.6 of the free memory: the peak above what was allocated
    before, against the pool's own bytes (fails at 1.1 x the pool), then
-   4 ticks on it;
+   4 ticks on it; then (6p) a llama3-8b paged engine that prefills one
+   batch of every bucket it can pin (20, the largest first; each bucket's
+   first dispatch, a replay and an ``eager()`` dispatch timed): the build's
+   bytes, each graph pool's bytes (the tick's, the side chunk step's and
+   the prefill steps') after the largest bucket and after all, gated on
+   the prefill pool (at most 1.1 x), the memory allocated and the peak
+   (64 MiB) not growing with the buckets, and one staging cache;
 7. reduced check — the reduced llama3-8b in float32 served on the card
    with the kernels against the same model served on the CPU with the
    plain versions, on the synchronous paged path, the dense engine, the
@@ -185,11 +201,14 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    (bf16, depth cut to 4 of 32 layers, ``query_embedding=True``,
    ``remat=False``) through ``make_train_step(..., TrainStepConfig(
    microbatches=4, fission=True))``, 3 steps of 8 x 512 tokens from
-   ``SyntheticLMStream`` through ``PrefetchLoader``, one more under the
-   profiler, then one step with ``fission=False`` from the same weights:
-   ``batched_gather`` = 1 launch per fissioned step and 4 per unfissioned
-   step, ``flash_attention`` = 4 microbatches x 4 layers per step, finite
-   losses, the first step's loss equal with and without fission; trace
+   ``SyntheticLMStream`` through ``PrefetchLoader`` (the fission plan
+   cached: ``trace_body`` runs once), one more under the profiler, the
+   same 3 steps re-tracing the body every step, then one step with
+   ``fission=False`` from the same weights: ``batched_gather`` = 1 launch
+   per fissioned step and 4 per unfissioned step, ``flash_attention`` = 4
+   microbatches x 4 layers per step, finite losses, ``trace_body`` calls
+   1 and 3, the cached run's first loss bit for bit the re-tracing run's
+   (later ones within 1e-4) and equal with and without fission; trace
    time, wall, tokens/s, loss, launches per step and peak memory printed;
    b. train-ssm — the training launcher, ``repro_torch.launch.train``, at
       full width on mamba2-1.3b (48 layers, bf16, remat, int8 moments, 8 x
@@ -1356,11 +1375,31 @@ def _async_requests(Request, vocab: int, max_new: int = 32):
 RUNS: dict = {}
 
 
-def _replays(eng) -> tuple[int, int]:
-    """(tick replays, chunk-step replays) of an engine's compiled
-    dispatches so far (``serving/graphs.py``)."""
+def _replays(eng) -> tuple[int, int, int]:
+    """(tick replays, chunk-step replays, prefill-step replays) of an
+    engine's compiled dispatches so far (``serving/graphs.py``)."""
     return (eng._tick_step.replays,
-            sum(s.replays for s in eng._chunk_steps.values()))
+            sum(s.replays for s in eng._chunk_steps.values()),
+            eng._prefill_steps.replays)
+
+
+def _prefill_counter(eng):
+    """Count ``eng``'s prefill dispatches from now on (``_prefill_step``
+    calls) beside its prefill-step replays so far, for
+    ``_expect_prefill_replays``."""
+    return _count_calls(eng, "_prefill_step"), eng._prefill_steps.replays
+
+
+def _expect_prefill_replays(label, eng, counter, device) -> int:
+    """On the card outside ``graphs.eager()``: every prefill dispatch since
+    ``counter`` was one replay of a captured prefill step.  Returns the
+    replays."""
+    from repro_torch.serving import graphs
+    box, replays0 = counter
+    got = eng._prefill_steps.replays - replays0
+    if device == "cuda" and not graphs.is_eager() and got != box[0]:
+        fail(f"{label}: {got} prefill-step replays for {box[0]} prefill dispatches")
+    return got
 
 
 def _drive(label, eng, sched, reqs, device):
@@ -1379,6 +1418,7 @@ def _drive(label, eng, sched, reqs, device):
     if graphed and not (eng._tick_step.captured
                         and all(s.captured for s in eng._chunk_steps.values())):
         fail(f"{label}: the engine's dispatches were not captured as graphs")
+    prefills = _prefill_counter(eng)
     replays0, steps0 = _replays(eng), eng.decode_steps
     _sync(device)
     if device == "cuda":
@@ -1406,7 +1446,9 @@ def _drive(label, eng, sched, reqs, device):
     log(f"[{label}] launches {launches}; decode_steps {eng.decode_steps}, "
         f"dispatches {eng.dispatches}, prefill_calls {eng.prefill_calls}, "
         f"scheduler ticks {sched.stats.decode_ticks}; graph replays: tick {replays[0]}, "
-        f"chunk step {replays[1]} ({'graphs' if graphed else 'eager'})")
+        f"chunk step {replays[1]}, prefill step {replays[2]} for {prefills[0][0]} prefill "
+        f"dispatches over {len(eng._prefill_steps.steps)} buckets "
+        f"({'graphs' if graphed else 'eager'})")
     log(f"[{label}] {len(reqs)} requests, {n_tok} tokens in {wall!r} s: "
         f"{n_tok / wall!r} tokens/s; TTFT p50 {float(np.median(ttft)) * 1e3!r} ms, "
         f"max {ttft[-1] * 1e3!r} ms; decode ticks {eng.decode_steps}; "
@@ -1415,6 +1457,7 @@ def _drive(label, eng, sched, reqs, device):
     if graphed and replays[0] != eng.decode_steps - steps0:
         fail(f"{label}: {replays[0]} tick replays for {eng.decode_steps - steps0} decode "
              "ticks")
+    _expect_prefill_replays(label, eng, prefills, device)
     RUNS[label] = dict(streams=[list(r.generated) for r in reqs], launches=launches,
                        wall=wall, tokens=n_tok, chunk_replays=replays[1])
     return launches, wall
@@ -1501,7 +1544,7 @@ def phase_async(arch, params, device="cuda", chunk: int = 256, label="async"):
     sched = ContinuousBatchingScheduler(
         eng, strategy=GrowingUpperThreshold(initial_upper=2), overlap=True,
         chunk_tokens=chunk)
-    n_prefill = _count_calls(eng, "_prefill")
+    n_prefill = _count_calls(eng, "_prefill_step")
     n_extend = _count_calls(eng, "_extend")
     # Tokens fed through the decode path: each is one decode_step, one
     # decode_attention launch per layer (chunks are batch 1).
@@ -1592,7 +1635,7 @@ def phase_prefix(arch, params, device="cuda", suffix: str = ""):
                                    page_size=16, prefix_share=share, device=device)
         sched = ContinuousBatchingScheduler(
             eng, strategy=GrowingUpperThreshold(initial_upper=2))
-        n_prefill = _count_calls(eng, "_prefill")
+        n_prefill = _count_calls(eng, "_prefill_step")
         hit_rids = []
         _count_calls(eng, "_admit_prefix_hit", lambda r, *_a: hit_rids.append(r.rid) or 1)
         tail = _count_calls(eng, "_shared_tail", lambda _i, toks, *_r: int(toks.shape[1]))
@@ -1684,7 +1727,7 @@ def phase_spill(arch, params, device="cuda", n_pages: int = 128):
         eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256, max_len=512,
                                    page_size=16, device=device, **kw)
         sched = ContinuousBatchingScheduler(eng, strategy=PureAsync())
-        n_prefill = _count_calls(eng, "_prefill")
+        n_prefill = _count_calls(eng, "_prefill_step")
         moved = {"spilled": 0, "restored": 0}
         if eng.kv_spill is not None:
             put = eng.kv_spill.put
@@ -1784,7 +1827,8 @@ def _trace_sides(arch, params, device, trace, engine_kw):
                          drives=st.round_trips, tokens=st.tokens,
                          wall=time.perf_counter() - t0,
                          prefills=eng.dispatches - eng.decode_steps,
-                         ticks=eng.decode_steps)
+                         ticks=eng.decode_steps,
+                         prefill_replays=eng._prefill_steps.replays)
     return out
 
 
@@ -1875,7 +1919,7 @@ def phase_app_traces(arch, params, device="cuda"):
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     registry.reset_launches()
-    tot = {s: dict(drives=0, tokens=0, wall=0.0, prefills=0, ticks=0)
+    tot = {s: dict(drives=0, tokens=0, wall=0.0, prefills=0, ticks=0, prefill_replays=0)
            for s in ("sync", "async")}
     same_obs = same_toks = n_q = 0
     for tr in all_traces():
@@ -1928,6 +1972,11 @@ def phase_app_traces(arch, params, device="cuda"):
         f"(first tokens equal, streams equal) of 8}}: {_cohort_probe(arch, params, device, kw)}")
     if s["drives"] != 49:
         fail(f"app-traces: {s['drives']} synchronous drives in all, not 49")
+    log(f"[app-traces] prefill-step replays: sync {s['prefill_replays']} for "
+        f"{s['prefills']} prefill dispatches, transformed {a['prefill_replays']} for "
+        f"{a['prefills']}")
+    if device == "cuda" and any(t["prefill_replays"] != t["prefills"] for t in (s, a)):
+        fail("app-traces: a prefill dispatch was not one replay of a prefill step")
     _expect("app-traces", launches,
             {"paged_decode_attention": (s["ticks"] + a["ticks"]) * L,
              "flash_attention": (s["prefills"] + a["prefills"]) * L,
@@ -1956,7 +2005,8 @@ def _model_service_runs(table, w, ids, device):
     GrowingUpperThreshold(initial_upper=8, bt=3))``, then the same with
     ``pad_batches=True``.  The ids are 0-d int64 tensors on ``device``.
     Returns each run's total, results, service counters, lane buckets,
-    ``batched_gather`` launches and wall seconds."""
+    ``batched_gather`` launches, compiled steps and their replays, and
+    wall seconds."""
     import torch
     from repro_torch.core.hir import Interpreter, transform_program
     from repro_torch.core.runtime import AsyncQueryRuntime
@@ -1996,13 +2046,20 @@ def _model_service_runs(table, w, ids, device):
         out[label] = dict(total=env["total"], log=env["log"], wall=wall,
                           stats={k: v for k, v in st.items() if k != "busy_time"},
                           buckets=dict(svc.lane_buckets),
-                          launches=registry.launch_counts()["batched_gather"])
+                          launches=registry.launch_counts()["batched_gather"],
+                          steps=sum(len(c.steps) for c in svc.steps.values()),
+                          replays=sum(c.replays for c in svc.steps.values()))
     return out
 
 
 def _model_service_gates(label, runs, n, device):
+    from repro_torch.serving import graphs
     for name, r in runs.items():
         st = r["stats"]
+        if device == "cuda" and not graphs.is_eager() and \
+                r["replays"] != st["single_queries"] + st["batches"]:
+            fail(f"{label} {name}: {r['replays']} step replays for {st['single_queries']} "
+                 f"single queries and {st['batches']} batches")
         if st["single_queries"] + st["batched_items"] != n:
             fail(f"{label} {name}: {st['single_queries']} single queries + "
                  f"{st['batched_items']} batched items, not {n}")
@@ -2026,8 +2083,12 @@ def phase_model_service(arch, params, device="cuda", n: int = 4096):
     hand-written ``batched_gather``: one launch per single query and one
     per batch, exactly.  Gates: totals equal within rtol 1e-5, every id
     queried once (``single_queries + batched_items``), at least one batch
-    on the transformed runs.  Returns the summed launch counts."""
+    on the transformed runs, every forward one replay of a compiled step;
+    then the three runs again under ``graphs.eager()``, each total equal
+    to its graphed twin's within rtol 1e-5.  Returns the summed launch
+    counts."""
     import torch
+    from repro_torch.serving import graphs
 
     table = params["embed"]["table"]
     V, D = table.shape
@@ -2036,6 +2097,9 @@ def phase_model_service(arch, params, device="cuda", n: int = 4096):
     w = torch.randn(D, generator=gen).to(device)
     ids = np.random.default_rng(0).integers(0, V, n)
     runs = _model_service_runs(table, w, ids, device)
+    with graphs.eager():
+        twins = _model_service_runs(table, w, ids, device)
+        _model_service_gates("model-service-eager", twins, n, device)
     scale = float(np.abs(np.asarray(runs["sync"]["log"])).sum())
     for name, r in runs.items():
         st = r["stats"]
@@ -2044,7 +2108,13 @@ def phase_model_service(arch, params, device="cuda", n: int = 4096):
             f"{st['single_queries']}, batches {st['batches']}, mean batch size "
             f"{st['batched_items'] / max(st['batches'], 1)!r}, lane_buckets "
             f"{r['buckets']}, padded_items {st['padded_items']}; batched_gather "
-            f"launches {r['launches']}")
+            f"launches {r['launches']}; {r['steps']} compiled steps, {r['replays']} "
+            f"replays; under eager() {twins[name]['wall']!r} s, total "
+            f"{twins[name]['total']!r}")
+        tot = twins[name]["total"]
+        if abs(r["total"] - tot) > 1e-5 * abs(tot):
+            fail(f"model-service {name}: total {r['total']!r} differs from the eager() "
+                 f"twin's {tot!r} beyond rtol 1e-5")
     log(f"[model-service] speed-up of the transformed program: "
         f"{runs['sync']['wall'] / runs['transformed']['wall']!r} "
         f"(padded {runs['sync']['wall'] / runs['transformed-padded']['wall']!r})")
@@ -2057,7 +2127,8 @@ def phase_model_service(arch, params, device="cuda", n: int = 4096):
 def _chaos_engine(arch, params, device, chaos, n_lanes, page_size, rates, max_len=512):
     """A paged engine with a host spill pool, wrapped in ``ChaosEngine``
     when ``chaos`` (``rates``: decode and prefill fault rates, seed
-    ``chaos_seed(0)``); its ``_prefill`` calls are counted."""
+    ``chaos_seed(0)``); its prefill dispatches (``_prefill_step`` calls)
+    are counted."""
     from repro_torch.core.faults import ChaosEngine, ChaosPlan, chaos_seed
     from repro_torch.serving.engine import HostSpillPool
     from repro_torch.serving.paged_kv import PagedInferenceEngine
@@ -2065,7 +2136,7 @@ def _chaos_engine(arch, params, device, chaos, n_lanes, page_size, rates, max_le
     eng = PagedInferenceEngine(arch, params, n_lanes=n_lanes, max_prompt_len=max_len // 2,
                                max_len=max_len, page_size=page_size, device=device,
                                kv_spill=HostSpillPool(16))
-    n_prefill = _count_calls(eng, "_prefill")
+    n_prefill = _count_calls(eng, "_prefill_step")
     if chaos:
         eng = ChaosEngine(eng, ChaosPlan(seed=chaos_seed(0), decode_fault_rate=rates[0],
                                          prefill_fault_rate=rates[1]))
@@ -2171,7 +2242,7 @@ def phase_ssm(arch, params, device="cuda"):
     sched = ContinuousBatchingScheduler(
         eng, strategy=GrowingUpperThreshold(initial_upper=2))
     shapes = []  # the padded (batch, prompt) bucket of each prefill
-    n_prefill = _count_calls(eng, "_prefill",
+    n_prefill = _count_calls(eng, "_prefill_step",
                              lambda toks, _p: shapes.append(tuple(toks.shape)) or 1)
     reqs = _ssm_requests(Request, arch.cfg.vocab_size)
     launches, wall = _drive("ssm", eng, sched, reqs, device)
@@ -2200,7 +2271,7 @@ def phase_ssm_async(arch, params, device="cuda", chunk: int = 1024):
     sched = ContinuousBatchingScheduler(
         eng, strategy=GrowingUpperThreshold(initial_upper=2), overlap=True,
         chunk_tokens=chunk)
-    n_prefill = _count_calls(eng, "_prefill")
+    n_prefill = _count_calls(eng, "_prefill_step")
     n_extend = _count_calls(eng, "_extend")
     fed = _count_calls(eng, "_extend", lambda _c, toks, _l: int(toks.shape[1]))
     reqs = _ssm_async_requests(Request, arch.cfg.vocab_size)
@@ -2247,7 +2318,7 @@ def phase_ssm_paged(arch, params, ssm_streams, device="cuda", lane_timeout: int 
         fail("ssm-paged: mamba2 should run the dense-compute mode")
     sched = ContinuousBatchingScheduler(
         eng, strategy=GrowingUpperThreshold(initial_upper=2), lane_timeout=lane_timeout)
-    n_prefill = _count_calls(eng, "_prefill")
+    n_prefill = _count_calls(eng, "_prefill_step")
     reqs = _ssm_requests(Request, arch.cfg.vocab_size)
     launches, wall = _drive("ssm-paged", eng, sched, reqs, device)
     st = sched.stats
@@ -2422,7 +2493,7 @@ def phase_hymba(arch, params, device="cuda", paged=False, streams=None):
         eng = InferenceEngine(arch, params, device=device, **HYMBA_ENGINE)
     sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2))
     shapes = []
-    n_prefill = _count_calls(eng, "_prefill",
+    n_prefill = _count_calls(eng, "_prefill_step",
                              lambda toks, _p: shapes.append(tuple(toks.shape)) or 1)
     reqs = _hymba_requests(Request, arch.cfg.vocab_size)
     launches, wall = _drive(label, eng, sched, reqs, device)
@@ -2462,7 +2533,7 @@ def phase_hymba_chunked(arch, params, device="cuda", chunk: int = 512, n: int = 
     eng = InferenceEngine(arch, params, device=device, **HYMBA_ENGINE)
     sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2),
                                         overlap=True, chunk_tokens=chunk)
-    n_prefill = _count_calls(eng, "_prefill")
+    n_prefill = _count_calls(eng, "_prefill_step")
     fed = _count_calls(eng, "_extend", lambda _c, toks, _l: int(toks.shape[1]))
     rng = np.random.default_rng(3)
     reqs = [Request(rid=0, prompt=rng.integers(0, arch.cfg.vocab_size, size=n).astype(np.int32),
@@ -2979,6 +3050,54 @@ def _tick_walls(label, eng, ticks: int) -> None:
         f"{walls['graph replay']!r} ms wall, eager() {walls['eager()']!r} ms wall")
 
 
+def _prefill_walls(eng, reqs, n: int = 4) -> None:
+    """A prefill dispatch of ``reqs`` (8 prompts, bucket 8 x 256) on
+    ``eng``: the first, which builds and captures the bucket's step (what
+    the first request of a bucket waits for), then the host wall of ``n``
+    more, replayed and under ``graphs.eager()``, one replay under
+    ``torch.profiler`` (the device's busy share), and the copy-out of the
+    bucket's view of the staging cache timed alone with CUDA events.  The
+    dispatch runs on the engine's own stream; every wall ends in
+    ``torch.cuda.synchronize()``, which waits for it."""
+    import torch
+    from repro_torch.serving import graphs
+
+    def dispatch():
+        eng.prefill_dispatch(reqs)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    dispatch()
+    first = (time.perf_counter() - t0) * 1e3
+    walls = {}
+    for mode in ("graph replay", "eager()"):
+        with graphs.eager() if mode == "eager()" else contextlib.nullcontext():
+            dispatch()  # warm
+            t0 = time.perf_counter()
+            for _ in range(n):
+                dispatch()
+        walls[mode] = (time.perf_counter() - t0) / n * 1e3
+    _window("prefill dispatch (graph replay) of 8 prompts, bucket 8 x 256",
+            lambda: eng.prefill_dispatch(reqs), 1)
+    view = [a[:, :len(reqs)] for a in _leaves(eng._prefill_out)]
+    nbytes = sum(a.numel() * a.element_size() for a in view)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for a in view:
+        a.clone()  # warm
+    start.record()
+    for _ in range(10):
+        for a in view:
+            a.clone()
+    end.record()
+    torch.cuda.synchronize()
+    copy = start.elapsed_time(end) / 10
+    log(f"[profile] prefill dispatch, bucket 8 x 256, no profiler: the first (build and "
+        f"capture of the bucket's step) {first!r} ms; mean of {n}: graph replay "
+        f"{walls['graph replay']!r} ms wall, eager() {walls['eager()']!r} ms wall; the "
+        f"copy-out of the bucket's KV ({nbytes} bytes read and as many written) {copy!r} "
+        f"ms on the device ({2 * nbytes / (copy / 1e3) / 1e12!r} TB/s)")
+
+
 def phase_profile(arch, params, ticks: int = 8):
     """Where a decode tick's time goes at full width: host wall time per
     tick, replayed and under ``graphs.eager()``, against the device time
@@ -2986,8 +3105,9 @@ def phase_profile(arch, params, ticks: int = 8):
     kernels that take the most of it; the same for one prefill dispatch
     of 8 prompts and for one fused tick (a 64-token chunk folded into the
     decode: 64 chunk-step replays and one tick replay), whose wall is also
-    taken under ``eager()``.  Runs after the main path, so its launches
-    are not in the main path's counts."""
+    taken under ``eager()``; the prefill's first dispatch, replayed and
+    eager walls and copy-out (``_prefill_walls``).  Runs after the main
+    path, so its launches are not in the main path's counts."""
     import torch
     from repro_torch.serving import graphs
     from repro_torch.serving.paged_kv import PagedInferenceEngine
@@ -2998,10 +3118,7 @@ def phase_profile(arch, params, ticks: int = 8):
     reqs = _requests(Request, arch.cfg.vocab_size, n=8)
 
     with torch.no_grad():
-        # The dispatch runs on the engine's own stream; the window ends in
-        # torch.cuda.synchronize(), which waits for it.
-        _window("prefill dispatch of 8 prompts (bucket 8 x 256)",
-                lambda: eng.prefill_dispatch(reqs), 1)
+        _prefill_walls(eng, reqs)
         eng.commit_prefill(eng.prefill_dispatch(reqs))
         for _ in range(2):
             eng.decode_tick()  # warm
@@ -3077,6 +3194,113 @@ def phase_build_memory(arch, params, share: float = 0.6, ticks: int = 4):
             eng.decode_tick()
         if not bool(torch.isfinite(eng._tick_step.out[0]).all()):
             fail("memory: the large-pool engine's tick logits are not finite")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pool_bytes(pools: dict):
+    """Bytes of the allocator's segments in each graph pool of ``pools``
+    (name -> pool id), or ``None`` when its snapshot names no pools."""
+    import torch
+    segs = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in seg for seg in segs):
+        return None
+    return {name: sum(seg["total_size"] for seg in segs
+                      if tuple(seg.get("segment_pool_id", ())) == tuple(pid))
+            for name, pid in pools.items()}
+
+
+def phase_prefill_memory(arch, params, lanes: int = 8, max_len: int = 512):
+    """6p. The prefill steps' memory.  A llama3-8b paged engine (``lanes``
+    lanes of ``max_len`` rows, prompts up to 256) is built, then serves
+    one prefill dispatch of every bucket its templates can pin (batch 1,
+    2, 4, 8 x prompt 16 to 256, 20 in all), the largest first, each
+    dropped uncommitted, then again (a replay) and once under
+    ``graphs.eager()``, each dispatch timed (the bucket's first holds its
+    step's build: a warm-up, about an eager dispatch, and the capture).
+    Logs the device memory the build took, the bytes of each graph pool
+    (the tick's with the main stream's chunk step, the engine stream's
+    chunk step's, the prefill steps') after the largest bucket and after
+    all, the memory allocated and the peak.
+    Gates: every prefill step writes the one staging cache; the prefill
+    pool after all buckets at most 1.1 x after the largest; the memory
+    allocated and the peak grow by at most 64 MiB after the largest."""
+    import torch
+    from repro_torch.serving import graphs
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    vocab, mib = arch.cfg.vocab_size, 2 ** 20
+    rng = np.random.default_rng(5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    eng = PagedInferenceEngine(arch, params, n_lanes=lanes, max_prompt_len=256,
+                               max_len=max_len, page_size=16)
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated() - before
+    staging = sum(a.numel() * a.element_size() for a in _leaves(eng._prefill_out))
+    pools = {"tick": eng._tick_step.graph.pool(), "prefill": eng._prefill_steps.pool}
+    pools.update({f"chunk {i}": s.graph.pool() for i, s in
+                  enumerate(eng._chunk_steps.values()) if s.pool is None})
+    buckets = [(b, p) for b in (8, 4, 2, 1) for p in (256, 128, 64, 32, 16)]
+    seen, walls = {}, {}
+
+    def dispatch(reqs):
+        t0 = time.perf_counter()
+        staged = eng.prefill_dispatch(reqs)
+        torch.cuda.synchronize()
+        return staged, round((time.perf_counter() - t0) * 1e3, 3)
+
+    with torch.no_grad():
+        for i, (b, p) in enumerate(buckets):
+            reqs = [Request(rid=j, prompt=rng.integers(0, vocab, size=p).astype(np.int32))
+                    for j in range(b)]
+            staged, first = dispatch(reqs)
+            if staged.shape != (b, p):
+                fail(f"prefill memory: bucket {staged.shape}, not {(b, p)}")
+            del staged
+            replay = dispatch(reqs)[1]
+            with graphs.eager():
+                plain = dispatch(reqs)[1]
+            walls[f"{b}x{p}"] = (first, replay, plain)
+            if i == 0 or i == len(buckets) - 1:
+                seen[i] = dict(pools=_pool_bytes(pools),
+                               allocated=torch.cuda.memory_allocated() - before,
+                               reserved=torch.cuda.memory_reserved(),
+                               peak=torch.cuda.max_memory_allocated() - before)
+                torch.cuda.reset_peak_memory_stats()
+    first, last = seen[0], seen[len(buckets) - 1]
+    log(f"[memory] {arch.cfg.name} paged engine, {lanes} lanes of {max_len} rows: the build "
+        f"took {built} bytes (the staging cache {staging}); pool bytes after the largest "
+        f"bucket (8 x 256) {first['pools']}, after all {len(buckets)} buckets "
+        f"{last['pools']}; allocated above the start {first['allocated']} / "
+        f"{last['allocated']} bytes; reserved {first['reserved']} / {last['reserved']}; peak "
+        f"above the start while the largest was served {first['peak']} bytes, while the "
+        f"other {len(buckets) - 1} were {last['peak']}; {len(eng._prefill_steps.steps)} "
+        f"prefill steps, {eng._prefill_steps.replays} replays; per bucket, ms: (the first "
+        f"dispatch: build, capture, replay; the second: a replay; one under eager()): "
+        f"{walls}")
+    ptrs = [a.untyped_storage().data_ptr() for a in _leaves(eng._prefill_out)]
+    if any([t.untyped_storage().data_ptr() for t in st.state[1:]] != ptrs
+           for st in eng._prefill_steps.steps.values()):
+        fail("prefill memory: a prefill step writes another cache than the staging cache")
+    if first["pools"] is None:
+        log("[memory] the allocator's snapshot names no pools: pool bytes not measured; "
+            "gating the reserved bytes instead")
+        grown = last["reserved"] - first["reserved"]
+        if grown > 64 * mib:
+            fail(f"prefill memory: the other buckets reserved {grown} more bytes")
+    elif last["pools"]["prefill"] > 1.1 * first["pools"]["prefill"]:
+        fail(f"prefill memory: the prefill pool grew from {first['pools']['prefill']} to "
+             f"{last['pools']['prefill']} bytes with the buckets")
+    if last["allocated"] - first["allocated"] > 64 * mib:
+        fail("prefill memory: the memory allocated grew with the buckets")
+    if last["peak"] > first["peak"] + 64 * mib:
+        fail("prefill memory: the peak grew with the buckets")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3232,10 +3456,12 @@ def _reduced_run(kind, arch, params, device):
     sched = ContinuousBatchingScheduler(
         eng, strategy=PureAsync() if kind == "paged-chaos"
         else GrowingUpperThreshold(initial_upper=2), **skw)
+    prefills = _prefill_counter(eng)
     for r in reqs:
         sched.submit(r)
     sched.producer_done()
     sched.run_until_drained()
+    _expect_prefill_replays(f"reduced {arch.cfg.name} {kind}", eng, prefills, device)
     counters = {a: getattr(eng, a, None) for a in (
         "dispatches", "decode_steps", "prefill_calls", "kv_bytes_moved", "fused_folds",
         "prefix_hits", "page_evictions", "injected_decode_faults",
@@ -3415,14 +3641,17 @@ TRAIN_LAYERS = 4  # of llama3-8b's 32: what the step's state leaves room for
 
 
 def _train_run(arch, params, fission: bool, steps: int, mb: int, batch: int, seq: int,
-               profile: bool = False):
+               profile: bool = False, retrace: bool = False):
     """``steps`` train steps of ``arch`` from ``params`` (written in place:
     the step donates them), ``AdamWConfig(lr=1e-3)``, ``microbatches=mb``,
     on ``SyntheticLMStream(vocab, seq, batch, seed=0)`` through
     ``PrefetchLoader``, on the device of ``params``.  Returns (losses,
     per-step walls, per-step launch counts, per-step fission trace seconds,
-    peak device memory, final params).  ``profile``: one more step after
-    those, under ``torch.profiler`` (``_window``), outside every count."""
+    peak device memory, final params, per-step ``trace_body`` calls).
+    ``profile``: one more step after those, under ``torch.profiler``
+    (``_window``), outside every count.  ``retrace``: the step's fission
+    plans are cleared before every step, so each step traces its body
+    again (the twin of the cached plan)."""
     import torch
     from repro_torch.core import fission as fission_mod
     from repro_torch.data.pipeline import PrefetchLoader, SyntheticLMStream
@@ -3445,7 +3674,7 @@ def _train_run(arch, params, fission: bool, steps: int, mb: int, batch: int, seq
     loader = iter(PrefetchLoader(SyntheticLMStream(arch.cfg.vocab_size, seq_len=seq,
                                                    batch=batch, seed=0),
                                  n_prefetch=2, max_steps=steps + int(profile)))
-    losses, walls, launches, traces = [], [], [], []
+    losses, walls, launches, traces, calls = [], [], [], [], []
     _sync(device)
     if device == "cuda":
         log(f"[train] device memory allocated before the first step (weights and "
@@ -3455,6 +3684,8 @@ def _train_run(arch, params, fission: bool, steps: int, mb: int, batch: int, seq
         for _, b in zip(range(steps), loader):
             registry.reset_launches()
             del traced[:]
+            if retrace:
+                step.plans.clear()
             t0 = time.perf_counter()
             params, state, metrics = step(params, state, b)
             losses.append(float(metrics["loss"]))
@@ -3462,12 +3693,13 @@ def _train_run(arch, params, fission: bool, steps: int, mb: int, batch: int, seq
             walls.append(time.perf_counter() - t0)
             launches.append(registry.launch_counts())
             traces.append(sum(traced))
+            calls.append(len(traced))
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     if profile:
         b = next(loader)
         _window(f"one more train step, fission={fission}",
                 lambda: step(params, state, b), 1)
-    return losses, walls, launches, traces, peak, params
+    return losses, walls, launches, traces, peak, params, calls
 
 
 def _train_gates(label, launches, fission: bool, mb: int, layers: int) -> None:
@@ -3486,12 +3718,17 @@ def phase_train(smi, steps: int = 3, mb: int = 4, batch: int = 8, seq: int = 512
     heads, hd 128, d_ff 14336, vocab 128256, bf16), depth cut to
     ``TRAIN_LAYERS`` of 32, ``query_embedding=True``, ``remat=False``,
     through ``make_train_step(..., TrainStepConfig(microbatches=4,
-    fission=True))``: ``steps`` steps and one more under the profiler, then
-    one unfissioned step from the same weights (seed 0).  Gates: launches per step (``_train_gates``),
-    finite losses, and the first step's loss equal with and without
-    fission to 1e-5 relative (the forward is the same ops on the same
-    rows; only the gradients differ, since the embedding's scatter-add
-    uses atomics, so later steps are not compared)."""
+    fission=True))``: ``steps`` steps and one more under the profiler
+    (the fission plan cached: ``trace_body`` runs once), the same
+    ``steps`` steps re-tracing the body every step, then one unfissioned
+    step, each from the same weights (seed 0).  Gates: launches per step
+    (``_train_gates``), finite losses, one ``trace_body`` call in the
+    cached run and one a step in the re-tracing one, the first step's
+    loss bit for bit equal between the two and to 1e-5 relative with and
+    without fission (the forward is the same ops on the same rows; only
+    the gradients differ, since the embedding's scatter-add uses atomics,
+    so later steps are held to 1e-4 relative between the cached and the
+    re-tracing runs and not compared without fission)."""
     import torch
     from repro_torch.models.registry import get_arch
 
@@ -3500,11 +3737,12 @@ def phase_train(smi, steps: int = 3, mb: int = 4, batch: int = 8, seq: int = 512
     arch = dataclasses.replace(arch, cfg=dataclasses.replace(
         arch.cfg, n_layers=TRAIN_LAYERS, query_embedding=True, remat=False))
     tokens = batch * seq
-    out = {}
-    for label, fission, n in (("train", True, steps), ("train-plain", False, 1)):
-        losses, walls, launches, traces, peak, params = _train_run(
+    out, walls_of = {}, {}
+    for label, fission, n in (("train", True, steps), ("train-retrace", True, steps),
+                              ("train-plain", False, 1)):
+        losses, walls, launches, traces, peak, params, calls = _train_run(
             arch, arch.init(seed=0, device="cuda"), fission, n, mb, batch, seq,
-            profile=fission)
+            profile=label == "train", retrace=label == "train-retrace")
         n_params = sum(int(a.numel()) for a in _leaves(params))
         del params
         gc.collect()
@@ -3514,13 +3752,26 @@ def phase_train(smi, steps: int = 3, mb: int = 4, batch: int = 8, seq: int = 512
             f"fission={fission}, {mb} microbatches of {batch // mb} x {seq} tokens")
         for i in range(n):
             log(f"[{label}] step {i}: loss {losses[i]!r}, wall {walls[i]!r} s "
-                f"(fission trace {traces[i]!r} s), {tokens / walls[i]!r} tokens/s, "
-                f"launches {launches[i]}")
-        log(f"[{label}] peak device memory {peak / 2**30!r} GiB")
+                f"(fission trace {traces[i]!r} s in {calls[i]} trace_body calls), "
+                f"{tokens / walls[i]!r} tokens/s, launches {launches[i]}")
+        log(f"[{label}] peak device memory {peak / 2**30!r} GiB; trace_body calls "
+            f"{sum(calls)} in {n} steps")
         if not all(np.isfinite(losses)):
             fail(f"{label}: a loss is not finite: {losses}")
         _train_gates(label, launches, fission, mb, TRAIN_LAYERS)
-        out[label] = (losses, launches)
+        want = {"train": [1] + [0] * (n - 1), "train-retrace": [1] * n}.get(label, [0] * n)
+        if calls != want:
+            fail(f"{label}: trace_body calls per step {calls}, not {want}")
+        out[label], walls_of[label] = (losses, launches), walls
+    cached, again = out["train"][0], out["train-retrace"][0]
+    later = [abs(a - b) / abs(b) for a, b in zip(cached[1:], again[1:])]
+    log(f"[train] cached plan against re-tracing: losses {cached} / {again}, first step "
+        f"{'equal' if cached[0] == again[0] else 'DIFFERENT'}, later steps relative "
+        f"differences {later}; mean wall of steps 2-{steps}: "
+        f"{float(np.mean(walls_of['train'][1:]))!r} s cached, "
+        f"{float(np.mean(walls_of['train-retrace'][1:]))!r} s re-tracing")
+    if cached[0] != again[0] or any(d > 1e-4 for d in later):
+        fail("train: the cached fission plan's losses differ from the re-tracing run's")
     first_f, first_p = out["train"][0][0], out["train-plain"][0][0]
     log(f"[train] first-step loss with fission {first_f!r}, without {first_p!r}, "
         f"difference {abs(first_f - first_p)!r} (gate 1e-5 relative)")
@@ -3727,7 +3978,7 @@ def phase_train_hybrid(smi, steps: int = 2, batch: int = 8, seq: int = 2048):
 
     arch = get_arch("hymba-1.5b")
     want = _train_expect(arch.cfg)
-    losses, walls, launches, _traces, peak, params = _train_run(
+    losses, walls, launches, _traces, peak, params, _calls = _train_run(
         arch, arch.init(seed=0, device="cuda"), False, steps, 1, batch, seq)
     del params
     gc.collect()
@@ -4732,6 +4983,7 @@ def main() -> None:
     phase_prefix_check(arch, params)
     phase_profile(arch, params)
     phase_build_memory(arch, params)
+    phase_prefill_memory(arch, params)
     del params
     gc.collect()  # engines and their threads can hold the weights in cycles
     torch.cuda.empty_cache()

@@ -3,10 +3,12 @@
 Port of :mod:`repro.core.ddg` from jaxprs to ``torch.fx`` graphs.  A scan
 body traced with ``make_fx`` is an fx graph whose
 
-* ``placeholder`` nodes are ``[*carry_in, *x]`` (the jaxpr's invars),
+* ``placeholder`` nodes are ``[*carry_in, *x, *consts]`` (the jaxpr's
+  invars; ``consts`` are the loop-invariant inputs a body takes, such as
+  a train step's parameters),
 * ``output`` node holds ``[*carry_out, *y]`` (the outvars),
-* ``get_attr`` nodes are the closed-over tensors, such as the parameters
-  (the jaxpr's constvars), and
+* ``get_attr`` nodes are the closed-over tensors (with the ``consts``
+  placeholders, the jaxpr's constvars), and
 * ``call_function`` nodes are the equations, numbered in graph order.
 
 Anything in a node's arguments that is not a node is a literal.
@@ -69,22 +71,27 @@ def _output_values(graph: fx.Graph) -> list:
 
 @dataclasses.dataclass
 class ScanBodyDDG:
-    """DDG of a traced scan body: placeholders ``[*carry_in, *x]``, outputs
-    ``[*carry_out, *y]`` with ``len(carry_in) == n_carry``."""
+    """DDG of a traced scan body: placeholders ``[*carry_in, *x,
+    *const_in]``, outputs ``[*carry_out, *y]`` with ``len(carry_in) ==
+    n_carry`` and ``len(const_in) == n_consts``."""
 
     graph: fx.Graph
     n_carry: int
+    n_consts: int = 0
 
     def __post_init__(self):
         nodes = list(self.graph.nodes)
         ins = [n for n in nodes if n.op == "placeholder"]
         outs = _output_values(self.graph)
         self.eqns = [n for n in nodes if n.op == "call_function"]
+        n_x = len(ins) - self.n_carry - self.n_consts
         self.carry_in = ins[: self.n_carry]
-        self.x_in = ins[self.n_carry:]
+        self.x_in = ins[self.n_carry: self.n_carry + n_x]
+        self.const_in = ins[self.n_carry + n_x:]
         self.carry_out = outs[: self.n_carry]
         self.y_out = outs[self.n_carry:]
-        self.consts = [n for n in nodes if n.op == "get_attr"]
+        self.consts = [n for n in nodes if n.op == "get_attr"] + self.const_in
+        self._const_set = set(self.consts)
 
         # node -> producing eqn index (SSA def site); inputs/consts absent.
         self.def_site: dict[Any, int] = {n: i for i, n in enumerate(self.eqns)}
@@ -101,6 +108,10 @@ class ScanBodyDDG:
                     j = self.def_site.get(user)
                     if j is not None and j < i:
                         self.succ[j].add(i)
+
+    def is_const(self, v) -> bool:
+        """Whether ``v`` is a closed-over tensor or a ``consts`` input."""
+        return v in self._const_set
 
     # ------------------------------------------------------------------ sets
     def upstream_of_vars(self, vars: Iterable[Any]) -> set[int]:

@@ -15,9 +15,14 @@ the paper's Rule A:
                 consumer loop  (ss2: everything dependent on query results)
 
 How the body is seen.  It is traced once with ``make_fx`` in fake mode:
-no device work, and closed-over tensors (the parameters) enter the graph
-by reference as ``get_attr`` constants.  The graph's nodes are the
-equations of :class:`~repro_torch.core.ddg.ScanBodyDDG`.  The split is the
+no device work.  A body may take its loop-invariant tensors (a train
+step's parameters) as a third argument, ``f(carry, x, consts)`` with
+``fission_scan(..., consts=)``: they enter the graph as placeholders
+after the carry's and the microbatch's, and the producer and consumer
+graphs take them as inputs on every call.  Tensors a body closes over
+enter by reference as ``get_attr`` constants instead.  Both count as
+constants.  The graph's nodes are the equations of
+:class:`~repro_torch.core.ddg.ScanBodyDDG`.  The split is the
 reference's: everything downstream of the first query goes to the consumer,
 with the same fixed point for statement reordering, and the producer and
 consumer bodies are two ``fx.GraphModule`` s cut out of the traced graph.
@@ -25,6 +30,19 @@ Later queries on the consumer side are fissioned in turn by recursion
 (§3.2 "repeated application").  Every op on the traced path must be an
 aten op or a custom op (the port's kernels are): a launch that bypasses
 the dispatcher would be frozen into the graph as a constant.
+
+**A plan, cached** (the counterpart of tracing under ``jax.jit`` once per
+compile).  Everything the pass computes before it runs a loop, the traced
+graph, the producer, consumer and constant graphs, the query's argument
+plan and the variable classification, and the plans of the consumer
+loop's later splits, is a plan.  The pass keeps each plan in ``plans``
+(a dict the caller owns) under the signature of its inputs (the trees'
+structure, and the leaves' shapes, dtypes and devices of carry,
+microbatches and consts) and traces again only for a new signature, so a
+caller that keeps one dict across calls and makes a new closure every
+call (the train step) still traces once.  A cached plan's body must take
+every tensor that changes between calls through ``consts``: a
+``get_attr`` constant is bound to the tensor of the call that traced it.
 
 Differences from the reference, each keeping its results:
 
@@ -133,24 +151,31 @@ class _Traced:
     n_carry: int
     carry_tree: object
     y_tree: object
+    n_consts: int = 0
 
 
-def trace_body(f: Callable, init, xs) -> _Traced:
-    """Trace one iteration ``f(init, xs[0])`` into an fx graph with
-    placeholders ``[*carry, *x]`` and outputs ``[*carry, *y]`` (flattened
-    leaves), in fake mode with contiguous stand-ins for the inputs: nothing
-    runs on the device.  Any dispatch mode active around the call (an
-    enclosing trace) is set aside while tracing, so a fissioned loop nested
-    in a traced body is traced on its own."""
+def trace_body(f: Callable, init, xs, consts=None) -> _Traced:
+    """Trace one iteration ``f(init, xs[0])``, or ``f(init, xs[0], consts)``
+    when ``consts`` is given, into an fx graph with placeholders ``[*carry,
+    *x, *consts]`` and outputs ``[*carry, *y]`` (flattened leaves), in fake
+    mode with contiguous stand-ins for the inputs: nothing runs on the
+    device.  Any dispatch mode active around the call (an enclosing trace)
+    is set aside while tracing, so a fissioned loop nested in a traced body
+    is traced on its own."""
     flat_init, carry_tree = pytree.tree_flatten(init)
     flat_xs, xs_tree = pytree.tree_flatten(xs)
-    n_carry = len(flat_init)
+    flat_c, c_tree = ([], None) if consts is None else pytree.tree_flatten(consts)
+    n_carry, n_x = len(flat_init), len(flat_xs)
     trees = {}
 
     def flat_body(*flat):
         carry = pytree.tree_unflatten(list(flat[:n_carry]), carry_tree)
-        x = pytree.tree_unflatten(list(flat[n_carry:]), xs_tree)
-        new_carry, y = f(carry, x)
+        x = pytree.tree_unflatten(list(flat[n_carry:n_carry + n_x]), xs_tree)
+        if consts is None:
+            new_carry, y = f(carry, x)
+        else:
+            new_carry, y = f(carry, x, pytree.tree_unflatten(list(flat[n_carry + n_x:]),
+                                                             c_tree))
         out_carry, out_tree = pytree.tree_flatten(new_carry)
         if out_tree != carry_tree:
             raise TypeError(f"scan body returned a carry of structure {out_tree}, "
@@ -163,10 +188,20 @@ def trace_body(f: Callable, init, xs) -> _Traced:
             stand_ins = ([torch.empty(c.shape, dtype=c.dtype, device=c.device)
                           for c in flat_init]
                          + [torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
-                            for x in flat_xs])
+                            for x in flat_xs]
+                         + [torch.empty(c.shape, dtype=c.dtype, device=c.device)
+                            for c in flat_c])
         gm = make_fx(flat_body, tracing_mode="fake",
                      _allow_non_fake_inputs=True)(*stand_ins)
-    return _Traced(gm, n_carry, carry_tree, trees["y"])
+    return _Traced(gm, n_carry, carry_tree, trees["y"], len(flat_c))
+
+
+def _signature(tree) -> tuple:
+    """A tree's structure and its leaves' shapes, dtypes and devices."""
+    if tree is None:
+        return None
+    leaves, spec = pytree.tree_flatten(tree)
+    return repr(spec), tuple((tuple(a.shape), a.dtype, a.device) for a in leaves)
 
 
 def count_queries(f: Callable, init, xs) -> int:
@@ -206,7 +241,7 @@ def _invariant(ddg: ScanBodyDDG, excluded: set[int]) -> set[int]:
     for i, e in enumerate(ddg.eqns):
         if i in excluded:
             continue
-        if all(a.op == "get_attr" or ddg.def_site.get(a) in inv
+        if all(ddg.is_const(a) or ddg.def_site.get(a) in inv
                for a in e.all_input_nodes):
             inv.add(i)
     return inv
@@ -214,12 +249,13 @@ def _invariant(ddg: ScanBodyDDG, excluded: set[int]) -> set[int]:
 
 def _subgraph(gm: fx.GraphModule, ddg: ScanBodyDDG, inv: set[int], inputs: list,
               eqn_idxs, outputs: list) -> fx.GraphModule:
-    """A GraphModule over ``gm``'s constants: placeholders ``inputs``, the
-    equations ``eqn_idxs`` in graph order, outputs ``outputs``.  Constants
-    and loop-invariant equations are copied in where read."""
+    """A GraphModule over ``gm``'s constants: placeholders ``inputs`` and
+    then the ``consts`` inputs, the equations ``eqn_idxs`` in graph order,
+    outputs ``outputs``.  Closed-over constants and loop-invariant
+    equations are copied in where read."""
     g = fx.Graph()
     env: dict = {}
-    for k, n in enumerate(inputs):
+    for k, n in enumerate(inputs + ddg.const_in):
         env[n] = g.placeholder(f"in{k}")
 
     def need(n):
@@ -251,35 +287,72 @@ def fission_scan(
     xs,
     length: Optional[int] = None,
     *,
+    consts=None,
+    plans: Optional[dict] = None,
     report: Optional[FissionReport] = None,
     _depth: int = 0,
     _traced: Optional[_Traced] = None,
 ):
     """:func:`scan` with Rule A applied at every query in the body.
 
-    Falls back to plain :func:`scan` when the body has no queries.  Raises
-    :class:`FissionPreconditionError` when a query lies on a
-    true-dependence cycle (its submission needs a previous iteration's
-    result) or the body has external effects.
+    With ``consts`` the body is ``f(carry, x, consts)``.  ``plans`` keeps
+    the plans across calls (module docstring); without it each call
+    traces.  Falls back to plain :func:`scan` when the body has no
+    queries.  Raises :class:`FissionPreconditionError` when a query lies
+    on a true-dependence cycle (its submission needs a previous
+    iteration's result) or the body has external effects.
     """
     if _depth > 8:
         raise RecursionError("fission_scan: too many chained queries")
-    if any(isinstance(t, DTensor) for t in pytree.tree_leaves((init, xs))):
-        return _fission_sharded(f, init, xs, length, report)
+    bound = f if consts is None else (lambda carry, x: f(carry, x, consts))
+    if any(isinstance(t, DTensor) for t in pytree.tree_leaves((init, xs, consts))):
+        return _fission_sharded(bound, init, xs, length, report)
+    plans = {} if plans is None else plans
+    key = (_signature(init), _signature(xs), _signature(consts), length)
+    if key not in plans:
+        tr = _traced if _traced is not None else trace_body(f, init, xs, consts)
+        plans[key] = _make_plan(tr, report if _depth == 0 else None)
+    plan = plans[key]
+    if plan is None:
+        return scan(bound, init, xs, length=length)
+    return _run_plan(plan, init, xs, consts, length, report, _depth)
 
-    # ---- trace the body ------------------------------------------------
-    tr = _traced if _traced is not None else trace_body(f, init, xs)
+
+@dataclasses.dataclass
+class _Plan:
+    """One application of Rule A to a traced body (module docstring)."""
+
+    tr: _Traced
+    n_queries: int
+    p_pos: list            # carry positions on the producer side
+    c_pos: list            # and on the consumer side
+    prod_gm: fx.GraphModule
+    const_gm: fx.GraphModule  # the query's invariant arguments
+    cons_gm: fx.GraphModule
+    q_plan: list           # per query argument: ("lit", v), ("const", None),
+    #                        ("xs", x position) or ("ctx", context index)
+    spec: object
+    n_ctx: int
+    producer_y_pos: list
+    consumer_y_pos: list
+    consumer_x_pos: list
+    n_y: int
+    nested: bool           # queries remain on the consumer side
+    sub: dict              # the consumer loop's plans
+
+
+def _make_plan(tr: _Traced, report: Optional[FissionReport] = None) -> Optional[_Plan]:
+    """Split ``tr``'s body at its first query (``None``: no query); the
+    queries found go into ``report`` before any precondition is checked."""
     gm = tr.gm
-    flat_init = [c.contiguous() for c in pytree.tree_leaves(init)]
-    flat_xs = [x.contiguous() for x in pytree.tree_leaves(xs)]
     n_carry = tr.n_carry
-    ddg = ScanBodyDDG(gm.graph, n_carry)
+    ddg = ScanBodyDDG(gm.graph, n_carry, tr.n_consts)
     eqns = ddg.eqns
 
     q_idxs = [i for i, e in enumerate(eqns) if query_spec_of(e.target) is not None]
     if not q_idxs:
-        return scan(f, init, xs, length=length)
-    if report is not None and _depth == 0:
+        return None
+    if report is not None:
         report.n_queries_found = len(q_idxs)
     _refuse_effects(ddg)
 
@@ -326,7 +399,7 @@ def fission_scan(
 
     def side(v) -> str:
         """'const' | 'x' | 'pcarry' | 'ccarry' | 'prod' | 'cons' | 'query'."""
-        if v.op == "get_attr" or ddg.def_site.get(v) in inv:
+        if ddg.is_const(v) or ddg.def_site.get(v) in inv:
             return "const"
         if v in x_pos:
             return "x"
@@ -354,33 +427,56 @@ def fission_scan(
     # Query arguments: stacked (varying) or invariant.
     if q_node.kwargs:
         raise FissionPreconditionError("query op called with keyword arguments")
-    q_plan: list[tuple[str, object]] = []
+    q_args: list[tuple[str, object]] = []
     for v in q_node.args:
         if not isinstance(v, fx.Node):
-            q_plan.append(("lit", v))
+            q_args.append(("lit", v))
         elif side(v) == "const":
-            q_plan.append(("const", v))
+            q_args.append(("const", v))
         elif side(v) == "x":
-            q_plan.append(("xs", x_pos[v]))
+            q_args.append(("xs", x_pos[v]))
         elif side(v) in ("prod", "pcarry"):
             if v not in ctx_vars:
                 ctx_vars.append(v)
-            q_plan.append(("ctx", v))
+            q_args.append(("ctx", v))
         else:  # consumer side: a cycle, which check_split has raised on
             raise FissionPreconditionError("query argument produced on the consumer side")
     ctx_index = {v: i for i, v in enumerate(ctx_vars)}
-    n_ctx = len(ctx_vars)
 
     p_pos, c_pos = sorted(producer_pos), sorted(consumer_pos)
-
-    # ---- producer loop -----------------------------------------------------
     prod_gm = _subgraph(
         gm, ddg, inv, [ddg.carry_in[j] for j in p_pos] + ddg.x_in, producer_eqns,
         [ddg.carry_out[j] for j in p_pos] + ctx_vars
         + [ddg.y_out[k] for k in producer_y_pos])
+    const_gm = _subgraph(gm, ddg, inv, [], [],
+                         [v for kind, v in q_args if kind == "const"])
+    cons_gm = _subgraph(
+        gm, ddg, inv,
+        [ddg.carry_in[j] for j in c_pos] + [q_node] + ctx_vars
+        + [ddg.x_in[i] for i in consumer_x_pos],
+        consumer_list,
+        [ddg.carry_out[j] for j in c_pos] + [ddg.y_out[k] for k in consumer_y_pos])
+    q_plan = [(kind, ctx_index[v] if kind == "ctx" else None if kind == "const" else v)
+              for kind, v in q_args]
+    nested = any(query_spec_of(eqns[i].target) is not None for i in consumer_list)
+    return _Plan(tr, len(q_idxs), p_pos, c_pos, prod_gm, const_gm, cons_gm, q_plan, spec,
+                 len(ctx_vars), producer_y_pos, consumer_y_pos, consumer_x_pos,
+                 len(ddg.y_out), nested, {})
 
+
+def _run_plan(plan: _Plan, init, xs, consts, length, report, depth: int):
+    """Run the producer loop, ONE batched query and the consumer loop of
+    ``plan`` on these inputs."""
+    flat_init = [c.contiguous() for c in pytree.tree_leaves(init)]
+    flat_xs = [x.contiguous() for x in pytree.tree_leaves(xs)]
+    flat_c = [] if consts is None else pytree.tree_leaves(consts)
+    p_pos, c_pos, n_ctx = plan.p_pos, plan.c_pos, plan.n_ctx
+    if report is not None and depth == 0:
+        report.n_queries_found = plan.n_queries
+
+    # ---- producer loop -----------------------------------------------------
     def producer_body(carry_p, x_flat):
-        outs = _call(prod_gm, (*carry_p, *x_flat))
+        outs = _call(plan.prod_gm, (*carry_p, *x_flat, *flat_c))
         k = len(p_pos)
         return tuple(outs[:k]), (tuple(outs[k:k + n_ctx]), tuple(outs[k + n_ctx:]))
 
@@ -388,60 +484,53 @@ def fission_scan(
         producer_body, tuple(flat_init[j] for j in p_pos), tuple(flat_xs), length=length)
 
     # ---- ONE batched query execution (the set-oriented form) --------------
-    const_gm = _subgraph(gm, ddg, inv, [], [],
-                         [v for kind, v in q_plan if kind == "const"])
-    consts = iter(const_gm())
+    invariant = iter(_call(plan.const_gm, flat_c))
     args, mask = [], []
-    for kind, payload in q_plan:
+    for kind, payload in plan.q_plan:
         if kind == "lit":
             args.append(payload)
         elif kind == "const":
-            args.append(next(consts))
+            args.append(next(invariant))
         elif kind == "xs":
             args.append(flat_xs[payload])
         else:
-            args.append(ctx_stacked[ctx_index[payload]])
+            args.append(ctx_stacked[payload])
         mask.append(kind in ("xs", "ctx"))
-    q_res = spec.batched(mask)(*args)
+    q_res = plan.spec.batched(mask)(*args)
     if report is not None:
         report.n_queries_batched += 1
-        report.batched_specs.append(spec.name)
+        report.batched_specs.append(plan.spec.name)
 
     # ---- consumer loop -----------------------------------------------------
-    cons_gm = _subgraph(
-        gm, ddg, inv,
-        [ddg.carry_in[j] for j in c_pos] + [q_node] + ctx_vars
-        + [ddg.x_in[i] for i in consumer_x_pos],
-        consumer_list,
-        [ddg.carry_out[j] for j in c_pos] + [ddg.y_out[k] for k in consumer_y_pos])
-
-    def consumer_body(carry_c, per_iter):
+    def consumer_body(carry_c, per_iter, consts_c=flat_c):
         qres, ctx_slice, x_slice = per_iter
-        outs = _call(cons_gm, (*carry_c, qres, *ctx_slice, *x_slice))
+        outs = _call(plan.cons_gm, (*carry_c, qres, *ctx_slice, *x_slice, *consts_c))
         return tuple(outs[:len(c_pos)]), tuple(outs[len(c_pos):])
 
-    consumer_xs = (q_res, tuple(ctx_stacked), tuple(flat_xs[i] for i in consumer_x_pos))
+    consumer_xs = (q_res, tuple(ctx_stacked),
+                   tuple(flat_xs[i] for i in plan.consumer_x_pos))
     carry_c_init = tuple(flat_init[j] for j in c_pos)
     # Repeated application (§3.2) while queries remain on the consumer side.
-    if any(query_spec_of(eqns[i].target) is not None for i in consumer_list):
+    if plan.nested:
         carry_c_final, ys_c_stacked = fission_scan(
-            consumer_body, carry_c_init, consumer_xs, report=report, _depth=_depth + 1)
+            consumer_body, carry_c_init, consumer_xs, consts=list(flat_c),
+            plans=plan.sub, report=report, _depth=depth + 1)
     else:
         carry_c_final, ys_c_stacked = scan(consumer_body, carry_c_init, consumer_xs)
 
     # ---- reassemble ---------------------------------------------------------
-    flat_carry: list = [None] * n_carry
+    flat_carry: list = [None] * plan.tr.n_carry
     for idx, j in enumerate(p_pos):
         flat_carry[j] = carry_p_final[idx]
     for idx, j in enumerate(c_pos):
         flat_carry[j] = carry_c_final[idx]
-    flat_ys: list = [None] * len(ddg.y_out)
-    for idx, k in enumerate(producer_y_pos):
+    flat_ys: list = [None] * plan.n_y
+    for idx, k in enumerate(plan.producer_y_pos):
         flat_ys[k] = ys_p_stacked[idx]
-    for idx, k in enumerate(consumer_y_pos):
+    for idx, k in enumerate(plan.consumer_y_pos):
         flat_ys[k] = ys_c_stacked[idx]
-    return (pytree.tree_unflatten(flat_carry, tr.carry_tree),
-            pytree.tree_unflatten(flat_ys, tr.y_tree))
+    return (pytree.tree_unflatten(flat_carry, plan.tr.carry_tree),
+            pytree.tree_unflatten(flat_ys, plan.tr.y_tree))
 
 
 def _placements(t, mesh):
@@ -551,10 +640,14 @@ def _fission_sharded(f: Callable, init, xs, length, report):
             pytree.tree_unflatten(flat_ys, seen["y_tree"]))
 
 
-def scan_with_queries(f: Callable, init, xs, *, fission: bool = True, length=None):
+def scan_with_queries(f: Callable, init, xs, *, fission: bool = True, length=None,
+                      consts=None, plans: Optional[dict] = None):
     """Config-switchable entry point: the *same* model code runs either the
     paper-faithful per-iteration form (``fission=False``, the baseline) or
-    the fissioned batched form (``fission=True``)."""
+    the fissioned batched form (``fission=True``, with ``plans`` cached).
+    With ``consts`` the body is ``f(carry, x, consts)``."""
     if fission:
-        return fission_scan(f, init, xs, length=length)
+        return fission_scan(f, init, xs, length=length, consts=consts, plans=plans)
+    if consts is not None:
+        return scan(lambda carry, x: f(carry, x, consts), init, xs, length=length)
     return scan(f, init, xs, length=length)

@@ -15,7 +15,7 @@ single-request form and (optionally) a set-oriented batched form:
   batching amortizes dispatch + kernel-launch + HBM-stream fixed costs the
   same way set-oriented SQL amortizes round trips and random IO.
   (In this package the callable is PyTorch: ``batch_fn`` defaults to
-  ``torch.func.vmap(single_fn)`` and nothing is compiled.)
+  ``torch.func.vmap(single_fn)``, and each is compiled per shape.)
 * :class:`TableService` — an in-memory key→row "database" used for unit
   tests and the HIR interpreter (deterministic, no latency).
 
@@ -227,23 +227,32 @@ class SimulatedDBService(_StatsMixin):
 class ModelService(_StatsMixin):
     """A PyTorch model as the query service (the ML-serving instantiation).
 
-    ``single_fn(params...) -> result`` is called as it is; the batched form
-    stacks the per-request parameter tuples along a new leading axis
-    (``torch.stack``) and runs ``batch_fn`` (default
-    ``torch.func.vmap(single_fn)``) **once** — one device dispatch for the
-    whole batch, the device analogue of the set-oriented query.  Results
-    are split back per request.  The device is the tensors' own: nothing is
-    moved and nothing falls back.
+    ``single_fn(params...) -> result``; the batched form stacks the
+    per-request parameter tuples along a new leading axis and runs
+    ``batch_fn`` (default ``torch.func.vmap(single_fn)``) **once** — one
+    device dispatch for the whole batch, the device analogue of the
+    set-oriented query.  Results are split back per request.  The device is
+    the tensors' own: nothing is moved and nothing falls back.
+
+    Each forward is a compiled step (:mod:`repro_torch.serving.graphs`,
+    the counterpart of the reference's jit): ``execute`` replays a step
+    keyed on its parameters' shapes, dtypes and device, the batched form
+    one keyed on the stacked shapes.  A step is built, and on the card
+    captured as a CUDA graph, at its key's first use, from whichever
+    thread calls first; the parameters are copied (the batched ones
+    stacked) straight into its static inputs and the results copied out of
+    its outputs before the step is released.  On the CPU a step runs the
+    function on its static inputs; under ``graphs.eager()`` it runs as
+    plain ops.  A parameter that is not a tensor is part of the key and
+    passed as it is.  ``steps`` maps each device to its steps.
 
     With ``pad_batches=True`` the batch axis is padded to a per-lane fixed
     bucket keyed by ``query_name``: a lane's bucket is the power of two of
-    the largest batch it has seen, so each lane settles on ONE batch shape
-    instead of one per distinct batch size the strategy emits.  Nothing is
-    compiled here, so the buckets buy shape stability only: what a CUDA
-    graph captured per bucket (the analogue of a jit cache, and of the
-    paper's prepared statement) would need.  ``lane_buckets`` exposes the
-    current bucket per lane and ``stats.padded_items`` counts the filler
-    rows paid for shape stability.
+    the largest batch it has seen, so each lane settles on ONE compiled
+    step instead of one per distinct batch size the strategy emits (the
+    analogue of the reference's jit cache, and of the paper's prepared
+    statement).  ``lane_buckets`` exposes the current bucket per lane and
+    ``stats.padded_items`` counts the filler rows paid for shape stability.
     """
 
     def __init__(self, single_fn: Callable, batch_fn: Optional[Callable] = None,
@@ -255,11 +264,13 @@ class ModelService(_StatsMixin):
         self.batch_fn = batch_fn if batch_fn is not None else torch.func.vmap(single_fn)
         self.pad_batches = pad_batches
         self.lane_buckets: dict[str, int] = {}
+        self.steps: dict = {}  # device -> graphs.StepCache
+        self._steps_lock = threading.Lock()
 
     def execute(self, query_name: str, params: tuple) -> Any:
         """One model forward, blocking until the device result is ready."""
         self._count(round_trips=1, single=1)
-        out = self.single_fn(*params)
+        out = self._forward(False, [params])
         return torch_block(out)
 
     def execute_batch(self, query_name: str, params_list: Sequence[tuple]) -> list:
@@ -273,12 +284,13 @@ class ModelService(_StatsMixin):
                             params_list: Sequence[tuple]) -> Callable[[], list]:
         """Dispatch the batched forward WITHOUT blocking; returns a resolver.
 
-        CUDA launches are asynchronous: ``batch_fn`` returns as soon as its
-        kernels are enqueued.  An event recorded on the current stream right
-        after it marks the batch's end; the returned zero-arg resolver waits
-        on that event (CPU results need no wait) and splits every leaf of
-        the result per request — the paper's "results already fetched by
-        the time they are consumed", at the service layer.
+        CUDA launches are asynchronous: the step's replay and the copy of
+        its results return as soon as they are enqueued.  An event recorded
+        on the current stream right after them marks the batch's end; the
+        returned zero-arg resolver waits on that event (CPU results need no
+        wait) and splits every leaf of the result per request — the
+        paper's "results already fetched by the time they are consumed",
+        at the service layer.
         """
         import torch
         from torch.utils._pytree import tree_leaves, tree_map
@@ -293,11 +305,8 @@ class ModelService(_StatsMixin):
             # Repeat the last request as filler: same shapes/dtypes, results
             # beyond n are sliced away below.
             params_list = list(params_list) + [params_list[-1]] * n_pad
-        stacked = tuple(
-            torch.stack([p[i] for p in params_list]) for i in range(len(params_list[0]))
-        )
         self._count(round_trips=3, batches=1, items=n, padded=n_pad)
-        pending = self.batch_fn(*stacked)  # enqueued, not waited on
+        pending = self._forward(True, params_list)  # enqueued, not waited on
         cuda = [a.device for a in tree_leaves(pending)
                 if isinstance(a, torch.Tensor) and a.is_cuda]
         done = None
@@ -312,6 +321,62 @@ class ModelService(_StatsMixin):
             return [tree_map(lambda a: a[i], pending) for i in range(n)]
 
         return resolve
+
+    def _forward(self, batched: bool, params_list: Sequence[tuple]):
+        """Replay the step of ``single_fn`` on ``params_list[0]``, or of
+        ``batch_fn`` on the parameters stacked along a new leading axis,
+        and return copies of its results."""
+        import torch
+        from torch.utils._pytree import tree_unflatten
+
+        first = params_list[0]
+        key = (batched, len(params_list) if batched else None,
+               tuple((tuple(p.shape), p.dtype) if isinstance(p, torch.Tensor) else ("value", p)
+                     for p in first))
+        devices = {p.device for p in first if isinstance(p, torch.Tensor)}
+        if len(devices) > 1:
+            raise ValueError(f"a query's tensors lie on several devices: {devices}")
+        device = devices.pop() if devices else torch.device("cpu")
+        with self._step_cache(device).exclusive(key) as step:
+            for i, p in enumerate(first):
+                if not isinstance(p, torch.Tensor):
+                    continue
+                if batched:
+                    torch.stack([ps[i] for ps in params_list], out=step.inputs[str(i)])
+                else:
+                    step.inputs[str(i)].copy_(p)
+            outs = [o.clone() for o in step()]
+        return tree_unflatten(outs, step.fn.tree)
+
+    def _step_cache(self, device):
+        from repro_torch.serving import graphs
+
+        with self._steps_lock:
+            if device not in self.steps:
+                self.steps[device] = graphs.StepCache(
+                    lambda key, pool, hold: self._build(key, device, pool, hold), device)
+            return self.steps[device]
+
+    def _build(self, key, device, pool, hold):
+        """The step of one key: the function over static inputs shaped as
+        the key says, returning its results' leaves (their structure kept
+        as the step function's ``tree``)."""
+        from torch.utils._pytree import tree_flatten
+
+        from repro_torch.serving import graphs
+
+        batched, n, specs = key
+        fn = self.batch_fn if batched else self.single_fn
+        tensors = {str(i): ((n, *s[0]) if batched else s[0], s[1])
+                   for i, s in enumerate(specs) if s[0] != "value"}
+        inputs = graphs.StaticInputs(tensors, device)
+        args = [inputs[str(i)] if str(i) in tensors else s[1] for i, s in enumerate(specs)]
+
+        def forward():
+            leaves, forward.tree = tree_flatten(fn(*args))
+            return tuple(leaves)
+
+        return graphs.CompiledStep(forward, inputs, [], device, pool, hold)
 
 
 def torch_block(x):

@@ -357,7 +357,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> dic
 def prefill(cfg: ModelConfig, params: dict, tokens: Optional[torch.Tensor] = None,
             max_len: Optional[int] = None, return_all_logits: bool = False, *,
             positions: Optional[torch.Tensor] = None,
-            embeds: Optional[torch.Tensor] = None):
+            embeds: Optional[torch.Tensor] = None, out: Optional[dict] = None):
     """Full-sequence prefill of ``tokens`` (B, S), or of a frontend's
     ``embeds`` (B, S, d) at ``positions`` ((3, B, S) for M-RoPE; default
     ``arange(S)``) → (logits, cache).
@@ -379,6 +379,11 @@ def prefill(cfg: ModelConfig, params: dict, tokens: Optional[torch.Tensor] = Non
     the pad positions too, as in the reference
     (``repro.models.ssm.ssm_forward``).  Runs on the device ``tokens`` or
     ``embeds`` and ``params`` live on.
+
+    ``out`` (not on a mesh): a cache of exactly the shapes this prefill
+    returns, zeroed and written in place and returned instead of a new one
+    (the engines' compiled prefill writes into a staging cache whose
+    address is fixed).
     """
     x = shard_activation(_inputs(cfg, params, tokens, embeds), "dp", None, None)
     B, S = x.shape[:2]
@@ -386,18 +391,32 @@ def prefill(cfg: ModelConfig, params: dict, tokens: Optional[torch.Tensor] = Non
     rows = W if W > 0 else max(S, max_len or 0)
     caches = {}
     sharded = isinstance(x, DTensor)
+    if out is not None:
+        if sharded:
+            raise ValueError("prefill writes no out= cache on a mesh")
+        for stack in out.values():
+            for a in stack.values():
+                a.zero_()
     for (name, kind, n), (stacked, _k2, _n2) in zip(
             _stack_names(cfg), _layer_stacks(cfg, params)):
         if kind == "ssm":
-            x, caches[name] = _prefill_ssm_stack(cfg, stacked, n, x)
+            x, caches[name] = _prefill_ssm_stack(cfg, stacked, n, x,
+                                                 None if out is None else out[name])
             continue
         shape = (n, B, rows, cfg.n_kv_heads, cfg.hd)
         # On a mesh each layer's rows are kept and stacked after the loop
         # (DTensor writes no slice of a sharded buffer in place).
-        c = ({"k": [], "v": []} if sharded else
-             {"k": torch.zeros(shape, dtype=cfg.cdtype, device=x.device),
-              "v": torch.zeros(shape, dtype=cfg.cdtype, device=x.device)})
-        if kind == "hybrid":
+        if sharded:
+            c = {"k": [], "v": []}
+        elif out is not None:
+            c = out[name]
+            if tuple(c["k"].shape) != shape:
+                raise ValueError(f"prefill out= cache {name}: {tuple(c['k'].shape)}, "
+                                 f"not {shape}")
+        else:
+            c = {"k": torch.zeros(shape, dtype=cfg.cdtype, device=x.device),
+                 "v": torch.zeros(shape, dtype=cfg.cdtype, device=x.device)}
+        if kind == "hybrid" and out is None:
             c.update({"ssm": [], "conv": []} if sharded else
                      init_ssm_state(cfg, B, n_layers=n, device=x.device))
         for i in range(n):
@@ -442,11 +461,16 @@ def _branch_mean(p: dict, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return 0.5 * (a + s)
 
 
-def _prefill_ssm_stack(cfg: ModelConfig, stacked: dict, n: int, x: torch.Tensor):
-    """Run ``n`` SSM blocks over x (B, S, d) → (x, {"ssm", "conv"})."""
+def _prefill_ssm_stack(cfg: ModelConfig, stacked: dict, n: int, x: torch.Tensor,
+                       out: Optional[dict] = None):
+    """Run ``n`` SSM blocks over x (B, S, d) → (x, {"ssm", "conv"}), the
+    states written into ``out`` when given."""
     sharded = isinstance(x, DTensor)  # stacked after the loop, as in prefill
-    cache = ({"ssm": [], "conv": []} if sharded else
-             init_ssm_state(cfg, x.shape[0], n_layers=n, device=x.device))
+    if sharded:
+        cache = {"ssm": [], "conv": []}
+    else:
+        cache = out if out is not None else init_ssm_state(cfg, x.shape[0], n_layers=n,
+                                                           device=x.device)
     for i in range(n):
         lp = layer_slice(stacked, i)
         y, state = ssm_forward(lp["ssm"], cfg, apply_norm(cfg.norm, lp["ln1"], x),

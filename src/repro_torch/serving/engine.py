@@ -14,7 +14,8 @@ pure-Python classes (``StagedPrefill`` gains one field, ``ready``).
   folds in one chunk at a time through ``_extend`` (the dense one-token
   decode step, whose attention is the ``decode_attention`` op);
 * ``_prefill`` — the first token is the argmax of the logits at
-  ``plens - 1``, so pad positions never matter;
+  ``plens - 1``, so pad positions never matter; every dispatch runs it
+  through the bucket's compiled prefill step (``_prefill_step``);
 * ``commit_prefill``, ``admit``, ``retire``, ``spill``/``try_restore``
   and the ``dispatches`` / ``decode_steps`` / ``prefill_calls`` /
   ``kv_bytes_moved`` counters, raised at the reference's call sites.
@@ -40,6 +41,18 @@ each captured as one CUDA graph on the card:
   static token buffer at a position counter on the device and advancing
   both, so a chunk of C tokens is C replays.  The staged prefill's cache
   is copied into the staging cache before them and back after them.
+
+* the prefill steps, one per (batch, prompt) bucket, built and captured
+  at the bucket's first dispatch (a :class:`~repro_torch.serving.graphs.
+  StepCache`): ``_prefill`` of the padded tokens and lengths in static
+  buffers, writing its KV into the ``[:, :batch]`` view of one staging
+  cache per engine (allocated once, at the largest bucket:
+  ``_bucket(n_lanes)`` lanes of the prefill's rows), so memory does not
+  grow with the buckets.  The prefill steps share one graph pool and one
+  hold; under the hold each dispatch replays its step and copies the
+  first tokens and its view of the staging cache into tensors the
+  :class:`StagedPrefill` owns (speculation may stage several prefills
+  before it commits one, or drop one).
 
 There is one chunk step per stream the engine issues on (the main
 stream's, and on the card the engine's own stream's, on which the
@@ -482,12 +495,13 @@ class InferenceEngine:
             t.record_stream(cur)
 
     # ------------------------------------------------------------ model steps
-    def _prefill(self, tokens: torch.Tensor, plens: torch.Tensor):
+    def _prefill(self, tokens: torch.Tensor, plens: torch.Tensor, out: dict):
         """Prefill a right-padded batch → (first token per row, KV cache
-        padded to ``max_len``).  The first token is the argmax of the
-        logits at ``plens - 1``, the row's last real position."""
+        padded to ``max_len``, written into ``out``).  The first token is
+        the argmax of the logits at ``plens - 1``, the row's last real
+        position."""
         logits, cache = _tf.prefill(self.arch.cfg, self.params, tokens,
-                                    max_len=self.max_len, return_all_logits=True)
+                                    max_len=self.max_len, return_all_logits=True, out=out)
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         last = logits[rows, plens.long() - 1]
         return last.argmax(dim=-1).to(torch.int32), cache
@@ -524,14 +538,57 @@ class InferenceEngine:
                 _copy_cache(cache, staging)
         return logits, cache, lengths
 
+    def _prefill_step(self, toks: np.ndarray, plens: np.ndarray):
+        """One prefill dispatch of a padded (batch, prompt) bucket on the
+        current stream: under the prefill steps' hold, the bucket's step
+        replays between the copy of ``toks`` and ``plens`` into its static
+        buffers and the copy of the first tokens and of the bucket's view
+        of the staging cache into new tensors → (first (bsz,) int32, KV
+        cache), both the caller's."""
+        bsz = toks.shape[0]
+        with self._prefill_steps.exclusive(toks.shape) as step:
+            step.inputs.put("tokens", toks)
+            step.inputs.put("plens", plens)
+            step.inputs.upload()
+            first = step().clone()
+            cache = {name: {k: a[:, :bsz].clone() for k, a in stack.items()}
+                     for name, stack in self._prefill_out.items()}
+        return first, cache
+
     # ------------------------------------------------------ compiled steps
     def _compile(self) -> None:
-        """Build the tick and the chunk steps (module docstring)."""
+        """Build the tick and the chunk steps, and the prefill steps' cache
+        over one staging cache (module docstring)."""
         pool = graphs.new_pool(self.device)
         self._tick_step = self._make_tick(pool)
         self._chunk_steps = {None: self._make_chunk(pool)}
         if self._stream is not None:
             self._chunk_steps[self._stream] = self._make_chunk(None)
+        self._prefill_out = self.arch.init_cache(_bucket(self.n_lanes), self.max_len,
+                                                 self.device)
+        self._prefill_steps = graphs.StepCache(self._make_prefill, self.device)
+
+    def _make_prefill(self, shape: tuple, pool, hold) -> graphs.CompiledStep:
+        """The prefill of one (batch, prompt) bucket: ``_prefill`` of the
+        static tokens and lengths, its KV written into the ``[:, :batch]``
+        view of the staging cache → first tokens (batch,) int32.  Built
+        under the prefill steps' hold, so the staging cache, which no
+        caller keeps, is zeroed for the capture."""
+        bsz, plen = shape
+        lanes = next(_tensors(self._prefill_out)).shape[1]
+        if bsz > lanes:
+            raise ValueError(f"a prefill batch of {bsz} exceeds the staging cache's "
+                             f"{lanes} lanes")
+        inputs = graphs.StaticInputs({"tokens": (bsz, plen), "plens": (bsz,)}, self.device)
+        out = {name: {k: a[:, :bsz] for k, a in stack.items()}
+               for name, stack in self._prefill_out.items()}
+        for a in _tensors(self._prefill_out):
+            a.zero_()
+
+        def prefill():
+            return self._prefill(inputs["tokens"], inputs["plens"], out)[0]
+
+        return graphs.CompiledStep(prefill, inputs, _tensors(out), self.device, pool, hold)
 
     def _make_tick(self, pool) -> graphs.CompiledStep:
         """The dense tick: ``decode_step`` over every lane of the cache →
@@ -645,8 +702,7 @@ class InferenceEngine:
             toks[i, : len(p)] = p  # right-pad; causal mask hides pad keys
             plens[i] = len(p)
         with self._side():
-            first, cache = self._prefill(torch.as_tensor(toks, device=self.device),
-                                         torch.as_tensor(plens, device=self.device))
+            first, cache = self._prefill_step(toks, plens)
             staged = StagedPrefill(template, list(requests), first, cache,
                                    plens, (bsz, plen))
             self._mark(staged)
@@ -665,9 +721,8 @@ class InferenceEngine:
         c0 = min(chunk, S)
         dev = self.device
         with self._side():
-            first, cache = self._prefill(
-                torch.as_tensor(prompt[None, :c0], device=dev),
-                torch.as_tensor([c0], dtype=torch.int32, device=dev))
+            first, cache = self._prefill_step(np.ascontiguousarray(prompt[None, :c0]),
+                                              np.asarray([c0], np.int32))
             pending = [prompt[None, i: i + chunk] for i in range(c0, S, chunk)]
             staged = StagedPrefill(
                 template, [r], None if pending else first, cache,

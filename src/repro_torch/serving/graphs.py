@@ -6,8 +6,8 @@ program (``_decode``, ``_extend``, ``_paged``, ``_fused``,
 op of those programs from Python instead.  A :class:`CompiledStep` owns:
 
 * static input buffers (:class:`StaticInputs`): one flat int32 tensor on
-  the device, cut into named views, filled from one host array by a single
-  copy per call;
+  the device, cut into named views of int32, float32 or int64, filled from
+  one host array by a single copy per call, or written on the device;
 * a step function written only against those buffers and against tensors
   whose address is fixed for the step's life (an engine's cache, a
   staging cache);
@@ -37,6 +37,14 @@ before another graph of the pool replays.  An engine gives the graphs it
 replays on one stream one pool (:func:`new_pool`) and the graph it
 replays on its own stream another.
 
+Dispatches whose shape is known only when they come (the engines'
+prefill, one per pinned bucket; ``ModelService``'s forwards, one per
+parameter shape) keep their steps in a :class:`StepCache`: a step is
+built, and on the card captured, at its key's first use, from whichever
+thread uses it first.  The steps of one cache share one hold and one pool,
+and every caller copies what it keeps out of the outputs before it
+releases the hold.
+
 On CPU operands there is no graph: the step runs its function directly on
 the same buffers, so the CPU tests exercise the static-buffer plumbing.
 :func:`eager` (the counterpart of ``jax.disable_jit``) does the same on
@@ -55,7 +63,7 @@ import torch
 
 from repro_torch.kernels import registry
 
-__all__ = ["CompiledStep", "StaticInputs", "eager", "is_eager", "new_pool"]
+__all__ = ["CompiledStep", "StaticInputs", "StepCache", "eager", "is_eager", "new_pool"]
 
 _CAPTURE_LOCK = threading.Lock()
 _EAGER_LOCK = threading.Lock()
@@ -92,28 +100,32 @@ def new_pool(device: torch.device):
 
 
 class StaticInputs:
-    """Named int32 or float32 views of one flat int32 device buffer and of
-    its host twin; :meth:`put` writes the host twin, :meth:`upload` copies
-    it to the device in one transfer.  ``spec`` maps each name to its
-    shape, or to ``(shape, torch.float32)``."""
+    """Named int32, float32 or int64 views of one flat int32 device buffer
+    and of its host twin; :meth:`put` writes the host twin, :meth:`upload`
+    copies it to the device in one transfer.  ``spec`` maps each name to
+    its shape, or to ``(shape, dtype)``; an int64 view starts at an even
+    entry."""
 
     def __init__(self, spec: dict, device: torch.device):
-        self.flat = torch.zeros((sum(_numel(s) for s in spec.values()),),
-                                dtype=torch.int32, device=device)
-        self.host = np.zeros(self.flat.shape, np.int32)
-        self._views, self._host_views = {}, {}
-        at = 0
+        layout, at = {}, 0
         for name, s in spec.items():
             shape, dtype = s if _is_typed(s) else (s, torch.int32)
-            n = _numel(s)
-            dev, host = self.flat[at: at + n], self.host[at: at + n]
-            if dtype == torch.float32:
-                dev, host = dev.view(torch.float32), host.view(np.float32)
-            elif dtype != torch.int32:
-                raise ValueError(f"{name}: static inputs are int32 or float32")
+            words = _WORDS.get(dtype)
+            if words is None:
+                raise ValueError(f"{name}: static inputs are int32, float32 or int64")
+            at += at % words
+            layout[name] = (at, shape, dtype)
+            at += words * _numel(shape)
+        self.flat = torch.zeros((at,), dtype=torch.int32, device=device)
+        self.host = np.zeros(self.flat.shape, np.int32)
+        self._views, self._host_views = {}, {}
+        for name, (start, shape, dtype) in layout.items():
+            n = _WORDS[dtype] * _numel(shape)
+            dev, host = self.flat[start: start + n], self.host[start: start + n]
+            if dtype != torch.int32:
+                dev, host = dev.view(dtype), host.view(_NUMPY[dtype])
             self._views[name] = dev.view(shape)
             self._host_views[name] = host.reshape(shape)
-            at += n
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self._views[name]
@@ -133,6 +145,19 @@ class StaticInputs:
         the device buffer, on the current stream."""
         n = self.host.shape[0] if n is None else n
         self.flat[:n].copy_(torch.from_numpy(self.host[:n]))
+
+
+_WORDS = {torch.int32: 1, torch.float32: 1, torch.int64: 2}
+_NUMPY = {torch.float32: np.float32, torch.int64: np.int64}
+
+
+class _Hold:
+    """A re-entrant lock, and on the card the event after its last
+    holder's work: what :meth:`CompiledStep.exclusive` holds."""
+
+    def __init__(self):
+        self.lock = threading.RLock()
+        self.done = None
 
 
 @contextlib.contextmanager
@@ -156,8 +181,7 @@ def _is_typed(s) -> bool:
     return len(s) == 2 and isinstance(s[1], torch.dtype)
 
 
-def _numel(s) -> int:
-    shape = s[0] if _is_typed(s) else s
+def _numel(shape) -> int:
     return int(np.prod(shape, dtype=np.int64))
 
 
@@ -171,23 +195,24 @@ class CompiledStep:
     replayed or under :func:`eager`: read them first.  ``pool``
     is :func:`new_pool`'s handle, or ``None`` for a pool of its own.
     Construction captures on the card.
-    ``lock`` (re-entrant) and :meth:`exclusive` serialise callers that
-    share the step across threads.
+    :meth:`exclusive` serialises callers that share the step across
+    threads; steps given one ``hold`` (a :class:`StepCache`'s) serialise
+    together.
     """
 
     def __init__(self, fn: Callable, inputs: StaticInputs,
-                 state: Iterable[torch.Tensor], device: torch.device, pool=None):
+                 state: Iterable[torch.Tensor], device: torch.device, pool=None,
+                 hold: Optional[_Hold] = None):
         self.fn = fn
         self.inputs = inputs
         self.state = [inputs.flat, *state]
         self.device = device
         self.pool = pool
-        self.lock = threading.RLock()
+        self.hold = hold if hold is not None else _Hold()
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tally: dict = {}   # launches a replay makes
         self.replays = 0        # replays of the captured graph
         self.out = None
-        self._done = None  # event after the last exclusive use (card only)
         if device.type == "cuda":
             self._capture()
 
@@ -238,11 +263,43 @@ class CompiledStep:
         """Hold the step from copy-in to the enqueue of copy-out: its lock,
         and on the card the current stream ordered after the step's last
         exclusive use on any stream."""
-        with self.lock:
-            if self._done is not None:
-                torch.cuda.current_stream(self.device).wait_event(self._done)
+        hold = self.hold
+        with hold.lock:
+            if hold.done is not None:
+                torch.cuda.current_stream(self.device).wait_event(hold.done)
             yield self
             if self.device.type == "cuda":
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(self.device))
-                self._done = done
+                hold.done = done
+
+
+class StepCache:
+    """Compiled steps keyed by a static shape, each built by ``build(key,
+    pool, hold)`` at its key's first use (module docstring).  The steps
+    share one hold and one graph pool: :meth:`exclusive` holds them all,
+    and what a caller keeps of a step's outputs it copies out before the
+    hold ends."""
+
+    def __init__(self, build: Callable, device: torch.device):
+        self._build = build
+        self.device = device
+        self.pool = new_pool(device)
+        self.hold = _Hold()
+        self.steps: dict = {}
+
+    @contextlib.contextmanager
+    def exclusive(self, key):
+        """Hold every step of the cache and yield ``key``'s, built first if
+        it is new."""
+        with self.hold.lock:
+            step = self.steps.get(key)
+            if step is None:
+                step = self.steps[key] = self._build(key, self.pool, self.hold)
+            with step.exclusive():
+                yield step
+
+    @property
+    def replays(self) -> int:
+        """Replays of every step's graph so far."""
+        return sum(s.replays for s in self.steps.values())

@@ -8,7 +8,12 @@ is on, each microbatch's embedding gather inside it is a *query*:
 batched gather, the paper's Rule A on device code, so a step launches the
 ``batched_gather`` kernel once instead of once per microbatch.
 ``TrainStepConfig.fission`` switches between the per-iteration form and
-the fissioned one.
+the fissioned one.  The loop body takes the parameters as its third
+argument (``consts``), so they enter the traced graph as inputs and not as
+constants, and the step keeps its fission plans (``train_step.plans``, a
+dict; :mod:`repro_torch.core.fission`): the body is traced once per batch
+shape, as the reference's ``jax.jit`` traces it once per compile.  The
+sharded step traces each step.
 
 The loss and gradients are taken with ``torch.autograd.grad`` under
 ``torch.enable_grad()`` inside the scanned body (the reference's
@@ -106,16 +111,25 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
     metrics)``; ``batch`` holds numpy arrays or tensors, moved to the
     parameters' device.  With ``ts_cfg.donate`` the new parameters and
     moments are written into the tensors passed in (returned as well);
-    without it nothing passed in is written.
+    without it nothing passed in is written.  ``train_step.plans`` holds
+    the fission plans (module docstring); clearing it makes the next step
+    trace again.
     """
     loss_fn = make_loss_fn(arch)
     n = ts_cfg.microbatches
+    plans: dict = {}
 
     def init_state(params):
         state = {"opt": adamw_init(opt_cfg, params)}
         if ts_cfg.grad_compression == "int8_ef":
             state["ef"] = pytree.tree_map(_zeros_f32, params)
         return state
+
+    def body(carry, mb, params):
+        acc, loss_acc = carry
+        (loss, metrics), grads = _value_and_grad(loss_fn, params, mb)
+        acc = pytree.tree_map(lambda a, g: a + g.float() / n, acc, grads)
+        return (acc, loss_acc + loss / n), metrics
 
     def compute_grads(params, batch):
         """``batch``: the step's batch, or with ``n > 1`` its microbatches."""
@@ -124,16 +138,10 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
             return loss, metrics, grads
 
         zero_g = pytree.tree_map(_zeros_f32, params)
-
-        def body(carry, mb):
-            acc, loss_acc = carry
-            (loss, metrics), grads = _value_and_grad(loss_fn, params, mb)
-            acc = pytree.tree_map(lambda a, g: a + g.float() / n, acc, grads)
-            return (acc, loss_acc + loss / n), metrics
-
         loss0 = torch.zeros((), dtype=torch.float32, device=_device_of(zero_g))
         (grads, loss), metricss = scan_with_queries(
-            body, (zero_g, loss0), batch, fission=ts_cfg.fission)
+            body, (zero_g, loss0), batch, fission=ts_cfg.fission, consts=params,
+            plans=plans)
         metrics = {k: m[-1] for k, m in metricss.items()}
         return loss, metrics, grads
 
@@ -165,6 +173,7 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
         return new_params, new_state, metrics
 
     if mesh is None:
+        step.plans = plans
         return init_state, step
 
     def train_step(params, state, batch):
@@ -172,6 +181,7 @@ def make_train_step(arch: Arch, opt_cfg: AdamWConfig,
             new_params, new_state, metrics = step(params, state, batch)
         return new_params, new_state, {k: full(v) for k, v in metrics.items()}
 
+    train_step.plans = plans
     return init_state, train_step
 
 

@@ -24,7 +24,7 @@ NOTES = {
         "verbatim so that the port imports nothing of the JAX package).\n\n"],
     "core/services.py": [
         "  (In this package the callable is PyTorch: ``batch_fn`` defaults to\n"
-        "  ``torch.func.vmap(single_fn)`` and nothing is compiled.)\n",
+        "  ``torch.func.vmap(single_fn)``, and each is compiled per shape.)\n",
         '    "torch_block",\n'],
     "launch/roofline.py": [
         'RESULTS = RESULTS.with_name("dryrun_torch.json")  # the port\'s dry run writes its own\n'],

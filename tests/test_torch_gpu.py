@@ -1910,3 +1910,195 @@ def test_switching_modes_on_one_engine_keeps_the_graphs_outputs(gen, paged, firs
         assert toks == w_toks
         assert float((tick - w_tick).abs().max()) <= 1e-3 * float(w_tick.abs().max())
         assert float((part - w_part).abs().max()) <= 1e-3 * float(w_part.abs().max())
+
+
+# ---------------------------------------- compiled prefill, fission, ModelService
+
+def _same_staged(got, want) -> None:
+    assert torch.equal(got.first, want.first)
+    for name, stack in want.cache.items():
+        for key, a in stack.items():
+            assert torch.equal(got.cache[name][key], a), (name, key)
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "mamba2-1.3b", "hymba-1.5b", "qwen2-vl-2b"])
+def test_prefill_replay_equals_eager_prefill(gen, name):
+    """Reduced configs in float32: a prefill dispatch that replays its
+    bucket's captured step gives the first tokens and KV cache of the same
+    dispatch under ``eager()`` bit for bit (the same kernels on the same
+    inputs; hymba's bucket of 16 is its window, so the ring re-layout
+    runs); the first dispatch built the step, each dispatch outside
+    ``eager()`` was one replay."""
+    from repro_torch.serving import graphs
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.request import Request
+
+    arch, cpu_params = _reduced(name)
+    params = _to(cpu_params, "cuda")
+    eng = InferenceEngine(arch, params, n_lanes=4, max_prompt_len=16, max_len=48,
+                          device="cuda")
+    rng = np.random.default_rng(10)
+    reqs = [Request(rid=i, prompt=rng.integers(1, 200, size=n).astype(np.int32))
+            for i, n in enumerate((5, 11, 3))]
+    got = [eng.prefill_dispatch(reqs) for _ in range(2)]
+    with graphs.eager():
+        want = eng.prefill_dispatch(reqs)
+    torch.cuda.synchronize()
+    assert list(eng._prefill_steps.steps) == [(4, 16)]
+    step = eng._prefill_steps.steps[(4, 16)]
+    assert step.captured and step.replays == 2
+    for g in got:
+        _same_staged(g, want)
+
+
+def test_prefill_capture_on_a_second_thread_while_ticks_replay(gen):
+    """A second thread dispatches prefills of new buckets (each captured on
+    the engine's stream, as the speculation thread does) while the main
+    thread replays decode ticks: the staged results equal the same
+    dispatches under ``eager()`` and the ticks' tokens equal an engine's
+    that ran them alone."""
+    import threading
+
+    from repro_torch.serving import graphs
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+
+    arch, cpu_params = _reduced("llama3-8b")
+    params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(11)
+    lanes = [rng.integers(1, 200, size=n).astype(np.int32) for n in (6, 9)]
+    side = [rng.integers(1, 200, size=n).astype(np.int32) for n in (3, 7, 13, 2)]
+
+    def engine():
+        eng = PagedInferenceEngine(arch, params, n_lanes=4, max_prompt_len=16, max_len=64,
+                                   page_size=8, device="cuda")
+        eng.admit([Request(rid=i, prompt=p) for i, p in enumerate(lanes)])
+        return eng
+
+    def ticks(eng, n=30):
+        return [eng.decode_tick() for _ in range(n)]
+
+    eng, alone = engine(), engine()
+    staged, errors = [], []
+
+    def speculate():
+        try:
+            for i, p in enumerate(side):
+                staged.append(eng.prefill_dispatch([Request(rid=10 + i, prompt=p)]))
+        except BaseException as e:  # re-raised on the main thread below
+            errors.append(e)
+
+    t = threading.Thread(target=speculate)
+    t.start()
+    got_ticks = ticks(eng)
+    t.join(timeout=300)
+    assert not t.is_alive() and not errors, errors
+    want_ticks = ticks(alone)
+    with graphs.eager():
+        want = [eng.prefill_dispatch([Request(rid=10 + i, prompt=p)])
+                for i, p in enumerate(side)]
+    torch.cuda.synchronize()
+    assert got_ticks == want_ticks
+    assert sorted(eng._prefill_steps.steps) == [(1, 2), (1, 4), (1, 8), (1, 16), (2, 16)]
+    for g, w in zip(staged, want):
+        _same_staged(g, w)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_cached_fission_plan_equals_retracing_on_card(gen, donate):
+    """Reduced llama3-8b in float32, 3 fissioned steps at 4 microbatches:
+    the step that traced its body once against one that traces every step
+    — one and three ``trace_body`` calls, the same first loss bit for bit
+    and the later ones within 1e-6 relative (the embedding gradient's
+    scatter-add uses atomics), parameters within 1e-5."""
+    from repro_torch.core import fission as fission_mod
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    arch, _p = _reduced("llama3-8b")
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, query_embedding=True))
+    cpu_params = arch.init(seed=0, device="cpu")
+    rng = np.random.default_rng(12)
+    batches = [{"tokens": t, "labels": t} for t in
+               (rng.integers(0, 256, size=(8, 16)).astype(np.int32) for _ in range(3))]
+    runs = {}
+    real = fission_mod.trace_body
+    for retrace in (False, True):
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(fission_mod, "trace_body",
+                       lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+            params = _to(cpu_params, "cuda")
+            init, step = make_train_step(arch, AdamWConfig(lr=1e-3),
+                                         TrainStepConfig(microbatches=4, donate=donate))
+            state, losses = init(params), []
+            registry.reset_launches()
+            for b in batches:
+                if retrace:
+                    step.plans.clear()
+                params, state, m = step(params, state, b)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+        assert registry.launch_counts()["batched_gather"] == len(batches)
+        runs[retrace] = (losses, params, len(calls))
+    (lc, pc, nc), (lr, pr, nr) = runs[False], runs[True]
+    assert (nc, nr) == (1, 3)
+    assert lc[0] == lr[0]
+    np.testing.assert_allclose(lc, lr, rtol=1e-6)
+    for a, b in zip(_leaves(pc), _leaves(pr)):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+def test_model_service_replays_under_four_threads_equal_eager(gen):
+    """``ModelService`` over ``batched_gather``, called by 4 threads at once
+    (single queries and batches of 3, 5 and 9 ids), replays one captured
+    step per shape (4 steps): each result equals the same call's under
+    ``eager()`` bit for bit, every call was one replay and one gather
+    launch."""
+    import threading
+
+    from repro_torch.core.services import ModelService
+    from repro_torch.kernels.batched_gather.ops import gather_op
+    from repro_torch.serving import graphs
+
+    table = torch.randn(1000, 64, generator=gen, device="cuda")
+    w = torch.randn(64, generator=gen, device="cuda")
+
+    def batch_fn(t):
+        return (gather_op(table, t).float() * w).sum(-1)
+
+    rng = np.random.default_rng(13)
+    plans = [[[torch.tensor(int(i), device="cuda") for i in rng.integers(0, 1000, size=n)]
+              for n in rng.choice([1, 3, 5, 9], size=12)] for _ in range(4)]
+
+    def run(svc, plan, out):
+        for ids in plan:
+            if len(ids) == 1:
+                out.append([svc.execute("q", (ids[0],))])
+            else:
+                out.append(svc.execute_batch_async("q", [(i,) for i in ids])())
+
+    svc = ModelService(lambda t: batch_fn(t[None])[0], batch_fn)
+    got = [[] for _ in plans]
+    registry.reset_launches()
+    threads = [threading.Thread(target=run, args=(svc, p, o)) for p, o in zip(plans, got)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    calls = sum(len(p) for p in plans)
+    assert len(svc.steps) == 1
+    cache = next(iter(svc.steps.values()))
+    assert cache.replays == calls == registry.launch_counts()["batched_gather"]
+    assert len(cache.steps) == 4 and all(s.captured for s in cache.steps.values())
+    want = [[] for _ in plans]
+    with graphs.eager():
+        for p, o in zip(plans, want):
+            run(ModelService(lambda t: batch_fn(t[None])[0], batch_fn), p, o)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, wnt in zip(got, want):
+        for a, b in zip(g, wnt):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))

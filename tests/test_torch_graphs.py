@@ -20,6 +20,13 @@ sampler (greedy lanes against ``jnp.argmax``, draws against the softmax),
 and twins of the two public functions the port lacked,
 ``serving/engine.py::proportional_shares`` and
 ``models/registry.py::list_archs``.
+
+The prefill steps (one per (batch, prompt) bucket, built at the bucket's
+first dispatch, over one staging cache per engine): one step per
+distinct bucket on the dense and the paged engines, reused by later
+dispatches; two staged prefills of one bucket keep their own first
+tokens and caches until committed, and then serve the JAX engine's
+streams; a chunked prompt's first chunk takes the (1, ``chunk``) step.
 """
 from __future__ import annotations
 
@@ -317,3 +324,168 @@ def test_proportional_shares_follow_weights():
 def test_list_archs_equals_the_reference():
     assert list_archs() == j_list_archs()
     assert all(get_arch(n).cfg.name for n in list_archs())
+
+
+def test_static_inputs_int64_views_start_even():
+    """An int64 view starts at an even entry of the flat int32 buffer;
+    device writes land in it and ``upload`` copies its host twin."""
+    inp = graphs.StaticInputs({"a": (1,), "ids": ((3,), torch.int64), "s": ((), torch.int64)},
+                              torch.device("cpu"))
+    assert inp["ids"].dtype == torch.int64 and inp["s"].shape == ()
+    assert inp.flat.numel() == 2 + 6 + 2
+    inp.put("ids", np.array([2 ** 40, -1, 7], np.int64))
+    inp.upload()
+    assert inp["ids"].tolist() == [2 ** 40, -1, 7] and inp["a"].tolist() == [0]
+    inp["s"].copy_(torch.tensor(-5))
+    assert int(inp["s"]) == -5
+    with pytest.raises(ValueError, match="int32, float32 or int64"):
+        graphs.StaticInputs({"b": ((2,), torch.bfloat16)}, torch.device("cpu"))
+
+
+def test_step_cache_builds_each_key_once_under_one_hold():
+    """A key's step is built at its first use and reused; every step of the
+    cache shares its hold, which serialises them across threads."""
+    built = []
+
+    def build(key, pool, hold):
+        built.append(key)
+        inp = graphs.StaticInputs({"x": (key,)}, torch.device("cpu"))
+        return graphs.CompiledStep(lambda: inp["x"] + 1, inp, [], torch.device("cpu"),
+                                   pool, hold)
+
+    cache = graphs.StepCache(build, torch.device("cpu"))
+    for key in (2, 3, 2, 2, 3):
+        with cache.exclusive(key) as step:
+            assert step.hold is cache.hold and step.inputs["x"].shape == (key,)
+            assert step().tolist() == [1] * key
+    assert built == [2, 3] and set(cache.steps) == {2, 3} and cache.replays == 0
+    order = []
+
+    def user(key):
+        with cache.exclusive(key):
+            order.append(("in", key))
+            order.append(("out", key))
+
+    threads = [threading.Thread(target=user, args=(k,)) for k in (2, 3, 4, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert all(order[i][0] == "in" and order[i + 1] == ("out", order[i][1])
+               for i in range(0, len(order), 2))
+    assert built == [2, 3, 4]
+
+
+def _reqs(R, seed: int, lens, rid0: int = 0, template=None):
+    rng = np.random.default_rng(seed)
+    kw = {} if template is None else dict(template=template)
+    return [R(rid=rid0 + i, prompt=rng.integers(1, 200, size=n).astype(np.int32),
+              max_new_tokens=5, **kw) for i, n in enumerate(lens)]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_prefill_steps_one_per_bucket_over_one_staging_cache(pairs, paged):
+    """Each distinct (batch, prompt) bucket builds one prefill step at its
+    first dispatch; later dispatches of the bucket run that step; every
+    step writes its view of the one staging cache (``_bucket(n_lanes)``
+    lanes of ``max_len`` rows), whatever the number of buckets."""
+    _j, _jp, arch, params = pairs("llama3-8b")
+    Engine = PagedInferenceEngine if paged else InferenceEngine
+    eng = Engine(arch, params, n_lanes=3, max_prompt_len=16, max_len=32, device="cpu")
+    staging = eng._prefill_out
+    shapes = []
+    inner = eng._prefill
+
+    def counted(tokens, plens, out):
+        shapes.append(tuple(tokens.shape))
+        return inner(tokens, plens, out)
+
+    eng._prefill = counted
+    plan = [((3,), (1, 4)), ((5, 9), (2, 16)), ((2,), (1, 2)), ((4, 7, 11), (4, 16)),
+            ((13, 1), (2, 16)), ((3,), (1, 4)), ((6, 2, 1), (4, 8))]
+    steps = {}
+    for k, (lens, bucket) in enumerate(plan):
+        staged = eng.prefill_dispatch(_reqs(Request, k, lens))
+        assert staged.shape == bucket
+        step = eng._prefill_steps.steps[bucket]
+        assert steps.setdefault(bucket, step) is step
+        for name, stack in staged.cache.items():
+            for key, a in stack.items():
+                assert a.shape[1] == bucket[0]
+                assert a.untyped_storage().data_ptr() != \
+                    staging[name][key].untyped_storage().data_ptr()
+    assert shapes == [b for _l, b in plan]
+    assert set(eng._prefill_steps.steps) == {(1, 4), (2, 16), (1, 2), (4, 16), (4, 8)}
+    assert eng._prefill_out is staging
+    leaves = [a for stack in staging.values() for a in stack.values()]
+    assert all(a.shape[1:3] == (4, 32) for a in leaves)
+    ptrs = [a.untyped_storage().data_ptr() for a in leaves]
+    for bucket, step in eng._prefill_steps.steps.items():
+        assert [t.untyped_storage().data_ptr() for t in step.state[1:]] == ptrs
+        assert step.inputs["tokens"].shape == bucket
+
+
+def _commit_and_tick(eng, staged_list, ticks: int = 4):
+    for staged in staged_list:
+        eng.commit_prefill(staged)
+    for _ in range(ticks):
+        out = eng.decode_tick()
+        for staged in staged_list:
+            for r in staged.requests:
+                r.generated.append(out[r.lane])
+    return [r.generated for staged in staged_list for r in staged.requests]
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "hymba-1.5b"])
+def test_staged_prefills_of_one_bucket_keep_their_own_results(pairs, name):
+    """Two dispatches of one bucket staged before either is committed: the
+    second leaves the first's first tokens and cache as they were (each
+    owns a copy, none the staging cache); committed in reverse order, both
+    serve the JAX engine's streams."""
+    jarch, jparams, arch, params = pairs(name)
+    kw = dict(n_lanes=4, max_prompt_len=16, max_len=32)
+    a_lens, b_lens = (5, 9), (6, 11)  # both the bucket (2, 16)
+    streams = {}
+    for side in ("jax", "torch"):
+        if side == "jax":
+            eng, R = JPagedEngine(jarch, jparams, page_size=8, **kw), JRequest
+        else:
+            eng = PagedInferenceEngine(arch, params, page_size=8, device="cpu", **kw)
+            R = Request
+        sa = eng.prefill_dispatch(_reqs(R, 7, a_lens))
+        if side == "torch":
+            first_a = sa.first.clone()
+            cache_a = {n: {k: t.clone() for k, t in st.items()} for n, st in sa.cache.items()}
+        sb = eng.prefill_dispatch(_reqs(R, 8, b_lens, rid0=2))
+        assert sa.shape == sb.shape == (2, 16)
+        if side == "torch":
+            assert list(eng._prefill_steps.steps) == [(2, 16)]
+            assert torch.equal(sa.first, first_a) and not torch.equal(sa.first, sb.first)
+            for n, st in cache_a.items():
+                for k, t in st.items():
+                    assert torch.equal(sa.cache[n][k], t)
+        streams[side] = _commit_and_tick(eng, [sb, sa])
+    assert streams["torch"] == streams["jax"]
+
+
+def test_chunked_first_chunk_takes_the_one_by_chunk_step(pairs):
+    """A prompt longer than ``chunk`` prefills its first chunk through the
+    (1, ``chunk``) step, the rest through ``_extend``; committed, it serves
+    the JAX engine's stream."""
+    jarch, jparams, arch, params = pairs("llama3-8b")
+    kw = dict(n_lanes=2, max_prompt_len=16, max_len=48)
+    streams = {}
+    for side in ("jax", "torch"):
+        eng = (JPagedEngine(jarch, jparams, page_size=8, **kw) if side == "jax" else
+               PagedInferenceEngine(arch, params, page_size=8, device="cpu", **kw))
+        staged = eng.prefill_dispatch(_reqs(JRequest if side == "jax" else Request, 9, (21,)),
+                                      chunk=8)
+        if side == "torch":
+            assert list(eng._prefill_steps.steps) == [(1, 8)]
+        while not eng.prefill_resume(staged):
+            pass
+        streams[side] = _commit_and_tick(eng, [staged])
+        if side == "torch":
+            assert list(eng._prefill_steps.steps) == [(1, 8)]
+    assert streams["torch"] == streams["jax"]

@@ -8,7 +8,10 @@ parameters stacked with ``torch.stack``, power-of-two lane buckets with
 splits every leaf per request.  The same numpy-made ``W`` and items go
 through both packages' services for ``tests/test_system.py``'s cases:
 results agree within rtol 1e-5 and ``stats``, ``lane_buckets`` and
-``padded_items`` are identical.  The end-to-end program (a loop of
+``padded_items`` are identical.  Each forward is a compiled step, one per
+shape (on the CPU it runs the function on its static inputs): the steps
+are counted, and two batches of one shape dispatched before either is
+resolved keep their own results.  The end-to-end program (a loop of
 per-item queries, transformed and run on the async runtime) and the
 table-scoring query the card drives through ``batched_gather`` run in
 both packages too.
@@ -144,6 +147,57 @@ def test_execute_batch_async_resolver_splits_every_leaf(data):
         assert gd["head"].shape == (3,)
         np.testing.assert_allclose(gd["head"].numpy(), np.asarray(wd["head"]), rtol=RTOL)
     assert _stats(tsvc) == _stats(jsvc)
+
+
+def _close_abs(got, want):
+    """``_close`` with atol 1e-5 as well: a score is a sum of unit-sized
+    terms of both signs, so one near 0 keeps its terms' float32 error."""
+    np.testing.assert_allclose(np.asarray([float(g) for g in got]),
+                               np.asarray([float(w) for w in want]), rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("pad", [False, True])
+def test_one_compiled_step_per_shape(data, pad):
+    """Single queries share one step; a batch's step is keyed on its
+    stacked shape (with ``pad_batches``, the lane's bucket), built at its
+    first use; results equal JAX's ``ModelService``'s."""
+    W, items = data
+    js, ts = _scores(W)
+    jsvc = j_services.ModelService(js, pad_batches=pad)
+    tsvc = t_services.ModelService(ts, pad_batches=pad)
+    plan = [None, 5, None, 3, 5, None, 4, 2]  # None: a single query
+    at = 0
+    for n in plan:
+        chunk = items[at: at + (n or 1)]
+        at += n or 1
+        if n is None:
+            _close_abs([tsvc.execute("score", (torch.as_tensor(chunk[0]),))],
+                   [jsvc.execute("score", (jnp.asarray(chunk[0]),))])
+        else:
+            _close_abs(tsvc.execute_batch("score", [(torch.as_tensor(x),) for x in chunk]),
+                   jsvc.execute_batch("score", [(jnp.asarray(x),) for x in chunk]))
+    steps = tsvc.steps[torch.device("cpu")].steps
+    sizes = sorted(k[1] for k in steps if k[0])
+    assert sum(1 for k in steps if not k[0]) == 1
+    assert sizes == ([8] if pad else [2, 3, 4, 5])
+    assert _stats(tsvc) == _stats(jsvc)
+
+
+def test_async_batches_of_one_shape_keep_their_own_results(data):
+    """Two batches of one shape dispatched before either is resolved, and
+    resolved in reverse order, each return their own results (copied out
+    of the step before the next one ran)."""
+    W, items = data
+    js, ts = _scores(W)
+    jsvc, tsvc = j_services.ModelService(js), t_services.ModelService(ts)
+    first, second = items[:6], items[6:12]
+    r1 = tsvc.execute_batch_async("score", [(torch.as_tensor(x),) for x in first])
+    r2 = tsvc.execute_batch_async("score", [(torch.as_tensor(x),) for x in second])
+    assert len(tsvc.steps[torch.device("cpu")].steps) == 1
+    got2, got1 = r2(), r1()
+    _close_abs(got1, jsvc.execute_batch("score", [(jnp.asarray(x),) for x in first]))
+    _close_abs(got2, jsvc.execute_batch("score", [(jnp.asarray(x),) for x in second]))
+    assert not np.allclose([float(g) for g in got1], [float(g) for g in got2])
 
 
 def test_torch_block_is_a_no_op_on_cpu():

@@ -4,7 +4,12 @@ Optimizer, clipping and schedule on the same numpy trees; cross entropy;
 the synthetic stream bit for bit; the prefetch loader; the training
 forward; the bf16 head's gradient; and ``make_train_step`` on reduced
 llama3-8b (float32, ``query_embedding=True``, ``remat=False``) with
-parameters carried across by ``params_from_numpy``.
+parameters carried across by ``params_from_numpy``.  The fissioned step
+traces its loop body once per batch shape (``train_step.plans``): over 3
+steps ``trace_body`` runs once, the losses and parameters equal a run that
+traces every step bit for bit and the JAX step's within the tolerances
+below, the plan's graphs hold no ``get_attr`` constant (the parameters are
+inputs), and the cached producer's batched gather runs once a step.
 
 Tolerances: optimizer steps on float32 trees 1e-6 (the same float32
 arithmetic, constants rounded alike); the bf16 head's gradient one bf16
@@ -276,11 +281,12 @@ def test_microbatch_fission_equals_plain(reduced):
     _ja, ta, _jp, np_params, batches = reduced
     reports = []
 
-    def reported(f, init, xs, *, fission=True, length=None):
+    def reported(f, init, xs, *, fission=True, length=None, consts=None, plans=None):
         assert fission
         rep = fission_mod.FissionReport()
         reports.append(rep)
-        return fission_mod.fission_scan(f, init, xs, length=length, report=rep)
+        return fission_mod.fission_scan(f, init, xs, length=length, consts=consts,
+                                        plans=plans, report=rep)
 
     out = {}
     for fission_on in (False, True):
@@ -331,6 +337,69 @@ def test_train_body_holds_no_frozen_activation(reduced):
     assert targets.count("repro_torch.flash_attention.default") == ta.cfg.n_layers
 
 
+def _cached_run(ta, np_params, batches, donate: bool, retrace: bool):
+    """Fissioned steps at 4 microbatches, counting ``trace_body`` calls and
+    the batched gathers; ``retrace`` clears the plans before every step."""
+    from repro_torch.core import query
+
+    traces, gathers = [], []
+    real_trace, real_gather = fission_mod.trace_body, query.gather_op
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fission_mod, "trace_body",
+                   lambda *a, **k: (traces.append(1), real_trace(*a, **k))[1])
+        mp.setattr(query, "gather_op", lambda *a: (gathers.append(1), real_gather(*a))[1])
+        params = params_from_numpy(np_params, ta.cfg, device="cpu")
+        init, step = make_train_step(ta, topt.AdamWConfig(lr=LR),
+                                     TrainStepConfig(microbatches=4, donate=donate))
+        state, losses, per_step = init(params), [], []
+        for b in batches:
+            if retrace:
+                step.plans.clear()
+            n0 = len(gathers)
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+            per_step.append(len(gathers) - n0)
+    return losses, params, len(traces), per_step, step
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_fission_traced_once_equals_retracing_and_reference(reduced, donate):
+    """Three fissioned steps trace the body once (the plan is the step's,
+    not the closure's); a run that traces every step gives the same losses
+    and parameters bit for bit, and the JAX step the same within the
+    train-step tolerances; the plan's graphs take the parameters as inputs
+    (no ``get_attr``), and its producer's batched gather runs once a
+    step."""
+    ja, ta, jp, np_params, _b = reduced
+    batches = [_tokens(1), _tokens(2), _tokens(3)]
+    cached = _cached_run(ta, np_params, batches, donate, retrace=False)
+    again = _cached_run(ta, np_params, batches, donate, retrace=True)
+    assert (cached[2], again[2]) == (1, 3)
+    assert cached[3] == again[3] == [1, 1, 1]
+    assert cached[0] == again[0]
+    flat_c, flat_a = list(_leaves(cached[1])), list(_leaves(again[1]))
+    assert all(torch.equal(a, b) for a, b in zip(flat_c, flat_a))
+    plans = cached[4].plans
+    assert len(plans) == 1
+    plan = next(iter(plans.values()))
+    assert plan.tr.n_consts == len(flat_c)
+    for gm in (plan.prod_gm, plan.cons_gm, plan.const_gm):
+        assert not [n for n in gm.graph.nodes if n.op == "get_attr"]
+    jl, jparams = _run_reference(ja, jp, dict(microbatches=4, fission=True), batches)
+    np.testing.assert_allclose(cached[0], jl, rtol=1e-4, atol=1e-4)
+    _assert_params_close(params_to_numpy(cached[1]), jparams)
+
+
+def test_fission_traces_again_for_a_new_batch_shape(reduced):
+    """A new batch shape traces the body again, as a recompile would; a
+    shape seen before reuses its plan."""
+    _ja, ta, _jp, np_params, _b = reduced
+    batches = [_tokens(1), _tokens(2, s=8), _tokens(3), _tokens(4, s=8), _tokens(5, b=4)]
+    losses, _p, traces, per_step, step = _cached_run(ta, np_params, batches, True, False)
+    assert traces == 3 and len(step.plans) == 3
+    assert per_step == [1] * 5 and all(np.isfinite(losses))
+
+
 def test_donate_writes_in_place_and_only_then(reduced):
     _ja, ta, _jp, np_params, batches = reduced
     for donate in (False, True):
@@ -361,11 +430,12 @@ def test_mesh_step_fissions_its_microbatch_loop():
     _ja, ta = _archs(query_embedding=True, remat=False)
     reports, gathers, inner = [], [], query.gather_op
 
-    def reported(f, init, xs, *, fission=True, length=None):
+    def reported(f, init, xs, *, fission=True, length=None, consts=None, plans=None):
         assert fission
         rep = fission_mod.FissionReport()
         reports.append(rep)
-        return fission_mod.fission_scan(f, init, xs, length=length, report=rep)
+        return fission_mod.fission_scan(f, init, xs, length=length, consts=consts,
+                                        plans=plans, report=rep)
 
     with fake_process_group(4), pytest.MonkeyPatch.context() as mp:
         mp.setattr(query, "gather_op", lambda *a: (gathers.append(1), inner(*a))[1])
