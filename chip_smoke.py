@@ -48,15 +48,17 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    each with every kernel launch count zeroed just before it and read
    just after, and held to exact counts (one launch per layer per
    dispatch or per token).  Every engine dispatch is a compiled step
-   (``serving/graphs.py``) captured as a CUDA graph: the tick and chunk
-   steps when the engine is built, a prefill step per (batch, prompt)
-   bucket at the bucket's first dispatch.  Each path also checks that its
-   engine's tick and chunk steps were captured, that every decode tick
-   was one replay of the tick, every prefill dispatch one replay of its
-   bucket's prefill step and, where it feeds tokens through ``_extend``,
-   every such token one replay of a chunk step (replays count their
-   launches; the reduced runs of phase 7 and the app traces check the
-   prefill replays too):
+   (``serving/graphs.py``): the tick, the chunk steps and a prefill step
+   per (batch, prompt) bucket, each of which runs its first call for real
+   and records a CUDA graph that every later call replays.  Each path
+   also checks that every decode tick was one call of the tick step,
+   every prefill dispatch one call of its bucket's prefill step and,
+   where it feeds tokens through ``_extend``, every such token one call
+   of a chunk step, and that each step ran once for real and replayed
+   every call after (the first call's launches and the replays' count
+   alike; the reduced runs of phase 7 and the app traces check the
+   prefill calls too).  Paths a, b and d drive their engine three times
+   (a new scheduler and the same prompts): fresh, then warmed:
    a. main — the synchronous path, ``PagedInferenceEngine``, 16 requests:
       ``paged_decode_attention`` = decode steps x 32, ``flash_attention``
       = prefill dispatches x 32;
@@ -94,11 +96,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
       request a prefill, fault-free and inside ``ChaosEngine`` (seeded
       decode and prefill faults) with ``Resilience``: faults of both
       kinds, quarantined lanes, spills = restores, streams equal 16/16;
-   s. graphs — a, b and d again under ``graphs.eager()`` (every compiled
-      step, the prefill steps included, run as plain ops on its static
-      buffers, the counterpart of ``jax.disable_jit``): the same greedy
-      tokens and the same exact launch counts as the graphed runs, both
-      walls and tokens/s printed;
+   s. graphs — a, b and d on llama3-8b at full width cut to 2 of 32
+      layers, three drives each, with graphs and under ``graphs.eager()``
+      (every compiled step, the prefill steps included, run as plain ops
+      on its static buffers, the counterpart of ``jax.disable_jit``):
+      each drive's greedy tokens and exact launch counts equal to its
+      twin's, walls and tokens/s printed, fresh and warmed apart; and a
+      once eagerly at full depth beside a's first drive;
    then mamba2-1.3b at full width (48 layers, bf16, weights drawn from
    seed 0 on the card) through ``InferenceEngine(n_lanes=8,
    max_prompt_len=2048, max_len=2080)``:
@@ -155,8 +159,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    step;
 6. profile — ``torch.profiler`` over one full-width llama3-8b prefill
    dispatch (a replay of the 8 x 256 bucket's step, whose first dispatch
-   with its capture, replayed and ``eager()`` walls and copy-out of the
-   staging cache are also timed), a few decode ticks (graph replays), one
+   with its parts, replayed and ``eager()`` walls and copy-out of the
+   staging cache are also timed), the tick's first call, a few decode
+   ticks (graph replays), one
    fused tick (a
    64-token prompt chunk folded into the decode: 64 chunk-step replays
    and a tick replay) and one ``_shared_tail`` beside a flash prefill of
@@ -169,16 +174,17 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    deepseek-moe-16b's decode tick the same way, and one eager tick:
    wall, busy time, kernels, the MoE layers' device time and the routed
    expert weights' byte bound; and the device memory a llama3-8b paged
-   engine takes while it is built and its graphs captured, with a page
-   pool of 0.6 of the free memory: the peak above what was allocated
-   before, against the pool's own bytes (fails at 1.1 x the pool), then
-   4 ticks on it; then (6p) a llama3-8b paged engine that prefills one
-   batch of every bucket it can pin (20, the largest first; each bucket's
-   first dispatch, a replay and an ``eager()`` dispatch timed): the build's
-   bytes, each graph pool's bytes (the tick's, the side chunk step's and
-   the prefill steps') after the largest bucket and after all, gated on
-   the prefill pool (at most 1.1 x), the memory allocated and the peak
-   (64 MiB) not growing with the buckets, and one staging cache;
+   engine takes while it is built, with a page pool of 0.6 of the free
+   memory: the peak above what was allocated before, against the pool's
+   own bytes (fails at 1.1 x the pool), then 4 ticks on it; then (6p) a
+   llama3-8b paged engine that prefills one batch of every bucket it can
+   pin (20, the largest first; each bucket's first dispatch with its
+   parts — the real run, the recording, the instantiation — a replay and
+   an ``eager()`` dispatch timed): the build's bytes, each graph
+   pool's bytes (the tick's, the side chunk step's and the prefill
+   steps') after the largest bucket and after all, gated on the prefill
+   pool (at most 1.1 x), the memory allocated and the peak (64 MiB) not
+   growing with the buckets, and one staging cache;
 7. reduced check — the reduced llama3-8b in float32 served on the card
    with the kernels against the same model served on the CPU with the
    plain versions, on the synchronous paged path, the dense engine, the
@@ -201,32 +207,46 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    (bf16, depth cut to 4 of 32 layers, ``query_embedding=True``,
    ``remat=False``) through ``make_train_step(..., TrainStepConfig(
    microbatches=4, fission=True))``, 3 steps of 8 x 512 tokens from
-   ``SyntheticLMStream`` through ``PrefetchLoader`` (the fission plan
-   cached: ``trace_body`` runs once), one more under the profiler, the
-   same 3 steps re-tracing the body every step, then one step with
-   ``fission=False`` from the same weights: ``batched_gather`` = 1 launch
-   per fissioned step and 4 per unfissioned step, ``flash_attention`` = 4
-   microbatches x 4 layers per step, finite losses, ``trace_body`` calls
-   1 and 3, the cached run's first loss bit for bit the re-tracing run's
-   (later ones within 1e-4) and equal with and without fission; trace
-   time, wall, tokens/s, loss, launches per step and peak memory printed;
+   ``SyntheticLMStream`` through ``PrefetchLoader``, compiled (the first
+   step runs, traces the fission plan and records the whole step as one
+   CUDA graph; each later step replays it) and one more under the
+   profiler, then the same under ``graphs.eager()`` with the fission
+   plan traced again every step; then the same pair with
+   ``fission=False`` from the same weights: ``batched_gather`` = 1
+   launch per fissioned step and 4 per unfissioned step,
+   ``flash_attention`` = 4 microbatches x 4 layers per step, one
+   ``trace_body`` call in the compiled fissioned run and one a step in
+   its twin, each compiled run against its twin (``_against_eager``: one
+   replay a step from the second, equal launches, the first loss bit for
+   bit, later losses, grad norms and every parameter leaf bit for bit
+   where two ``eager()`` runs repeat each other and within 1e-4 where
+   they do not), the first loss
+   equal with and without fission; trace time, wall, tokens/s, loss,
+   grad norm, replays and launches per step, peak allocated and reserved
+   memory and the graph pool printed;
    b. train-ssm — the training launcher, ``repro_torch.launch.train``, at
       full width on mamba2-1.3b (48 layers, bf16, remat, int8 moments, 8 x
       2048 tokens): 4 steps with an asynchronous checkpoint every 2, then
-      a second run to step 6 that restores step 4; per-step launches
-      exact (``ssd_scan`` 96, ``ssd_scan_bwd`` 48), finite losses, the
+      a second run to step 6 that restores step 4, its step compiled
+      without donation (one graph over the step's own set, a copy in and
+      out each step), and both runs' ``eager()`` twins; per-step launches
+      exact (``ssd_scan`` 96, ``ssd_scan_bwd`` 48), ``_against_eager``, the
       checkpoint read back bit for bit; step walls beside the writes they
       overlapped, how long ``save()`` blocked against the write's time on
-      the runtime's thread, bytes written, peak memory;
-   c. train-hybrid — hymba-1.5b at full width (32 layers, bf16, remat), 2
-      steps of 8 x 2048: ``flash_attention`` (banded) 64, ``ssd_scan`` 64,
-      ``ssd_scan_bwd`` 32 a step, finite losses, wall and peak memory;
-9. train check — reduced llama3-8b in float32 trained 2 steps on the card
-   and on the CPU, fissioned and not: losses, parameters and launch counts;
-   reduced mamba2, hymba, deepseek-moe-16b, qwen2-vl-2b and seamless-m4t
-   the same way (2 steps, exact launches); the restart on the card
-   (reduced mamba2, int8 moments, an asynchronous checkpoint after step
-   2, restored into fresh tensors: the first resumed loss bit for bit);
+      the runtime's thread, bytes written, memory and the graph pool;
+   c. train-hybrid — hymba-1.5b at full width (32 layers, bf16, remat), 3
+      compiled steps of 8 x 2048 and one profiled, and their ``eager()``
+      twins: ``flash_attention`` (banded) 64, ``ssd_scan`` 64,
+      ``ssd_scan_bwd`` 32 a step, ``_against_eager``, walls and memory;
+9. train check — reduced llama3-8b in float32 trained 3 compiled steps on
+   the card and on the CPU, fissioned and not: losses, parameters, launch
+   counts and a replay a step; reduced mamba2, hymba, deepseek-moe-16b,
+   qwen2-vl-2b and seamless-m4t the same way and against their
+   ``eager()`` twins on the card (3 steps and a profiled one, exact
+   launches); the restart on the card (reduced mamba2, int8 moments, an
+   asynchronous checkpoint after step 2, restored into fresh tensors,
+   which the same compiled step copies in: the first resumed loss bit
+   for bit);
 10. fission — the twin of ``benchmarks/bench_fission.py::device_fission``:
     2048 single-row queries on a 10000 x 256 float32 table, plain ``scan``
     (2048 launches) against ``fission_scan`` (1), both walls printed;
@@ -267,12 +287,16 @@ Phases, each ending in ``torch.cuda.synchronize()``:
        (4 lanes, 16 rows, 6 steps) in both cache layouts of e's decode:
        logits and caches within 1e-4 of the CPU decode;
     e. sharded-fission — a's cut and batch in 2 microbatches, the loop
-       fissioned (Rule A on each rank's traced program), 2 steps, held to
-       an unsharded fissioned twin at 2 microbatches on the card as a is;
-       per rank and step ``batched_gather`` = 1 and ``flash_attention`` =
-       8; its counted step equal to c's dry run in flops and collectives;
-    f. sharded-decode — a's cut decoding on the mesh: an unsharded twin on
-       the card prefills 8 random 256-token prompts into caches of 512
+       fissioned (Rule A on each rank's traced program, the plan kept
+       across steps), 2 steps, held to an unsharded fissioned twin at 2
+       microbatches on the card as a is; per rank and step
+       ``batched_gather`` = 1 and ``flash_attention`` = 8; ``trace_body``
+       in the first step only, as much as a one-step run that traces
+       afresh does, whose loss it equals bit for bit; its
+       counted step equal to c's dry run in flops and collectives;
+    f. sharded-decode — a's model at 2 of 32 layers (full width) decoding
+       on the mesh: an unsharded twin on the card prefills 8 random
+       256-token prompts into caches of 512
        rows and takes 16 greedy steps; each rank places the twin's caches
        as the dry run places a decode cell's, in the default layout
        (lanes over ``data``, replicated over ``model``) and under
@@ -280,7 +304,7 @@ Phases, each ending in ``torch.cuda.synchronize()``:
        takes 16 steps on the twin's tokens: every step's logits within
        0.05 x max |logit| of the twin's, the new cache rows of layer 0
        within 1e-2 of their largest entry and of every layer within 0.05,
-       ``decode_attention`` = 4 a step and ``batched_gather`` = 1, and
+       ``decode_attention`` = 2 a step and ``batched_gather`` = 1, and
        the ``kv_seq_shard`` step 3 all-reduces over ``model`` a layer
        more than the default layout's and no more all-gathers over
        ``model`` (no cache gathered); step walls printed, never
@@ -300,6 +324,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import subprocess
@@ -1375,30 +1400,55 @@ def _async_requests(Request, vocab: int, max_new: int = 32):
 RUNS: dict = {}
 
 
+def _calls(eng) -> tuple[int, int, int]:
+    """(tick calls, chunk-step calls, prefill-step calls) of an engine's
+    compiled dispatches on the card outside ``graphs.eager()`` so far
+    (``serving/graphs.py``)."""
+    return (eng._tick_step.calls, sum(s.calls for s in eng._chunk_steps.values()),
+            eng._prefill_steps.calls)
+
+
 def _replays(eng) -> tuple[int, int, int]:
-    """(tick replays, chunk-step replays, prefill-step replays) of an
-    engine's compiled dispatches so far (``serving/graphs.py``)."""
-    return (eng._tick_step.replays,
-            sum(s.replays for s in eng._chunk_steps.values()),
+    """The same calls' replays: a step's calls but its first."""
+    return (eng._tick_step.replays, sum(s.replays for s in eng._chunk_steps.values()),
             eng._prefill_steps.replays)
+
+
+def _expect_first_call_runs(label, steps, device) -> None:
+    """On the card outside ``graphs.eager()``: each compiled step called so
+    far ran its first call for real, once, and replayed every later call
+    (``serving/graphs.py``: the first call is the dispatch itself)."""
+    from repro_torch.serving import graphs
+    if device != "cuda" or graphs.is_eager():
+        return
+    bad = [(s.calls, s.replays) for s in steps if s.calls - s.replays != min(s.calls, 1)]
+    if bad:
+        fail(f"{label}: compiled steps with (calls, replays) {bad}: not one real run each "
+             "and replays after it")
+
+
+def _steps_of(eng) -> list:
+    """An engine's compiled steps: its tick, chunk steps and prefill steps."""
+    return [eng._tick_step, *eng._chunk_steps.values(), *eng._prefill_steps.steps.values()]
 
 
 def _prefill_counter(eng):
     """Count ``eng``'s prefill dispatches from now on (``_prefill_step``
-    calls) beside its prefill-step replays so far, for
-    ``_expect_prefill_replays``."""
-    return _count_calls(eng, "_prefill_step"), eng._prefill_steps.replays
+    calls) beside its prefill-step calls so far, for
+    ``_expect_prefill_calls``."""
+    return _count_calls(eng, "_prefill_step"), eng._prefill_steps.calls
 
 
-def _expect_prefill_replays(label, eng, counter, device) -> int:
+def _expect_prefill_calls(label, eng, counter, device) -> int:
     """On the card outside ``graphs.eager()``: every prefill dispatch since
-    ``counter`` was one replay of a captured prefill step.  Returns the
-    replays."""
+    ``counter`` was one call of a compiled prefill step, each step's first
+    a real run and the others replays.  Returns the calls."""
     from repro_torch.serving import graphs
-    box, replays0 = counter
-    got = eng._prefill_steps.replays - replays0
+    box, calls0 = counter
+    got = eng._prefill_steps.calls - calls0
     if device == "cuda" and not graphs.is_eager() and got != box[0]:
-        fail(f"{label}: {got} prefill-step replays for {box[0]} prefill dispatches")
+        fail(f"{label}: {got} prefill-step calls for {box[0]} prefill dispatches")
+    _expect_first_call_runs(label, eng._prefill_steps.steps.values(), device)
     return got
 
 
@@ -1407,19 +1457,18 @@ def _drive(label, eng, sched, reqs, device):
     to 0 just before and read just after.  Checks that each request got
     its tokens, all in the vocabulary, and, on the card outside
     ``graphs.eager()``, that every decode tick was one replay of the
-    engine's captured tick; logs tokens/s, TTFT, the counters and the
-    graph replays.  Returns (launch counts, wall seconds)."""
+    engine's tick step (its first call a real run, the others replays);
+    logs tokens/s, TTFT, the counters and the graph replays.  Returns
+    (launch counts, wall seconds)."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.serving import graphs
 
     vocab = eng.arch.cfg.vocab_size
     graphed = device == "cuda" and not graphs.is_eager()
-    if graphed and not (eng._tick_step.captured
-                        and all(s.captured for s in eng._chunk_steps.values())):
-        fail(f"{label}: the engine's dispatches were not captured as graphs")
     prefills = _prefill_counter(eng)
-    replays0, steps0 = _replays(eng), eng.decode_steps
+    calls0, replays0, steps0 = _calls(eng), _replays(eng), eng.decode_steps
+    called0 = {id(s) for s in _steps_of(eng) if s.calls}
     _sync(device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1434,6 +1483,7 @@ def _drive(label, eng, sched, reqs, device):
     wall = time.perf_counter() - t0
     launches = registry.launch_counts()
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    calls = tuple(b - a for a, b in zip(calls0, _calls(eng)))
     replays = tuple(b - a for a, b in zip(replays0, _replays(eng)))
     for r in reqs:
         if (len(r.generated) != r.max_new_tokens
@@ -1445,31 +1495,41 @@ def _drive(label, eng, sched, reqs, device):
     log(f"[{label}] prompt lengths {[len(r.prompt) for r in reqs]}")
     log(f"[{label}] launches {launches}; decode_steps {eng.decode_steps}, "
         f"dispatches {eng.dispatches}, prefill_calls {eng.prefill_calls}, "
-        f"scheduler ticks {sched.stats.decode_ticks}; graph replays: tick {replays[0]}, "
-        f"chunk step {replays[1]}, prefill step {replays[2]} for {prefills[0][0]} prefill "
-        f"dispatches over {len(eng._prefill_steps.steps)} buckets "
-        f"({'graphs' if graphed else 'eager'})")
+        f"scheduler ticks {sched.stats.decode_ticks}; compiled-step calls (replays): tick "
+        f"{calls[0]} ({replays[0]}), chunk step {calls[1]} ({replays[1]}), prefill step "
+        f"{calls[2]} ({replays[2]}) for {prefills[0][0]} prefill dispatches over "
+        f"{len(eng._prefill_steps.steps)} buckets ({'graphs' if graphed else 'eager'})")
     log(f"[{label}] {len(reqs)} requests, {n_tok} tokens in {wall!r} s: "
         f"{n_tok / wall!r} tokens/s; TTFT p50 {float(np.median(ttft)) * 1e3!r} ms, "
         f"max {ttft[-1] * 1e3!r} ms; decode ticks {eng.decode_steps}; "
         f"dispatches {eng.dispatches}; peak memory {peak / 2**30!r} GiB")
     log(f"[{label}] admission trace {sched.stats.admission_trace}")
-    if graphed and replays[0] != eng.decode_steps - steps0:
-        fail(f"{label}: {replays[0]} tick replays for {eng.decode_steps - steps0} decode "
+    firsts = [(name, {k: round(v * 1e3, 3) for k, v in s.parts.items()})
+              for name, s in [("tick", eng._tick_step)]
+              + [(f"chunk {i}", c) for i, c in enumerate(eng._chunk_steps.values())]
+              + [(f"prefill {k}", c) for k, c in eng._prefill_steps.steps.items()]
+              if s.calls and id(s) not in called0]
+    if firsts:
+        log(f"[{label}] first calls in this drive, host ms (the real run's issue, the "
+            f"recording, the instantiation): {firsts}")
+    if graphed and calls[0] != eng.decode_steps - steps0:
+        fail(f"{label}: {calls[0]} tick-step calls for {eng.decode_steps - steps0} decode "
              "ticks")
-    _expect_prefill_replays(label, eng, prefills, device)
+    _expect_prefill_calls(label, eng, prefills, device)
+    _expect_first_call_runs(label, _steps_of(eng), device)
     RUNS[label] = dict(streams=[list(r.generated) for r in reqs], launches=launches,
-                       wall=wall, tokens=n_tok, chunk_replays=replays[1])
+                       wall=wall, tokens=n_tok, chunk_calls=calls[1],
+                       first=sum(c - r for c, r in zip(calls, replays)))
     return launches, wall
 
 
-def _expect_chunk_replays(label, fed: int, device) -> None:
+def _expect_chunk_calls(label, fed: int, device) -> None:
     """On the card outside ``graphs.eager()``: each token fed through
-    ``_extend`` was one replay of a captured chunk step."""
+    ``_extend`` was one call of a compiled chunk step."""
     from repro_torch.serving import graphs
-    got = RUNS[label]["chunk_replays"]
+    got = RUNS[label]["chunk_calls"]
     if device == "cuda" and not graphs.is_eager() and got != fed:
-        fail(f"{label}: {got} chunk-step replays for {fed} tokens fed through _extend")
+        fail(f"{label}: {got} chunk-step calls for {fed} tokens fed through _extend")
 
 
 def _expect(label, launches, want: dict) -> None:
@@ -1483,31 +1543,43 @@ def _expect(label, launches, want: dict) -> None:
 
 
 def phase_main_path(arch, params, device="cuda", label="main", n: int = 16,
-                    max_new: int = 32):
+                    max_new: int = 32, drives: int = 1):
     """The synchronous path: ``overlap=False``, paged engine, ``n``
-    requests of ``max_new`` tokens."""
+    requests of ``max_new`` tokens, driven ``drives`` times on one engine
+    (a new scheduler and the same prompts each time: the first drive on a
+    fresh engine, the later ones, labelled ``-warm1``, ..., on a warmed
+    one).  Returns the first drive's launch counts."""
     from repro_torch.core.strategies import GrowingUpperThreshold
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
     L = arch.cfg.n_layers
+    t0 = time.perf_counter()
     eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256,
                                max_len=512, page_size=16, device=device)
-    sched = ContinuousBatchingScheduler(
-        eng, strategy=GrowingUpperThreshold(initial_upper=2))
-    launches, _wall = _drive(label, eng, sched,
-                             _requests(Request, arch.cfg.vocab_size, n, max_new), device)
-    prefills = eng.dispatches - eng.decode_steps
-    if eng.decode_steps == 0 or prefills == 0:
-        fail(f"{label}: the path ran no decode step or no prefill")
-    # One launch per layer per dispatch: decode ticks run the paged kernel,
-    # prefill dispatches the flash kernel; nothing runs the dense decode.
-    _expect(label, launches, {"paged_decode_attention": eng.decode_steps * L,
-                               "flash_attention": prefills * L,
-                               "decode_attention": 0, "ssd_scan": 0})
     _sync(device)
-    return launches
+    log(f"[{label}] the engine built in {time.perf_counter() - t0!r} s")
+    first = None
+    for i in range(drives):
+        lab = label if i == 0 else f"{label}-warm{i}"
+        sched = ContinuousBatchingScheduler(
+            eng, strategy=GrowingUpperThreshold(initial_upper=2))
+        d0, s0 = eng.dispatches, eng.decode_steps
+        launches, _wall = _drive(lab, eng, sched,
+                                 _requests(Request, arch.cfg.vocab_size, n, max_new), device)
+        ticks = eng.decode_steps - s0
+        prefills = eng.dispatches - d0 - ticks
+        if ticks == 0 or prefills == 0:
+            fail(f"{lab}: the path ran no decode step or no prefill")
+        # One launch per layer per dispatch: decode ticks run the paged kernel,
+        # prefill dispatches the flash kernel; nothing runs the dense decode.
+        _expect(lab, launches, {"paged_decode_attention": ticks * L,
+                                "flash_attention": prefills * L,
+                                "decode_attention": 0, "ssd_scan": 0})
+        first = launches if first is None else first
+    _sync(device)
+    return first
 
 
 def _count_calls(eng, name: str, weight=lambda *a: 1):
@@ -1525,53 +1597,66 @@ def _count_calls(eng, name: str, weight=lambda *a: 1):
     return box
 
 
-def phase_async(arch, params, device="cuda", chunk: int = 256, label="async"):
+def phase_async(arch, params, device="cuda", chunk: int = 256, label="async",
+                drives: int = 1):
     """The paper's asynchronous path: ``overlap=True`` (prefills
     dispatched on the speculation thread, on the engine's own stream,
     while the main thread decodes), ``chunk_tokens`` (prompts longer than
     a chunk prefill their first chunk and feed the rest through the
     dense decode path, ``decode_attention``), and the paged engine's
     fused ticks (a chunk folded into the decode dispatch).  No fault
-    domain: a speculation-thread exception re-raises."""
+    domain: a speculation-thread exception re-raises.  ``drives`` as in
+    ``phase_main_path``; returns the first drive's launch counts and
+    wall."""
     from repro_torch.core.strategies import GrowingUpperThreshold
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
     L = arch.cfg.n_layers
+    t0 = time.perf_counter()
     eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256,
                                max_len=512, page_size=16, device=device)
-    sched = ContinuousBatchingScheduler(
-        eng, strategy=GrowingUpperThreshold(initial_upper=2), overlap=True,
-        chunk_tokens=chunk)
+    _sync(device)
+    log(f"[{label}] the engine built in {time.perf_counter() - t0!r} s")
     n_prefill = _count_calls(eng, "_prefill_step")
     n_extend = _count_calls(eng, "_extend")
     # Tokens fed through the decode path: each is one decode_step, one
     # decode_attention launch per layer (chunks are batch 1).
     fed = _count_calls(eng, "_extend", lambda _c, toks, _l: int(toks.shape[1]))
-    reqs = _async_requests(Request, arch.cfg.vocab_size)
-    launches, wall = _drive(label, eng, sched, reqs, device)
-    st = sched.stats
-    whole = sum(max(0, min(len(r.prompt), eng.max_len - 1) - chunk) for r in reqs)
-    log(f"[{label}] spec_dispatched {st.spec_dispatched}, spec_committed "
-        f"{st.spec_committed}, spec_aborted {st.spec_aborted}, spec_chunks "
-        f"{st.spec_chunks}, spec_crashes {st.spec_crashes}, fused_folds "
-        f"{eng.fused_folds}; prefill dispatches {n_prefill[0]}, chunk extends "
-        f"{n_extend[0]}, tokens through the decode path {fed[0]} (the long "
-        f"prompts past their first chunk: {whole})")
-    if st.spec_crashes != 0 or st.spec_chunks < 2 or eng.fused_folds < 1:
-        fail(f"{label}: need spec_crashes == 0, spec_chunks >= 2, fused_folds >= 1")
-    if fed[0] < whole:
-        fail(f"{label}: the long prompts were not fed whole through the chunks")
-    if eng.dispatches != (n_prefill[0] + n_extend[0] + eng.decode_steps
-                          - eng.fused_folds):
-        fail(f"{label}: dispatches != prefills + extends + ticks - fused folds")
-    _expect(label, launches, {"paged_decode_attention": eng.decode_steps * L,
-                                "flash_attention": n_prefill[0] * L,
-                                "decode_attention": fed[0] * L, "ssd_scan": 0})
-    _expect_chunk_replays(label, fed[0], device)
+    first = None
+    for i in range(drives):
+        lab = label if i == 0 else f"{label}-warm{i}"
+        sched = ContinuousBatchingScheduler(
+            eng, strategy=GrowingUpperThreshold(initial_upper=2), overlap=True,
+            chunk_tokens=chunk)
+        c0 = (n_prefill[0], n_extend[0], fed[0], eng.dispatches, eng.decode_steps,
+              eng.fused_folds)
+        reqs = _async_requests(Request, arch.cfg.vocab_size)
+        launches, wall = _drive(lab, eng, sched, reqs, device)
+        pre, ext, tok, disp, ticks, folds = (b - a for a, b in zip(c0, (
+            n_prefill[0], n_extend[0], fed[0], eng.dispatches, eng.decode_steps,
+            eng.fused_folds)))
+        st = sched.stats
+        whole = sum(max(0, min(len(r.prompt), eng.max_len - 1) - chunk) for r in reqs)
+        log(f"[{lab}] spec_dispatched {st.spec_dispatched}, spec_committed "
+            f"{st.spec_committed}, spec_aborted {st.spec_aborted}, spec_chunks "
+            f"{st.spec_chunks}, spec_crashes {st.spec_crashes}, fused_folds {folds}; "
+            f"prefill dispatches {pre}, chunk extends {ext}, tokens through the decode "
+            f"path {tok} (the long prompts past their first chunk: {whole})")
+        if st.spec_crashes != 0 or st.spec_chunks < 2 or folds < 1:
+            fail(f"{lab}: need spec_crashes == 0, spec_chunks >= 2, fused_folds >= 1")
+        if tok < whole:
+            fail(f"{lab}: the long prompts were not fed whole through the chunks")
+        if disp != pre + ext + ticks - folds:
+            fail(f"{lab}: dispatches != prefills + extends + ticks - fused folds")
+        _expect(lab, launches, {"paged_decode_attention": ticks * L,
+                                "flash_attention": pre * L,
+                                "decode_attention": tok * L, "ssd_scan": 0})
+        _expect_chunk_calls(lab, tok, device)
+        first = (launches, wall) if first is None else first
     _sync(device)
-    return launches, wall
+    return first
 
 
 def phase_dense(arch, params, device="cuda", label="dense"):
@@ -1615,14 +1700,15 @@ def _ttft_ms(reqs) -> str:
     return f"p50 {float(np.median(ttft))!r} ms, max {ttft[-1]!r} ms ({len(reqs)} requests)"
 
 
-def phase_prefix(arch, params, device="cuda", suffix: str = ""):
+def phase_prefix(arch, params, device="cuda", suffix: str = "", drives: int = 1):
     """A chat service whose requests share one system prompt: the paged
     engine with ``prefix_share=True`` on the synchronous path.  The first
     request prefills whole (flash); every later one aliases the 12
     resident prefix pages and feeds only its tail through ``_shared_tail``
     (one ``decode_step``, so one ``decode_attention`` launch a layer, per
-    tail token).  The same traffic then runs unshared.  Returns the two
-    runs' launch counts."""
+    tail token).  The same traffic then runs unshared.  ``drives`` as in
+    ``phase_main_path`` (a warmed sharing engine may hold the prefix
+    already).  Returns the two runs' first drives' launch counts."""
     from repro_torch.core.strategies import GrowingUpperThreshold
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
@@ -1633,33 +1719,45 @@ def phase_prefix(arch, params, device="cuda", suffix: str = ""):
     for label, share in (("prefix" + suffix, True), ("prefix-unshared" + suffix, False)):
         eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256, max_len=512,
                                    page_size=16, prefix_share=share, device=device)
-        sched = ContinuousBatchingScheduler(
-            eng, strategy=GrowingUpperThreshold(initial_upper=2))
         n_prefill = _count_calls(eng, "_prefill_step")
         hit_rids = []
         _count_calls(eng, "_admit_prefix_hit", lambda r, *_a: hit_rids.append(r.rid) or 1)
         tail = _count_calls(eng, "_shared_tail", lambda _i, toks, *_r: int(toks.shape[1]))
-        reqs = _prefix_requests(Request, arch.cfg.vocab_size)
-        out[label], wall = _drive(label, eng, sched, reqs, device)
-        streams[label] = [r.generated for r in reqs]
-        moved[label] = eng.kv_bytes_moved
-        hits = [r for r in reqs if r.rid in hit_rids]
-        misses = [r for r in reqs if r.rid not in hit_rids]
-        log(f"[{label}] prefix_hits {eng.prefix_hits} (scheduler {sched.stats.prefix_hits}), "
-            f"prefill_flops_saved / prefill_flops_total {eng.prefill_flops_saved} / "
-            f"{eng.prefill_flops_total} = "
-            f"{eng.prefill_flops_saved / max(1, eng.prefill_flops_total)!r}; kv_bytes_moved "
-            f"{eng.kv_bytes_moved}; prefill dispatches {n_prefill[0]}, tail tokens through "
-            f"_shared_tail {tail[0]}; TTFT hits {_ttft_ms(hits)}, misses {_ttft_ms(misses)}")
-        if eng.dispatches != n_prefill[0] + eng.prefix_hits + eng.decode_steps:
-            fail(f"{label}: dispatches != prefills + prefix hits + decode ticks")
-        _expect(label, out[label], {"flash_attention": n_prefill[0] * L,
-                                    "decode_attention": tail[0] * L,
-                                    "paged_decode_attention": eng.decode_steps * L,
+        for i in range(drives):
+            lab = label if i == 0 else f"{label}-warm{i}"
+            sched = ContinuousBatchingScheduler(
+                eng, strategy=GrowingUpperThreshold(initial_upper=2))
+            c0 = (n_prefill[0], tail[0], eng.prefix_hits, eng.kv_bytes_moved,
+                  eng.dispatches, eng.decode_steps, eng.prefill_flops_saved,
+                  eng.prefill_flops_total)
+            del hit_rids[:]
+            reqs = _prefix_requests(Request, arch.cfg.vocab_size)
+            launches, wall = _drive(lab, eng, sched, reqs, device)
+            pre, toks, hits_n, kv, disp, ticks, saved, total = (b - a for a, b in zip(c0, (
+                n_prefill[0], tail[0], eng.prefix_hits, eng.kv_bytes_moved,
+                eng.dispatches, eng.decode_steps, eng.prefill_flops_saved,
+                eng.prefill_flops_total)))
+            hits = [r for r in reqs if r.rid in hit_rids]
+            misses = [r for r in reqs if r.rid not in hit_rids]
+            log(f"[{lab}] prefix_hits {hits_n} (scheduler {sched.stats.prefix_hits}), "
+                f"prefill_flops_saved / prefill_flops_total {saved} / {total} = "
+                f"{saved / max(1, total)!r}; kv_bytes_moved {kv}; prefill dispatches {pre}, "
+                f"tail tokens through _shared_tail {toks}; TTFT hits {_ttft_ms(hits)}, "
+                f"misses {_ttft_ms(misses)}")
+            if disp != pre + hits_n + ticks:
+                fail(f"{lab}: dispatches != prefills + prefix hits + decode ticks")
+            _expect(lab, launches, {"flash_attention": pre * L,
+                                    "decode_attention": toks * L,
+                                    "paged_decode_attention": ticks * L,
                                     "ssd_scan": 0})
-        _expect_chunk_replays(label, tail[0], device)
-        if share and (eng.prefix_hits < 1 or sched.stats.prefix_hits != eng.prefix_hits):
-            fail("prefix: no prefix hit, or the scheduler's count differs from the engine's")
+            _expect_chunk_calls(lab, toks, device)
+            # the scheduler mirrors the engine's running count
+            if share and (hits_n < 1 or sched.stats.prefix_hits != eng.prefix_hits):
+                fail("prefix: no prefix hit, or the scheduler's count differs from the "
+                     "engine's")
+            if i == 0:
+                out[label], streams[label], moved[label] = (
+                    launches, [r.generated for r in reqs], kv)
     if moved["prefix" + suffix] >= moved["prefix-unshared" + suffix]:
         fail("prefix: sharing did not move fewer KV bytes than the unshared run")
     a, b = streams["prefix" + suffix], streams["prefix-unshared" + suffix]
@@ -1672,32 +1770,69 @@ def phase_prefix(arch, params, device="cuda", suffix: str = ""):
     return out
 
 
+WARM_DRIVES = 2  # 4a, 4b, 4d, 4s: a warmed engine's drives after its first
+TWIN_LAYERS = 2  # 4s's depth: llama3-8b at full width, 2 of its 32 layers
+
+
+def _first_layers(arch, params, n: int):
+    """``arch`` cut to its first ``n`` layers at full width, and views of
+    those layers of ``params`` (stacked on a leading layer axis)."""
+    cut = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, n_layers=n))
+    return cut, dict(params, layers=_map_leaves(lambda a: a[:n], params["layers"]))
+
+
 def phase_graph_twins(arch, params, device="cuda"):
     """4s. The compiled dispatches against their ``graphs.eager()`` twins
     (the counterpart of ``jax.disable_jit``: every step runs as plain ops
-    on its static buffers): phases 4a, 4b and 4d again, eagerly, on the
-    same weights and traffic, held to the graphed runs those phases made:
-    the same greedy tokens and the same exact launch counts (a replay
-    counts its kernels), both walls and tokens/s printed."""
+    on its static buffers), on a fresh engine and on a warmed one: main,
+    async and prefix (4a, 4b, 4d) on llama3-8b at full width cut to
+    ``TWIN_LAYERS`` of 32 layers (the eager twins' host time grows with
+    the depth), one engine each driven ``1 + WARM_DRIVES`` times (a new
+    scheduler, the same prompts), with graphs and then eagerly.  Each
+    drive is held to its ``eager()`` twin: the same greedy tokens and the
+    same exact launch counts (each step's first call runs and counts its
+    launches, every replay counts its kernels).  Logs each drive's wall
+    and tokens/s, the fresh and warmed tokens/s of both, apart, and one
+    fresh main drive eagerly at full depth beside 4a's."""
     from repro_torch.serving import graphs
 
+    cut, cut_params = _first_layers(arch, params, TWIN_LAYERS)
+    kw = dict(drives=1 + WARM_DRIVES)
+    tag = f"-{TWIN_LAYERS}L"
+    for mode in ("", "-eager"):
+        with graphs.eager() if mode else contextlib.nullcontext():
+            phase_main_path(cut, cut_params, device, label="main" + tag + mode, **kw)
+            phase_async(cut, cut_params, device, label="async" + tag + mode, **kw)
+            phase_prefix(cut, cut_params, device, suffix=tag + mode, **kw)
     with graphs.eager():
         phase_main_path(arch, params, device, label="main-eager")
-        phase_async(arch, params, device, label="async-eager")
-        phase_prefix(arch, params, device, suffix="-eager")
-    for label in ("main", "async", "prefix", "prefix-unshared"):
-        g, e = RUNS[label], RUNS[label + "-eager"]
+    warm = [""] + [f"-warm{i}" for i in range(1, 1 + WARM_DRIVES)]
+    pairs = [(path + tag + w, path + tag + "-eager" + w)
+             for path in ("main", "async", "prefix", "prefix-unshared") for w in warm]
+    for label, twin in pairs + [("main", "main-eager")]:
+        g, e = RUNS[label], RUNS[twin]
         same = sum(a == b for a, b in zip(g["streams"], e["streams"]))
         log(f"[graphs] {label}: graphs {g['tokens']} tokens in {g['wall']!r} s "
-            f"({g['tokens'] / g['wall']!r} tokens/s), eager() {e['tokens']} tokens in "
-            f"{e['wall']!r} s ({e['tokens'] / e['wall']!r} tokens/s): wall ratio "
-            f"{e['wall'] / g['wall']!r}; greedy streams equal in {same}/{len(g['streams'])}, "
-            f"launch counts {'equal' if g['launches'] == e['launches'] else 'DIFFER'}")
+            f"({g['tokens'] / g['wall']!r} tokens/s; {g['first']} first calls run for "
+            f"real), eager() {e['tokens']} tokens in {e['wall']!r} s "
+            f"({e['tokens'] / e['wall']!r} tokens/s): wall ratio {e['wall'] / g['wall']!r}; "
+            f"greedy streams equal in {same}/{len(g['streams'])}, launch counts "
+            f"{'equal' if g['launches'] == e['launches'] else 'DIFFER'}")
         if same != len(g["streams"]) or g["tokens"] != e["tokens"]:
             fail(f"graphs: {label}'s greedy tokens differ from its eager() twin's")
         if g["launches"] != e["launches"]:
             fail(f"graphs: {label}'s launch counts {g['launches']} differ from its eager() "
                  f"twin's {e['launches']}")
+    for path in ("main", "async", "prefix", "prefix-unshared"):
+        for depth, base in ((arch.cfg.n_layers, path), (TWIN_LAYERS, path + tag)):
+            tps = {m: [RUNS[base + m + w]["tokens"] / RUNS[base + m + w]["wall"]
+                       for w in warm if base + m + w in RUNS] for m in ("", "-eager")}
+            log(f"[graphs] {path}, {depth} layers: tokens/s, fresh engine / warmed (drives "
+                f"2-{1 + WARM_DRIVES}, median): graphs {tps[''][0]!r} / "
+                f"{float(np.median(tps[''][1:]))!r}"
+                + (f", eager() {tps['-eager'][0]!r} / "
+                   f"{float(np.median(tps['-eager'][1:]))!r}" if len(tps["-eager"]) > 1
+                   else ""))
     _sync(device)
 
 
@@ -1828,7 +1963,8 @@ def _trace_sides(arch, params, device, trace, engine_kw):
                          wall=time.perf_counter() - t0,
                          prefills=eng.dispatches - eng.decode_steps,
                          ticks=eng.decode_steps,
-                         prefill_replays=eng._prefill_steps.replays)
+                         prefill_calls=eng._prefill_steps.calls,
+                         first_runs=len(eng._prefill_steps.steps))
     return out
 
 
@@ -1919,7 +2055,8 @@ def phase_app_traces(arch, params, device="cuda"):
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     registry.reset_launches()
-    tot = {s: dict(drives=0, tokens=0, wall=0.0, prefills=0, ticks=0, prefill_replays=0)
+    tot = {s: dict(drives=0, tokens=0, wall=0.0, prefills=0, ticks=0, prefill_calls=0,
+                   first_runs=0)
            for s in ("sync", "async")}
     same_obs = same_toks = n_q = 0
     for tr in all_traces():
@@ -1972,11 +2109,12 @@ def phase_app_traces(arch, params, device="cuda"):
         f"(first tokens equal, streams equal) of 8}}: {_cohort_probe(arch, params, device, kw)}")
     if s["drives"] != 49:
         fail(f"app-traces: {s['drives']} synchronous drives in all, not 49")
-    log(f"[app-traces] prefill-step replays: sync {s['prefill_replays']} for "
-        f"{s['prefills']} prefill dispatches, transformed {a['prefill_replays']} for "
-        f"{a['prefills']}")
-    if device == "cuda" and any(t["prefill_replays"] != t["prefills"] for t in (s, a)):
-        fail("app-traces: a prefill dispatch was not one replay of a prefill step")
+    log(f"[app-traces] prefill-step calls: sync {s['prefill_calls']} for "
+        f"{s['prefills']} prefill dispatches ({s['first_runs']} of them first calls, run "
+        f"for real), transformed {a['prefill_calls']} for {a['prefills']} "
+        f"({a['first_runs']} first calls)")
+    if device == "cuda" and any(t["prefill_calls"] != t["prefills"] for t in (s, a)):
+        fail("app-traces: a prefill dispatch was not one call of a prefill step")
     _expect("app-traces", launches,
             {"paged_decode_attention": (s["ticks"] + a["ticks"]) * L,
              "flash_attention": (s["prefills"] + a["prefills"]) * L,
@@ -2048,7 +2186,11 @@ def _model_service_runs(table, w, ids, device):
                           buckets=dict(svc.lane_buckets),
                           launches=registry.launch_counts()["batched_gather"],
                           steps=sum(len(c.steps) for c in svc.steps.values()),
+                          calls=sum(c.calls for c in svc.steps.values()),
                           replays=sum(c.replays for c in svc.steps.values()))
+        _expect_first_call_runs(f"model-service {label}",
+                                [s for c in svc.steps.values() for s in c.steps.values()],
+                                device)
     return out
 
 
@@ -2057,8 +2199,8 @@ def _model_service_gates(label, runs, n, device):
     for name, r in runs.items():
         st = r["stats"]
         if device == "cuda" and not graphs.is_eager() and \
-                r["replays"] != st["single_queries"] + st["batches"]:
-            fail(f"{label} {name}: {r['replays']} step replays for {st['single_queries']} "
+                r["calls"] != st["single_queries"] + st["batches"]:
+            fail(f"{label} {name}: {r['calls']} step calls for {st['single_queries']} "
                  f"single queries and {st['batches']} batches")
         if st["single_queries"] + st["batched_items"] != n:
             fail(f"{label} {name}: {st['single_queries']} single queries + "
@@ -2083,7 +2225,8 @@ def phase_model_service(arch, params, device="cuda", n: int = 4096):
     hand-written ``batched_gather``: one launch per single query and one
     per batch, exactly.  Gates: totals equal within rtol 1e-5, every id
     queried once (``single_queries + batched_items``), at least one batch
-    on the transformed runs, every forward one replay of a compiled step;
+    on the transformed runs, every forward one call of a compiled step
+    (each step's first a real run, the others replays);
     then the three runs again under ``graphs.eager()``, each total equal
     to its graphed twin's within rtol 1e-5.  Returns the summed launch
     counts."""
@@ -2108,8 +2251,8 @@ def phase_model_service(arch, params, device="cuda", n: int = 4096):
             f"{st['single_queries']}, batches {st['batches']}, mean batch size "
             f"{st['batched_items'] / max(st['batches'], 1)!r}, lane_buckets "
             f"{r['buckets']}, padded_items {st['padded_items']}; batched_gather "
-            f"launches {r['launches']}; {r['steps']} compiled steps, {r['replays']} "
-            f"replays; under eager() {twins[name]['wall']!r} s, total "
+            f"launches {r['launches']}; {r['steps']} compiled steps, {r['calls']} calls, "
+            f"{r['replays']} of them replays; under eager() {twins[name]['wall']!r} s, total "
             f"{twins[name]['total']!r}")
         tot = twins[name]["total"]
         if abs(r["total"] - tot) > 1e-5 * abs(tot):
@@ -2290,7 +2433,7 @@ def phase_ssm_async(arch, params, device="cuda", chunk: int = 1024):
         fail("ssm-async: dispatches != prefills + extends + decode ticks")
     _expect("ssm-async", launches, {"ssd_scan": n_prefill[0] * L, "flash_attention": 0,
                                     "decode_attention": 0, "paged_decode_attention": 0})
-    _expect_chunk_replays("ssm-async", fed[0], device)
+    _expect_chunk_calls("ssm-async", fed[0], device)
     _sync(device)
     return launches, wall
 
@@ -2548,7 +2691,7 @@ def phase_hymba_chunked(arch, params, device="cuda", chunk: int = 512, n: int = 
     _expect("hymba-chunked", launches, {"flash_attention": L, "ssd_scan": L,
                                         "decode_attention": (fed[0] + eng.decode_steps) * L,
                                         "paged_decode_attention": 0})
-    _expect_chunk_replays("hymba-chunked", fed[0], device)
+    _expect_chunk_calls("hymba-chunked", fed[0], device)
     _sync(device)
     return launches, wall
 
@@ -3052,8 +3195,9 @@ def _tick_walls(label, eng, ticks: int) -> None:
 
 def _prefill_walls(eng, reqs, n: int = 4) -> None:
     """A prefill dispatch of ``reqs`` (8 prompts, bucket 8 x 256) on
-    ``eng``: the first, which builds and captures the bucket's step (what
-    the first request of a bucket waits for), then the host wall of ``n``
+    ``eng``: the first, which builds the bucket's step, runs it for real
+    and records it (what the first request of a bucket waits for), with
+    its parts (the step's host seconds), then the host wall of ``n``
     more, replayed and under ``graphs.eager()``, one replay under
     ``torch.profiler`` (the device's busy share), and the copy-out of the
     bucket's view of the staging cache timed alone with CUDA events.  The
@@ -3091,8 +3235,10 @@ def _prefill_walls(eng, reqs, n: int = 4) -> None:
     end.record()
     torch.cuda.synchronize()
     copy = start.elapsed_time(end) / 10
-    log(f"[profile] prefill dispatch, bucket 8 x 256, no profiler: the first (build and "
-        f"capture of the bucket's step) {first!r} ms; mean of {n}: graph replay "
+    parts = {k: v * 1e3 for k, v in eng._prefill_steps.steps[(len(reqs), 256)].parts.items()}
+    log(f"[profile] prefill dispatch, bucket 8 x 256, no profiler: the first (a real run, "
+        f"then the recording) {first!r} ms, its parts in host ms {parts}; mean of {n}: "
+        f"graph replay "
         f"{walls['graph replay']!r} ms wall, eager() {walls['eager()']!r} ms wall; the "
         f"copy-out of the bucket's KV ({nbytes} bytes read and as many written) {copy!r} "
         f"ms on the device ({2 * nbytes / (copy / 1e3) / 1e12!r} TB/s)")
@@ -3120,8 +3266,14 @@ def phase_profile(arch, params, ticks: int = 8):
     with torch.no_grad():
         _prefill_walls(eng, reqs)
         eng.commit_prefill(eng.prefill_dispatch(reqs))
-        for _ in range(2):
-            eng.decode_tick()  # warm
+        t0 = time.perf_counter()
+        eng.decode_tick()  # the tick step's first call: a real run, then the recording
+        torch.cuda.synchronize()
+        tick_first = (time.perf_counter() - t0) * 1e3
+        eng.decode_tick()  # warm
+        log(f"[profile] the tick's first call (a real run, then the recording) "
+            f"{tick_first!r} ms wall; parts in host ms "
+            f"{ {k: v * 1e3 for k, v in eng._tick_step.parts.items()} }")
         _tick_walls("decode tick, 8 lanes", eng, ticks)
         rows = _window(f"decode tick (graph replay), 8 lanes (mean of {ticks})",
                        eng.decode_tick, ticks)
@@ -3154,12 +3306,11 @@ def phase_profile(arch, params, ticks: int = 8):
 
 def phase_build_memory(arch, params, share: float = 0.6, ticks: int = 4):
     """6m. Device memory a paged engine takes while it is built: a page
-    pool of ``share`` of the free memory, its tick and chunk steps
-    captured.  The warm-up before each capture writes into the zeroed
-    cache and zeroes it again, with no copy of it, so the peak above what
-    was allocated before is the pool plus the staging caches and the
-    graphs' memory; fails at 1.1 x the pool.  Then ``ticks`` ticks on 8
-    admitted prompts, with finite logits."""
+    pool of ``share`` of the free memory, its tick and chunk steps made
+    (each records its graph at its first call, with no copy of the cache),
+    so the peak above what was allocated before is the pool plus the
+    staging caches; fails at 1.1 x the pool.  Then ``ticks`` ticks on 8
+    admitted prompts, the first recording the tick, with finite logits."""
     import torch
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
@@ -3182,7 +3333,7 @@ def phase_build_memory(arch, params, share: float = 0.6, ticks: int = 4):
     peak = torch.cuda.max_memory_allocated() - before
     pool = sum(a.numel() * a.element_size() for a in _leaves(eng.cache))
     log(f"[memory] {cfg.name} paged engine, {n_pages} pages of {page} bytes ({share} of "
-        f"{free} free bytes): built and captured in {build_s!r} s; peak {peak} bytes above "
+        f"{free} free bytes): built in {build_s!r} s; peak {peak} bytes above "
         f"the {before} allocated before, against the pool's {pool} bytes "
         f"({peak / pool!r} x)")
     if peak >= 1.1 * pool:
@@ -3212,61 +3363,71 @@ def _pool_bytes(pools: dict):
 
 
 def phase_prefill_memory(arch, params, lanes: int = 8, max_len: int = 512):
-    """6p. The prefill steps' memory.  A llama3-8b paged engine (``lanes``
-    lanes of ``max_len`` rows, prompts up to 256) is built, then serves
-    one prefill dispatch of every bucket its templates can pin (batch 1,
-    2, 4, 8 x prompt 16 to 256, 20 in all), the largest first, each
-    dropped uncommitted, then again (a replay) and once under
-    ``graphs.eager()``, each dispatch timed (the bucket's first holds its
-    step's build: a warm-up, about an eager dispatch, and the capture).
-    Logs the device memory the build took, the bytes of each graph pool
-    (the tick's with the main stream's chunk step, the engine stream's
-    chunk step's, the prefill steps') after the largest bucket and after
-    all, the memory allocated and the peak.
-    Gates: every prefill step writes the one staging cache; the prefill
-    pool after all buckets at most 1.1 x after the largest; the memory
-    allocated and the peak grow by at most 64 MiB after the largest."""
+    """6p. The prefill steps' first dispatches and memory.  A llama3-8b
+    paged engine (``lanes`` lanes of ``max_len`` rows, prompts up to 256)
+    is built, then serves one prefill dispatch of every bucket its
+    templates can pin (batch 1, 2, 4, 8 x prompt 16 to 256, 20 in all),
+    the largest first, each dropped uncommitted, then again (a replay) and
+    once under ``graphs.eager()``, each dispatch timed to its end.  The
+    first dispatch of a bucket is split into its parts, host seconds the
+    step measured: the real run (its issue; its device work overlaps what
+    follows), the recording and the instantiation.  Logs the device
+    memory the build took, the
+    bytes of each graph pool (the tick's with the main stream's chunk
+    step, the engine stream's chunk step's, the prefill steps') after the
+    largest bucket and after all, the memory allocated and the peak.
+    Gates: every prefill step writes the one staging cache; each ran its
+    first call once for real; the prefill pool after all buckets at most
+    1.1 x after the largest; the memory allocated and the peak grow by at
+    most 64 MiB after the largest."""
     import torch
     from repro_torch.serving import graphs
     from repro_torch.serving.paged_kv import PagedInferenceEngine
     from repro_torch.serving.request import Request
 
     vocab, mib = arch.cfg.vocab_size, 2 ** 20
+    buckets = [(b, p) for b in (8, 4, 2, 1) for p in (256, 128, 64, 32, 16)]
     rng = np.random.default_rng(5)
+    prompts = {bp: [rng.integers(0, vocab, size=bp[1]).astype(np.int32) for _ in range(bp[0])]
+               for bp in buckets}
+
+    def engine():
+        return PagedInferenceEngine(arch, params, n_lanes=lanes, max_prompt_len=256,
+                                    max_len=max_len, page_size=16)
+
+    def dispatch(eng, bp):
+        reqs = [Request(rid=j, prompt=pr) for j, pr in enumerate(prompts[bp])]
+        t0 = time.perf_counter()
+        staged = eng.prefill_dispatch(reqs)
+        torch.cuda.synchronize()
+        if staged.shape != bp:
+            fail(f"prefill memory: bucket {staged.shape}, not {bp}")
+        return round((time.perf_counter() - t0) * 1e3, 3)
+
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    eng = PagedInferenceEngine(arch, params, n_lanes=lanes, max_prompt_len=256,
-                               max_len=max_len, page_size=16)
+    eng = engine()
     torch.cuda.synchronize()
     built = torch.cuda.memory_allocated() - before
     staging = sum(a.numel() * a.element_size() for a in _leaves(eng._prefill_out))
-    pools = {"tick": eng._tick_step.graph.pool(), "prefill": eng._prefill_steps.pool}
-    pools.update({f"chunk {i}": s.graph.pool() for i, s in
-                  enumerate(eng._chunk_steps.values()) if s.pool is None})
-    buckets = [(b, p) for b in (8, 4, 2, 1) for p in (256, 128, 64, 32, 16)]
-    seen, walls = {}, {}
-
-    def dispatch(reqs):
-        t0 = time.perf_counter()
-        staged = eng.prefill_dispatch(reqs)
-        torch.cuda.synchronize()
-        return staged, round((time.perf_counter() - t0) * 1e3, 3)
-
+    pools = {"tick": eng._tick_step.pool, "prefill": eng._prefill_steps.pool}
+    pools.update({f"chunk {i}": s.pool for i, s in enumerate(eng._chunk_steps.values())
+                  if s.pool is not eng._tick_step.pool})
+    seen, walls, parts = {}, {}, {}
+    ms = lambda x: round(x * 1e3, 3)  # noqa: E731
     with torch.no_grad():
-        for i, (b, p) in enumerate(buckets):
-            reqs = [Request(rid=j, prompt=rng.integers(0, vocab, size=p).astype(np.int32))
-                    for j in range(b)]
-            staged, first = dispatch(reqs)
-            if staged.shape != (b, p):
-                fail(f"prefill memory: bucket {staged.shape}, not {(b, p)}")
-            del staged
-            replay = dispatch(reqs)[1]
+        for i, bp in enumerate(buckets):
+            first = dispatch(eng, bp)
+            replay = dispatch(eng, bp)
             with graphs.eager():
-                plain = dispatch(reqs)[1]
-            walls[f"{b}x{p}"] = (first, replay, plain)
+                plain = dispatch(eng, bp)
+            step = eng._prefill_steps.steps[bp]
+            walls[f"{bp[0]}x{bp[1]}"] = (first, replay, plain)
+            parts[f"{bp[0]}x{bp[1]}"] = tuple(ms(step.parts[k])
+                                              for k in ("run", "record", "instantiate"))
             if i == 0 or i == len(buckets) - 1:
                 seen[i] = dict(pools=_pool_bytes(pools),
                                allocated=torch.cuda.memory_allocated() - before,
@@ -3281,9 +3442,13 @@ def phase_prefill_memory(arch, params, lanes: int = 8, max_len: int = 512):
         f"{last['allocated']} bytes; reserved {first['reserved']} / {last['reserved']}; peak "
         f"above the start while the largest was served {first['peak']} bytes, while the "
         f"other {len(buckets) - 1} were {last['peak']}; {len(eng._prefill_steps.steps)} "
-        f"prefill steps, {eng._prefill_steps.replays} replays; per bucket, ms: (the first "
-        f"dispatch: build, capture, replay; the second: a replay; one under eager()): "
-        f"{walls}")
+        f"prefill steps, {eng._prefill_steps.calls} calls, {eng._prefill_steps.replays} "
+        f"replays")
+    log(f"[first-dispatch] per bucket, ms of wall to the dispatch's end: (the first: a real "
+        f"run, then the recording; the second: a replay; one under eager()): {walls}")
+    log(f"[first-dispatch] per bucket, the first dispatch's parts, host ms: (the real run's "
+        f"issue, the recording, the instantiation): {parts}")
+    _expect_first_call_runs("prefill memory", eng._prefill_steps.steps.values(), "cuda")
     ptrs = [a.untyped_storage().data_ptr() for a in _leaves(eng._prefill_out)]
     if any([t.untyped_storage().data_ptr() for t in st.state[1:]] != ptrs
            for st in eng._prefill_steps.steps.values()):
@@ -3461,7 +3626,7 @@ def _reduced_run(kind, arch, params, device):
         sched.submit(r)
     sched.producer_done()
     sched.run_until_drained()
-    _expect_prefill_replays(f"reduced {arch.cfg.name} {kind}", eng, prefills, device)
+    _expect_prefill_calls(f"reduced {arch.cfg.name} {kind}", eng, prefills, device)
     counters = {a: getattr(eng, a, None) for a in (
         "dispatches", "decode_steps", "prefill_calls", "kv_bytes_moved", "fused_folds",
         "prefix_hits", "page_evictions", "injected_decode_faults",
@@ -3641,21 +3806,27 @@ TRAIN_LAYERS = 4  # of llama3-8b's 32: what the step's state leaves room for
 
 
 def _train_run(arch, params, fission: bool, steps: int, mb: int, batch: int, seq: int,
-               profile: bool = False, retrace: bool = False):
+               profile: bool = False, eager: bool = False, batches=None,
+               moments: str = "float32", step=None, state=None, retrace: bool = False):
     """``steps`` train steps of ``arch`` from ``params`` (written in place:
     the step donates them), ``AdamWConfig(lr=1e-3)``, ``microbatches=mb``,
-    on ``SyntheticLMStream(vocab, seq, batch, seed=0)`` through
-    ``PrefetchLoader``, on the device of ``params``.  Returns (losses,
-    per-step walls, per-step launch counts, per-step fission trace seconds,
-    peak device memory, final params, per-step ``trace_body`` calls).
-    ``profile``: one more step after those, under ``torch.profiler``
-    (``_window``), outside every count.  ``retrace``: the step's fission
-    plans are cleared before every step, so each step traces its body
-    again (the twin of the cached plan)."""
+    on ``batches`` or on ``SyntheticLMStream(vocab, seq, batch, seed=0)``
+    through ``PrefetchLoader``, on the device of ``params``; the step
+    compiled (one CUDA graph on the card, recorded at its first call), or
+    under ``graphs.eager()`` with ``eager``; with ``retrace`` the fission
+    plans are cleared before every step, so each traces its body again;
+    ``step`` and ``state`` carry a step across calls.  Returns a dict:
+    per step ``losses``, ``gnorms``, ``walls``, ``launches``, fission
+    ``traces`` (seconds) and ``calls``
+    (``trace_body`` calls), ``replays``; the peak memory allocated and
+    reserved, the train graph pool's bytes, ``copies_in``, the final
+    ``params``, ``state`` and ``step``.  ``profile``: one more step after
+    those, under ``torch.profiler`` (``_window``), outside every count."""
     import torch
     from repro_torch.core import fission as fission_mod
     from repro_torch.data.pipeline import PrefetchLoader, SyntheticLMStream
     from repro_torch.kernels import registry
+    from repro_torch.serving import graphs
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.step import TrainStepConfig, make_train_step
 
@@ -3668,38 +3839,126 @@ def _train_run(arch, params, fission: bool, steps: int, mb: int, batch: int, seq
         return out
 
     device = next(_leaves(params)).device.type
-    init_state, step = make_train_step(arch, AdamWConfig(lr=1e-3),
-                                       TrainStepConfig(microbatches=mb, fission=fission))
-    state = init_state(params)
-    loader = iter(PrefetchLoader(SyntheticLMStream(arch.cfg.vocab_size, seq_len=seq,
+    if step is None:
+        init_state, step = make_train_step(
+            arch, AdamWConfig(lr=1e-3, moments_dtype=moments),
+            TrainStepConfig(microbatches=mb, fission=fission))
+        state = init_state(params)
+    if batches is None:
+        batches = PrefetchLoader(SyntheticLMStream(arch.cfg.vocab_size, seq_len=seq,
                                                    batch=batch, seed=0),
-                                 n_prefetch=2, max_steps=steps + int(profile)))
-    losses, walls, launches, traces, calls = [], [], [], [], []
+                                 n_prefetch=2, max_steps=steps + int(profile))
+    loader = iter(batches)
+    out = {k: [] for k in ("losses", "gnorms", "walls", "launches", "traces", "calls",
+                           "replays")}
     _sync(device)
     if device == "cuda":
         log(f"[train] device memory allocated before the first step (weights and "
             f"AdamW moments): {torch.cuda.memory_allocated() / 2**30!r} GiB")
         torch.cuda.reset_peak_memory_stats()
-    with mock.patch.object(fission_mod, "trace_body", timed_trace):
+    mode = graphs.eager() if eager else contextlib.nullcontext()
+    with mode, mock.patch.object(fission_mod, "trace_body", timed_trace):
         for _, b in zip(range(steps), loader):
             registry.reset_launches()
             del traced[:]
             if retrace:
                 step.plans.clear()
+            r0 = step.replays
             t0 = time.perf_counter()
             params, state, metrics = step(params, state, b)
-            losses.append(float(metrics["loss"]))
+            out["losses"].append(float(metrics["loss"]))
             _sync(device)
-            walls.append(time.perf_counter() - t0)
-            launches.append(registry.launch_counts())
-            traces.append(sum(traced))
-            calls.append(len(traced))
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-    if profile:
-        b = next(loader)
-        _window(f"one more train step, fission={fission}",
-                lambda: step(params, state, b), 1)
-    return losses, walls, launches, traces, peak, params, calls
+            out["walls"].append(time.perf_counter() - t0)
+            out["gnorms"].append(float(metrics["grad_norm"]))
+            out["launches"].append(registry.launch_counts())
+            out["traces"].append(sum(traced))
+            out["calls"].append(len(traced))
+            out["replays"].append(step.replays - r0)
+        if profile:
+            b = next(loader)
+            if retrace:
+                step.plans.clear()
+            _window(f"one more train step ({'eager()' if eager else 'graph replay'}), "
+                    f"fission={fission}", lambda: step(params, state, b), 1)
+    cuda = device == "cuda"
+    out.update(peak=torch.cuda.max_memory_allocated() if cuda else 0,
+               reserved=torch.cuda.max_memory_reserved() if cuda else 0,
+               pool=(_pool_bytes({"train": step.cache.pool}) or {}).get("train")
+               if cuda and step.cache is not None else None,
+               copies_in=step.copies_in, params=params, state=state, step=step)
+    return out
+
+
+def _train_log(label, smi, r, tokens: int) -> None:
+    """One training run's lines: each step's loss, grad norm, wall, replays,
+    fission trace and launches; memory, the graph pool and copies in."""
+    for i, w in enumerate(r["walls"]):
+        log(f"[{label}] on {smi}: step {i}: loss {r['losses'][i]!r}, grad norm "
+            f"{r['gnorms'][i]!r}, wall {w!r} s, {tokens / w!r} tokens/s, replays "
+            f"{r['replays'][i]}, fission trace {r['traces'][i]!r} s in {r['calls'][i]} "
+            f"trace_body calls, launches {r['launches'][i]}")
+    log(f"[{label}] peak device memory allocated {r['peak']} bytes "
+        f"({r['peak'] / 2**30!r} GiB), reserved {r['reserved']} bytes "
+        f"({r['reserved'] / 2**30!r} GiB); train graph pool {r['pool']} bytes; copies in "
+        f"{r['copies_in']}")
+
+
+def _against_eager(label, g, e, again) -> None:
+    """A compiled run ``g`` against its ``eager()`` twin ``e`` (``_train_run``
+    dicts) on the card: one replay a step from its second step (the first
+    runs and records) and none eagerly; the same launches each step; the
+    first loss bit for bit; every later loss, every grad norm and every
+    parameter leaf bit for bit where two ``eager()`` runs repeat each other
+    bit for bit, and within 1e-4 (relative to at least 1 for a loss or a
+    norm; rtol and atol for a leaf) where they do not (sums with atomics:
+    the embedding gradient's scatter-add, the MoE combine's backward).
+    ``again()`` makes the second ``eager()`` run, only where ``g`` and
+    ``e`` differ somewhere: where they agree everywhere the gate holds
+    whatever it would show."""
+    import torch
+
+    n = len(e["losses"])
+    log(f"[{label}] against eager(): losses {g['losses']} / {e['losses']}, grad norms "
+        f"{g['gnorms']} / {e['gnorms']}; step walls {g['walls']} s / {e['walls']} s "
+        f"(mean from the second step: {float(np.mean(g['walls'][1:]))!r} / "
+        f"{float(np.mean(e['walls'][1:]))!r} s); replays a step {g['replays']} / "
+        f"{e['replays']}")
+    if g["replays"] != [0] + [1] * (n - 1) or any(e["replays"]):
+        fail(f"{label}: replays a step {g['replays']}, eager() {e['replays']}")
+    if g["launches"] != e["launches"]:
+        fail(f"{label}: launches {g['launches']} differ from eager()'s {e['launches']}")
+    if not all(np.isfinite(g["losses"] + g["gnorms"])):
+        fail(f"{label}: a loss or grad norm is not finite")
+    if g["losses"][0] != e["losses"][0]:
+        fail(f"{label}: the first step's loss differs from eager()'s")
+
+    def scalars(r):
+        return r["losses"][1:] + r["gnorms"]
+
+    sg, se = scalars(g), scalars(e)
+    lg, le = list(_leaves(g["params"])), list(_leaves(e["params"]))
+    ds = [i for i, (a, b) in enumerate(zip(sg, se)) if a != b]
+    dl = [i for i, (a, b) in enumerate(zip(lg, le)) if not torch.equal(a, b)]
+    log(f"[{label}] against eager(): {len(lg) - len(dl)} of {len(lg)} parameter leaves "
+        f"({sum(int(a.numel()) for a in lg)} entries) bit for bit; "
+        f"{len(sg) - len(ds)} of {len(sg)} later losses and grad norms bit for bit")
+    if not ds and not dl:
+        return
+    e2 = again()
+    s2, l2 = scalars(e2), list(_leaves(e2["params"]))
+    bad = [f"scalar {i}" for i in ds
+           if se[i] == s2[i] or abs(sg[i] - se[i]) > 1e-4 * max(1.0, abs(se[i]))]
+    bad += [f"leaf {i}" for i in dl
+            if torch.equal(le[i], l2[i])
+            or not torch.allclose(lg[i].float(), le[i].float(), rtol=1e-4, atol=1e-4)]
+    worst = max((float((lg[i].float() - le[i].float()).abs().max()) for i in dl), default=0.0)
+    log(f"[{label}] a second eager() run: {sum(se[i] != s2[i] for i in ds)} of the {len(ds)} "
+        f"differing scalars and {sum(not torch.equal(le[i], l2[i]) for i in dl)} of the "
+        f"{len(dl)} differing leaves differ between the two eager() runs too; largest leaf "
+        f"difference {worst!r}")
+    if bad:
+        fail(f"{label}: differs from eager() where two eager() runs repeat, or beyond 1e-4: "
+             f"{bad[:8]}")
 
 
 def _train_gates(label, launches, fission: bool, mb: int, layers: int) -> None:
@@ -3718,17 +3977,16 @@ def phase_train(smi, steps: int = 3, mb: int = 4, batch: int = 8, seq: int = 512
     heads, hd 128, d_ff 14336, vocab 128256, bf16), depth cut to
     ``TRAIN_LAYERS`` of 32, ``query_embedding=True``, ``remat=False``,
     through ``make_train_step(..., TrainStepConfig(microbatches=4,
-    fission=True))``: ``steps`` steps and one more under the profiler
-    (the fission plan cached: ``trace_body`` runs once), the same
-    ``steps`` steps re-tracing the body every step, then one unfissioned
-    step, each from the same weights (seed 0).  Gates: launches per step
-    (``_train_gates``), finite losses, one ``trace_body`` call in the
-    cached run and one a step in the re-tracing one, the first step's
-    loss bit for bit equal between the two and to 1e-5 relative with and
-    without fission (the forward is the same ops on the same rows; only
-    the gradients differ, since the embedding's scatter-add uses atomics,
-    so later steps are held to 1e-4 relative between the cached and the
-    re-tracing runs and not compared without fission)."""
+    fission=...))``: fissioned, ``steps`` compiled steps (the first runs,
+    traces the fission plan and records the step's CUDA graph; each later
+    one replays it) and one more under the profiler, then the same under
+    ``graphs.eager()`` with the plan traced again every step (the kept
+    plan against a fresh trace); then the same unfissioned pair; each
+    from the same weights (seed 0).  Gates: launches per step
+    (``_train_gates``), one ``trace_body`` call in the compiled fissioned
+    run and one a step in its twin, ``_against_eager`` for each pair, the first step's loss to 1e-5
+    relative with and without fission (the forward is the same ops on the
+    same rows; only the gradients differ)."""
     import torch
     from repro_torch.models.registry import get_arch
 
@@ -3737,57 +3995,60 @@ def phase_train(smi, steps: int = 3, mb: int = 4, batch: int = 8, seq: int = 512
     arch = dataclasses.replace(arch, cfg=dataclasses.replace(
         arch.cfg, n_layers=TRAIN_LAYERS, query_embedding=True, remat=False))
     tokens = batch * seq
-    out, walls_of = {}, {}
-    for label, fission, n in (("train", True, steps), ("train-retrace", True, steps),
-                              ("train-plain", False, 1)):
-        losses, walls, launches, traces, peak, params, calls = _train_run(
-            arch, arch.init(seed=0, device="cuda"), fission, n, mb, batch, seq,
-            profile=label == "train", retrace=label == "train-retrace")
-        n_params = sum(int(a.numel()) for a in _leaves(params))
-        del params
+    out, firsts = {}, {}
+
+    def run(fission: bool, eager: bool) -> dict:
+        r = _train_run(arch, arch.init(seed=0, device="cuda"), fission, steps, mb, batch, seq,
+                       profile=True, eager=eager, retrace=eager and fission)
+        del r["state"], r["step"]
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"[{label}] on {smi}: llama3-8b full width, depth cut to {TRAIN_LAYERS} of "
-            f"{full} layers ({n_params} parameters, bf16, seed 0), query_embedding, "
-            f"fission={fission}, {mb} microbatches of {batch // mb} x {seq} tokens")
-        for i in range(n):
-            log(f"[{label}] step {i}: loss {losses[i]!r}, wall {walls[i]!r} s "
-                f"(fission trace {traces[i]!r} s in {calls[i]} trace_body calls), "
-                f"{tokens / walls[i]!r} tokens/s, launches {launches[i]}")
-        log(f"[{label}] peak device memory {peak / 2**30!r} GiB; trace_body calls "
-            f"{sum(calls)} in {n} steps")
-        if not all(np.isfinite(losses)):
-            fail(f"{label}: a loss is not finite: {losses}")
-        _train_gates(label, launches, fission, mb, TRAIN_LAYERS)
-        want = {"train": [1] + [0] * (n - 1), "train-retrace": [1] * n}.get(label, [0] * n)
-        if calls != want:
-            fail(f"{label}: trace_body calls per step {calls}, not {want}")
-        out[label], walls_of[label] = (losses, launches), walls
-    cached, again = out["train"][0], out["train-retrace"][0]
-    later = [abs(a - b) / abs(b) for a, b in zip(cached[1:], again[1:])]
-    log(f"[train] cached plan against re-tracing: losses {cached} / {again}, first step "
-        f"{'equal' if cached[0] == again[0] else 'DIFFERENT'}, later steps relative "
-        f"differences {later}; mean wall of steps 2-{steps}: "
-        f"{float(np.mean(walls_of['train'][1:]))!r} s cached, "
-        f"{float(np.mean(walls_of['train-retrace'][1:]))!r} s re-tracing")
-    if cached[0] != again[0] or any(d > 1e-4 for d in later):
-        fail("train: the cached fission plan's losses differ from the re-tracing run's")
-    first_f, first_p = out["train"][0][0], out["train-plain"][0][0]
+        return r
+
+    for fission in (True, False):
+        pair = {}
+        for eager in (False, True):
+            label = ("train" if fission else "train-plain") + ("-eager" if eager else "")
+            r = run(fission, eager)
+            n_params = sum(int(a.numel()) for a in _leaves(r["params"]))
+            log(f"[{label}] on {smi}: llama3-8b full width, depth cut to {TRAIN_LAYERS} of "
+                f"{full} layers ({n_params} parameters, bf16, seed 0), query_embedding, "
+                f"fission={fission}, {mb} microbatches of {batch // mb} x {seq} tokens, "
+                f"{'compiled: one CUDA graph a step' if not eager else 'eager()'}"
+                f"{', the fission plan traced again every step' if eager and fission else ''}")
+            _train_log(label, smi, r, tokens)
+            _train_gates(label, r["launches"], fission, mb, TRAIN_LAYERS)
+            want = [1] * steps if eager and fission else \
+                [1 if fission else 0] + [0] * (steps - 1)
+            if r["calls"] != want:
+                fail(f"{label}: trace_body calls per step {r['calls']}, not {want}")
+            pair[eager] = r
+        label = "train" if fission else "train-plain"
+        _against_eager(label, pair[False], pair[True],
+                       functools.partial(run, fission, True))
+        out[label] = pair[False]["launches"]
+        out[label + "-eager"] = pair[True]["launches"]
+        firsts[fission] = pair[False]["losses"][0]
+        del pair
+        gc.collect()
+        torch.cuda.empty_cache()
+    first_f, first_p = firsts[True], firsts[False]
     log(f"[train] first-step loss with fission {first_f!r}, without {first_p!r}, "
         f"difference {abs(first_f - first_p)!r} (gate 1e-5 relative)")
     if abs(first_f - first_p) > 1e-5 * abs(first_p):
         fail("train: the first step's loss differs with and without fission")
     torch.cuda.synchronize()
     return {label: {k: sum(c[k] for c in launches) for k in launches[0]}
-            for label, (_losses, launches) in out.items()}
+            for label, launches in out.items()}
 
 
-def phase_train_reduced(name: str = "llama3-8b", steps: int = 2, mb: int = 4):
+def phase_train_reduced(name: str = "llama3-8b", steps: int = 3, mb: int = 4):
     """Reduced llama3-8b in float32 with ``query_embedding``: ``steps``
-    train steps on the card (kernels) and on the CPU (plain versions),
-    fissioned and not, same weights and batches.  Losses and parameters
-    must agree to 1e-4 (float32 sums in another order, about 1e-6 per op)
-    and the card's launches must be ``_train_gates``' counts."""
+    train steps on the card (kernels; compiled, a replay a step from the
+    second) and on the CPU (plain versions), fissioned and not, same
+    weights and batches.  Losses and parameters must agree to 1e-4
+    (float32 sums in another order, about 1e-6 per op) and the card's
+    launches must be ``_train_gates``' counts."""
     import torch
     from repro_torch.models.registry import get_arch
 
@@ -3798,15 +4059,18 @@ def phase_train_reduced(name: str = "llama3-8b", steps: int = 2, mb: int = 4):
     for fission in (False, True):
         card = _train_run(arch, _to(params, "cuda"), fission, steps, mb, 8, 16)
         cpu = _train_run(arch, _clone(params), fission, steps, mb, 8, 16)
-        dloss = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
+        dloss = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
         dparam = max(float((a.cpu() - b).abs().max())
-                     for a, b in zip(_leaves(card[5]), _leaves(cpu[5])))
+                     for a, b in zip(_leaves(card["params"]), _leaves(cpu["params"])))
         log(f"[check] reduced {name} f32 train, fission={fission}, card vs CPU: losses "
-            f"{card[0]} / {cpu[0]}, max difference {dloss!r}; parameters after {steps} "
-            f"steps max difference {dparam!r}; card launches {card[2]}")
+            f"{card['losses']} / {cpu['losses']}, max difference {dloss!r}; parameters "
+            f"after {steps} steps max difference {dparam!r}; card launches "
+            f"{card['launches']}, replays a step {card['replays']}")
         if dloss > 1e-4 or dparam > 1e-4:
             fail(f"reduced {name} train, fission={fission}: card differs from CPU")
-        _train_gates(f"reduced train fission={fission}", card[2], fission, mb,
+        if card["replays"] != [0] + [1] * (steps - 1):
+            fail(f"reduced {name} train: replays a step {card['replays']}")
+        _train_gates(f"reduced train fission={fission}", card["launches"], fission, mb,
                      arch.cfg.n_layers)
     torch.cuda.synchronize()
 
@@ -3833,26 +4097,43 @@ def _train_expect(cfg, mb: int = 1) -> dict:
 
 class _StepLaunches:
     """Wraps ``launch.train``'s ``make_train_step`` so every step's kernel
-    launches are counted from 0 (this script's instrumentation only)."""
+    launches are counted from 0, beside its replays and grad norm; ``take``
+    hands over a run's record with its step's copies in and graph pool
+    (this script's instrumentation only)."""
 
     def __init__(self):
-        self.per_step = []
+        self.per_step, self.replays, self.gnorms, self.step = [], [], [], None
 
     def __call__(self, real):
         from repro_torch.kernels import registry
 
         def make(*args, **kwargs):
             init_state, step = real(*args, **kwargs)
+            self.step = step
 
             def counted(params, state, batch):
                 registry.reset_launches()
+                r0 = step.replays
                 out = step(params, state, batch)
                 self.per_step.append(registry.launch_counts())
+                self.replays.append(step.replays - r0)
+                self.gnorms.append(float(out[2]["grad_norm"]))
                 return out
 
             return init_state, counted
 
         return make
+
+    def take(self) -> dict:
+        """The last wrapped run's launches, replays and grad norms a step,
+        its step's copies in and graph pool bytes; forgets the step."""
+        step, self.step = self.step, None
+        pool = (_pool_bytes({"train": step.cache.pool}) or {}).get("train") \
+            if step.cache is not None and step.cache.pool is not None else None
+        out = dict(launches=self.per_step, replays=self.replays, gnorms=self.gnorms,
+                   copies_in=step.copies_in, pool=pool)
+        self.per_step, self.replays, self.gnorms = [], [], []
+        return out
 
 
 TRAIN_SSM = ["--arch", "mamba2-1.3b", "--batch", "8", "--seq", "2048", "--moments", "int8",
@@ -3872,22 +4153,31 @@ def _overlap_report(label, out, tokens: int) -> None:
 def phase_train_ssm(smi):
     """Phase 8b, ``train-ssm``: the training launcher at full width,
     ``repro_torch.launch.train`` in this process on mamba2-1.3b (48
-    layers, bf16, seed 0, remat) at 8 x 2048 with int8 moments:
-    ``--steps 4 --ckpt-every 2`` into a directory under ``build/``, then
-    ``--steps 6``, which restores step 4 and takes two more.  Gates:
-    finite losses; each step's launches exactly ``_train_expect``'s; the
-    checkpoint of step 4 read back equal, bit for bit, to the parameters
-    and int8 state the first run ended with.  Logs tokens/s, step walls,
-    peak memory, bytes written, how long each ``save()`` blocked the loop
-    against how long its write took on the runtime's thread, and which
-    steps overlapped a write.  Fails before writing if the disk holds
-    less than two checkpoints and a gigabyte; removes the directory at
-    the end."""
+    layers, bf16, seed 0, remat) at 8 x 2048 with int8 moments, its step
+    compiled (``donate=False``: one CUDA graph in place on the step's own
+    parameters and moments, recorded at the first step, which each call
+    copies the tensors passed in into and copies out of): ``--steps 4
+    --ckpt-every 2`` into a directory under ``build/``,
+    then ``--steps 6``, which restores step 4 and takes two more.  Their
+    ``eager()`` twins: ``--steps 4`` without checkpoints, and ``--steps
+    6`` from the same checkpoint of step 4 (run before the compiled
+    resume; its own checkpoint of step 6 removed after it).  Gates: each
+    step's launches exactly ``_train_expect``'s; ``_against_eager`` for
+    both runs; a copy in every step; the checkpoint of step
+    4 read back equal, bit for bit, to the parameters and int8 state the
+    first run ended with.  Logs tokens/s, step walls, one more step of
+    each compiled run under the profiler, memory, the graph
+    pool, bytes written, how long each ``save()`` blocked the loop against
+    how long its write took on the runtime's thread, and which steps
+    overlapped a write.  Fails before writing if the disk holds less than
+    two checkpoints and a gigabyte; removes the directory at the end."""
     import shutil
 
     import torch
+    from repro_torch.data.pipeline import SyntheticLMStream
     from repro_torch.launch import train as train_mod
     from repro_torch.models.registry import get_arch
+    from repro_torch.serving import graphs
 
     arch = get_arch("mamba2-1.3b")
     want = _train_expect(arch.cfg)
@@ -3902,43 +4192,85 @@ def phase_train_ssm(smi):
     if free < 2 * one + 2**30:
         fail(f"train-ssm: {free} bytes free under {ckpt}, two checkpoints need {2 * one:.0f}")
     counter = _StepLaunches()
-    totals = {}
-    try:
-        runs = []
-        for steps in (4, 6):
-            argv = TRAIN_SSM + ["--steps", str(steps), "--ckpt-every", "2",
-                                "--ckpt-dir", str(ckpt)]
-            log(f"[train-ssm] python -m repro_torch.launch.train {' '.join(argv)}")
-            torch.cuda.reset_peak_memory_stats()
-            with mock.patch.object(train_mod, "make_train_step",
-                                   counter(train_mod.make_train_step)):
-                out = train_mod.main(argv)
-            peak = torch.cuda.max_memory_allocated()
-            log(f"[train-ssm] on {smi}: run to step {steps}: peak device memory "
-                f"{peak / 2**30!r} GiB")
-            _overlap_report("train-ssm", out, 8 * 2048)
+
+    def launch(steps: int, eager: bool, with_ckpt: bool, profile: bool = True) -> dict:
+        argv = TRAIN_SSM + ["--steps", str(steps)]
+        if with_ckpt:
+            argv += ["--ckpt-every", "2", "--ckpt-dir", str(ckpt)]
+        log(f"[train-ssm] python -m repro_torch.launch.train {' '.join(argv)}"
+            f"{' under graphs.eager()' if eager else ''}")
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(train_mod, "make_train_step",
+                               counter(train_mod.make_train_step)), \
+                (graphs.eager() if eager else contextlib.nullcontext()):
+            out = train_mod.main(argv)
+            step, record = counter.step, counter.take()
+            if profile:  # one more step of the run's own step, outside its counts
+                batch = SyntheticLMStream(arch.cfg.vocab_size, seq_len=2048,
+                                          batch=8).batch_at(steps)
+                _window(f"train-ssm: one more step ({'eager()' if eager else 'graph replay'}"
+                        f", a copy in and out)", lambda: step(out["params"], out["state"],
+                                                             batch), 1)
+            del step
+        out.update(record, peak=torch.cuda.max_memory_allocated(),
+                   reserved=torch.cuda.max_memory_reserved())
+        tag = "train-ssm" + ("-eager" if eager else "")
+        if with_ckpt:
+            _overlap_report(tag, out, 8 * 2048)
+        out["walls"] = [t1 - t0 for t0, t1 in out["walls"]]
+        log(f"[{tag}] on {smi}: run to step {steps}: losses {out['losses']}, grad norms "
+            f"{out['gnorms']}, step walls {out['walls']} s, replays a step {out['replays']}, "
+            f"copies in {out['copies_in']}; peak device memory allocated {out['peak']} bytes "
+            f"({out['peak'] / 2**30!r} GiB), reserved {out['reserved']} bytes "
+            f"({out['reserved'] / 2**30!r} GiB); train graph pool {out['pool']} bytes")
+        if not all(np.isfinite(out["losses"])):
+            fail(f"{tag}: a loss is not finite: {out['losses']}")
+        for i, got in enumerate(out["launches"]):
+            _expect(f"{tag} step {out['start'] + i + 1}", got, want)
+        if with_ckpt:
             for step, blocked in out["saves"]:
                 w = next(w for w in out["writes"] if w["step"] == step)
-                log(f"[train-ssm] checkpoint of step {step}: save() blocked the loop "
+                log(f"[{tag}] checkpoint of step {step}: save() blocked the loop "
                     f"{blocked!r} s; the write took {w['end'] - w['start']!r} s on the "
                     f"runtime's thread, {w['bytes']} bytes")
-            if not all(np.isfinite(out["losses"])):
-                fail(f"train-ssm: a loss is not finite: {out['losses']}")
-            runs.append(out)
-            if steps == 4:
-                _check_readback(ckpt, out)
-                shutil.rmtree(ckpt / "step_0000000002")  # two checkpoints on disk at most
-            del out["params"], out["state"]
-            gc.collect()
-            torch.cuda.empty_cache()
-        if runs[1]["start"] != 4 or len(runs[1]["losses"]) != 2:
-            fail(f"train-ssm: the second run started at {runs[1]['start']} and took "
-                 f"{len(runs[1]['losses'])} steps; expected a restore of step 4 and 2 steps")
-        for i, got in enumerate(counter.per_step):
-            _expect(f"train-ssm step {i + 1}", got, want)
-        totals = {k: sum(c[k] for c in counter.per_step) for k in counter.per_step[0]}
-        log(f"[train-ssm] launches per step {counter.per_step[0]} (expected {want}); "
-            f"losses {runs[0]['losses'] + runs[1]['losses']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    totals = {}
+    try:
+        first = launch(4, False, True)
+        _check_readback(ckpt, first)
+        del first["state"]
+        shutil.rmtree(ckpt / "step_0000000002")  # two checkpoints on disk at most
+        twin2 = launch(6, True, True, profile=False)
+        del twin2["state"]
+        shutil.rmtree(ckpt / "step_0000000006")  # the compiled resume restores step 4
+        (ckpt / "LATEST").unlink()
+        second = launch(6, False, True)
+        del second["state"]
+        if any(r["start"] != 4 or len(r["losses"]) != 2 for r in (second, twin2)):
+            fail(f"train-ssm: the second runs started at {second['start']} / "
+                 f"{twin2['start']} and took {len(second['losses'])} / "
+                 f"{len(twin2['losses'])} steps; expected a restore of step 4 and 2 steps")
+        def resume_again():  # the same restore of step 4 under eager()
+            shutil.rmtree(ckpt / "step_0000000006")
+            (ckpt / "LATEST").unlink()
+            return launch(6, True, True, profile=False)
+
+        _against_eager("train-ssm resumed", second, twin2, resume_again)
+        del second["params"], twin2["params"]
+        twin1 = launch(4, True, False, profile=False)
+        del twin1["state"]
+        _against_eager("train-ssm", first, twin1,
+                       functools.partial(launch, 4, True, False, profile=False))
+        if first["copies_in"] != 4 or second["copies_in"] != 2:
+            fail("train-ssm: a compiled run without donation did not copy in every step")
+        runs = (first, second)
+        totals = {k: sum(c[k] for r in runs for c in r["launches"])
+                  for k in first["launches"][0]}
+        log(f"[train-ssm] launches per step {first['launches'][0]} (expected {want}); "
+            f"losses {first['losses'] + second['losses']}")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.synchronize()
@@ -3964,34 +4296,43 @@ def _check_readback(ckpt, out) -> None:
         fail(f"train-ssm: the checkpoint of step {step} differs from what was saved: {bad[:5]}")
 
 
-def phase_train_hybrid(smi, steps: int = 2, batch: int = 8, seq: int = 2048):
+def phase_train_hybrid(smi, steps: int = 3, batch: int = 8, seq: int = 2048):
     """Phase 8c, ``train-hybrid``: hymba-1.5b at full width (32 hybrid
-    layers, bf16, seed 0, remat), ``steps`` train steps of ``batch`` x
-    ``seq`` tokens through ``make_train_step``: the banded flash kernel
-    and ``ssd_scan`` forward, ``ssd_scan_bwd`` in the backward.  Gates:
-    finite losses and each step's launches exactly ``_train_expect``'s.
-    Logs the step wall and the peak memory (the flash op's backward builds
-    the plain version's (8, 25, 2048, 2048) float32 scores, a layer at a
-    time)."""
+    layers, bf16, seed 0, remat), ``steps`` compiled train steps of
+    ``batch`` x ``seq`` tokens through ``make_train_step`` and one more
+    under the profiler, then the same under ``graphs.eager()``: the banded
+    flash kernel and ``ssd_scan`` forward, ``ssd_scan_bwd`` in the
+    backward.  Gates: each step's launches exactly ``_train_expect``'s and
+    ``_against_eager``.  Logs the step walls and the memory (the flash
+    op's backward builds the plain version's (8, 25, 2048, 2048) float32
+    scores, a layer at a time)."""
     import torch
     from repro_torch.models.registry import get_arch
 
     arch = get_arch("hymba-1.5b")
     want = _train_expect(arch.cfg)
-    losses, walls, launches, _traces, peak, params, _calls = _train_run(
-        arch, arch.init(seed=0, device="cuda"), False, steps, 1, batch, seq)
-    del params
+    pair = {}
+
+    def run(eager: bool) -> dict:
+        r = _train_run(arch, arch.init(seed=0, device="cuda"), False, steps, 1, batch, seq,
+                       profile=True, eager=eager)
+        del r["state"], r["step"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r
+
+    for eager in (False, True):
+        label = "train-hybrid" + ("-eager" if eager else "")
+        r = run(eager)
+        _train_log(label, smi, r, batch * seq)
+        for i, got in enumerate(r["launches"]):
+            _expect(f"{label} step {i}", got, want)
+        pair[eager] = r
+    _against_eager("train-hybrid", pair[False], pair[True], functools.partial(run, True))
+    launches = pair[False]["launches"]
+    del pair
     gc.collect()
     torch.cuda.empty_cache()
-    for i in range(steps):
-        log(f"[train-hybrid] on {smi}: step {i}: loss {losses[i]!r}, wall {walls[i]!r} s, "
-            f"{batch * seq / walls[i]!r} tokens/s, launches {launches[i]}")
-    log(f"[train-hybrid] peak device memory {peak / 2**30!r} GiB")
-    if not all(np.isfinite(losses)):
-        fail(f"train-hybrid: a loss is not finite: {losses}")
-    for i, got in enumerate(launches):
-        _expect(f"train-hybrid step {i}", got, want)
-    torch.cuda.synchronize()
     return {"train-hybrid": {k: sum(c[k] for c in launches) for k in launches[0]}}
 
 
@@ -4019,32 +4360,24 @@ def _train_batch(cfg, seed: int, b: int = 4, s: int = 24) -> dict:
 
 
 def _family_steps(arch, params, steps: int, moments: str = "float32", start: int = 0,
-                  state=None):
+                  state=None, step=None, eager: bool = False, profile: bool = False):
     """``steps`` donating train steps of ``arch`` from ``params`` on their
-    device, batches ``_train_batch(cfg, start + i)`` → (losses, per-step
-    launches, params, state)."""
-    from repro_torch.kernels import registry
-    from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.step import TrainStepConfig, make_train_step
-
-    init_state, step = make_train_step(arch, AdamWConfig(lr=1e-3, moments_dtype=moments),
-                                       TrainStepConfig())
-    state = init_state(params) if state is None else state
-    losses, launches = [], []
-    for i in range(steps):
-        registry.reset_launches()
-        params, state, m = step(params, state, _train_batch(arch.cfg, start + i))
-        losses.append(float(m["loss"]))
-        launches.append(registry.launch_counts())
-    return losses, launches, params, state
+    device (``_train_run``, one microbatch), batches ``_train_batch(cfg,
+    start + i)``; ``step`` and ``state`` carry a step across calls."""
+    batches = [_train_batch(arch.cfg, start + i) for i in range(steps + int(profile))]
+    return _train_run(arch, params, False, steps, 1, 0, 0, profile=profile, eager=eager,
+                      batches=batches, moments=moments, step=step, state=state)
 
 
-def phase_train_families(names=TRAIN_FAMILIES, steps: int = 2):
-    """Reduced, float32: ``steps`` train steps of each family on the card
-    (kernels) and on the CPU (plain versions) from the same weights and
-    batches: losses and parameters within 1e-4 (float32 sums in another
-    order, about 1e-6 an op; the embedding and MoE gradients sum with
-    atomics on the card), the card's launches ``_train_expect``'s."""
+def phase_train_families(names=TRAIN_FAMILIES, steps: int = 3):
+    """Reduced, float32: ``steps`` train steps of each family on the card,
+    compiled (kernels; one more replay under the profiler) and under
+    ``graphs.eager()``, and on the CPU (plain versions) from the same
+    weights and batches: the compiled run against its ``eager()`` twin
+    (``_against_eager``), and against the CPU's losses and parameters
+    within 1e-4 (float32 sums in another order, about 1e-6 an op; the
+    embedding and MoE gradients sum with atomics on the card), the card's
+    launches ``_train_expect``'s."""
     import torch
     from repro_torch.models.registry import get_arch
 
@@ -4052,54 +4385,74 @@ def phase_train_families(names=TRAIN_FAMILIES, steps: int = 2):
         arch = get_arch(name)
         arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
         params = arch.init(seed=0, device="cpu")
-        card = _family_steps(arch, _to(params, "cuda"), steps)
-        cpu = _family_steps(arch, _clone(params), steps)
-        dloss = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
+        card = _family_steps(arch, _to(params, "cuda"), steps, profile=True)
+        twin = _family_steps(arch, _to(params, "cuda"), steps, eager=True, profile=True)
+        cpu = _family_steps(arch, _clone(params), steps + 1)
+        _train_log(f"train {name} reduced", "the card", card, 4 * 24)
+        _against_eager(f"train {name} reduced", card, twin,
+                       lambda: _family_steps(arch, _to(params, "cuda"), steps, eager=True,
+                                             profile=True))
+        dloss = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
         dparam = max(float((a.cpu() - b).abs().max())
-                     for a, b in zip(_leaves(card[2]), _leaves(cpu[2])))
-        log(f"[check] reduced {name} f32 train, card vs CPU: losses {card[0]} / {cpu[0]}, "
-            f"max difference {dloss!r}; parameters after {steps} steps max difference "
-            f"{dparam!r}; card launches {card[1]}")
+                     for a, b in zip(_leaves(card["params"]), _leaves(cpu["params"])))
+        log(f"[check] reduced {name} f32 train, card vs CPU: losses {card['losses']} / "
+            f"{cpu['losses'][:steps]}, max difference {dloss!r}; parameters after "
+            f"{steps + 1} steps max difference {dparam!r}; card launches {card['launches']}")
         if dloss > 1e-4 or dparam > 1e-4:
             fail(f"reduced {name} train: card differs from CPU")
-        for i, got in enumerate(card[1]):
+        for i, got in enumerate(card["launches"]):
             _expect(f"reduced {name} train step {i}", got, _train_expect(arch.cfg))
+        del card, twin, cpu
+        gc.collect()
     torch.cuda.synchronize()
 
 
 def phase_train_restart(name: str = "mamba2-1.3b", steps: int = 4, at: int = 2):
     """The restart on the card: reduced ``name`` (float32, int8 moments)
-    trained ``steps`` steps with an asynchronous checkpoint after step
-    ``at``, then restored from it into fresh tensors and continued.  The
-    first resumed step's loss equals the uninterrupted run's bit for bit
-    (the same parameters and batch through a deterministic forward); later
-    steps within 1e-5 relative, since the embedding gradient's
-    scatter-add uses atomics, so parameters after a step may differ in
-    their last bits between runs."""
+    trained ``steps`` compiled steps with an asynchronous checkpoint after
+    step ``at`` (its snapshot taken before the next replay writes the
+    parameters in place), then restored from it into fresh tensors and
+    continued through the same step, which copies them in (one copy in)
+    and replays.  The first resumed step's loss equals the uninterrupted
+    run's bit for bit (the same parameters and batch through a
+    deterministic forward); later steps within 1e-5 relative, since the
+    embedding gradient's scatter-add uses atomics, so parameters after a
+    step may differ in their last bits between runs."""
     import tempfile
 
     import torch
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.models.registry import get_arch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
 
     arch = get_arch(name)
     arch = dataclasses.replace(arch, cfg=arch.cfg.reduced())
+    init_state, step = make_train_step(arch, AdamWConfig(lr=1e-3, moments_dtype="int8"),
+                                       TrainStepConfig())
+    params = arch.init(seed=0, device="cuda")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         with CheckpointManager(d) as mgr:
-            head = _family_steps(arch, arch.init(seed=0, device="cuda"), at, "int8")
-            mgr.save(at, head[2], head[3])
-            tail = _family_steps(arch, head[2], steps - at, "int8", at, head[3])
+            head = _family_steps(arch, params, at, "int8", step=step, state=init_state(params))
+            mgr.save(at, head["params"], head["state"])
+            tail = _family_steps(arch, head["params"], steps - at, "int8", at, head["state"],
+                                 step=step)
             mgr.wait()
             fresh = arch.init(seed=1, device="cuda")
-            _s, p, st = mgr.restore_latest(fresh, _family_steps(arch, fresh, 0, "int8")[3])
-        resumed = _family_steps(arch, p, steps - at, "int8", at, st)
+            _s, p, st = mgr.restore_latest(fresh, init_state(fresh))
+        resumed = _family_steps(arch, p, steps - at, "int8", at, st, step=step)
     log(f"[check] reduced {name} restart on the card: uninterrupted losses "
-        f"{head[0] + tail[0]}, resumed from step {at}: {resumed[0]}")
-    if resumed[0][0] != tail[0][0]:
-        fail(f"restart: the first resumed step's loss {resumed[0][0]!r} differs from the "
-             f"uninterrupted run's {tail[0][0]!r}")
-    if any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(resumed[0], tail[0])):
+        f"{head['losses'] + tail['losses']}, resumed from step {at} into fresh tensors "
+        f"through the same compiled step: {resumed['losses']}; replays a step "
+        f"{head['replays'] + tail['replays']} / {resumed['replays']}; copies in "
+        f"{resumed['copies_in']}")
+    if resumed["losses"][0] != tail["losses"][0]:
+        fail(f"restart: the first resumed step's loss {resumed['losses'][0]!r} differs from "
+             f"the uninterrupted run's {tail['losses'][0]!r}")
+    if any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(resumed["losses"], tail["losses"])):
         fail("restart: a resumed loss differs beyond 1e-5 relative")
+    if resumed["copies_in"] != 1 or resumed["replays"] != [1] * (steps - at):
+        fail("restart: the restored tensors were not copied in once and replayed")
     torch.cuda.synchronize()
 
 
@@ -4156,6 +4509,7 @@ SHARD_TRAIN = dict(steps=2, batch=8, seq=512)
 SHARD_FISSION_MB = 2
 # 11f: decode on the mesh, 8 lanes of 256-token prompts, caches of 512 rows
 SHARD_DECODE = dict(lanes=8, prompt=256, max_len=512, steps=16)
+SHARD_DECODE_LAYERS = 2  # 11f: llama3-8b at full width, 2 of its 32 layers
 MOE_EP_LAYERS = 4  # 11b: deepseek-moe-16b's dense block and 3 MoE blocks
 MOE_EP_BATCH = (8, 256)
 
@@ -4177,6 +4531,14 @@ def _sharded_train_arch(reduced: bool = False):
     if reduced:
         return _reduced_cut("llama3-8b", **kw)
     return _cut("llama3-8b", n_layers=TRAIN_LAYERS, **kw)
+
+
+def _sharded_decode_arch(reduced: bool = False):
+    """11f's model: 11a's at ``SHARD_DECODE_LAYERS`` layers (the decode on
+    gloo takes the most of phase 11's wall)."""
+    if reduced:
+        return _sharded_train_arch(reduced)
+    return _cut("llama3-8b", n_layers=SHARD_DECODE_LAYERS, query_embedding=True, remat=False)
 
 
 def _moe_ep_arch(reduced: bool = False):
@@ -4264,12 +4626,16 @@ def _collective_probe(mesh, device: str) -> dict:
     return out
 
 
-def _rank_11a(mesh, device: str, reduced: bool, mb: int = 1) -> dict:
+def _rank_11a(mesh, device: str, reduced: bool, mb: int = 1, retrace: bool = False) -> dict:
     """11a on one rank: llama3-8b at full width cut to 4 layers, its
     parameters placed by ``param_shardings``, ``SHARD_TRAIN["steps"]``
     sharded steps; the last under ``OpCost``.  With ``mb`` > 1 (11e) the
-    batch is split into ``mb`` microbatches and the loop fissioned."""
+    batch is split into ``mb`` microbatches and the loop fissioned: its
+    plan is traced once and kept, or with ``retrace`` (one step, no
+    ``OpCost``) traced again (the plans cleared).  Counts ``trace_body``
+    calls a step."""
     import torch
+    from repro_torch.core import fission as fission_mod
     from repro_torch.data.pipeline import SyntheticLMStream
     from repro_torch.distributed.sharding import distribute_params
     from repro_torch.kernels import registry
@@ -4286,25 +4652,37 @@ def _rank_11a(mesh, device: str, reduced: bool, mb: int = 1) -> dict:
     state = init(params)
     stream = SyntheticLMStream(arch.cfg.vocab_size, seq_len=t["seq"], batch=t["batch"], seed=0)
     out = dict(wq_local=tuple(params["layers"]["attn"]["wq"].to_local().shape),
-               losses=[], walls=[], launches=[], peaks=[])
+               losses=[], walls=[], launches=[], peaks=[], traces=[])
     oc = None
-    for i in range(t["steps"]):
-        counted = i == t["steps"] - 1
+    traced, real_trace = [], fission_mod.trace_body
+
+    def counted_trace(*args, **kwargs):  # this script's instrumentation only
+        traced.append(1)
+        return real_trace(*args, **kwargs)
+
+    n = 1 if retrace else t["steps"]
+    for i in range(n):
+        counted = not retrace and i == n - 1
         oc = OpCost(mesh) if counted else None
         _reset_peak(device)
         registry.reset_launches()
+        if retrace:
+            step.plans.clear()
+        n0 = len(traced)
         t0 = time.perf_counter()
-        with oc if counted else contextlib.nullcontext():
+        with oc if counted else contextlib.nullcontext(), \
+                mock.patch.object(fission_mod, "trace_body", counted_trace):
             params, state, m = step(params, state, stream.batch_at(i))
         out["losses"].append(float(m["loss"]))
         _sync(device)
         out["walls"].append(time.perf_counter() - t0)
         out["launches"].append(registry.launch_counts())
         out["peaks"].append(_peak(device))
+        out["traces"].append(len(traced) - n0)
     out["wq0"] = params["layers"]["attn"]["wq"].full_tensor()[0].float().cpu().numpy()
-    out["flops"] = oc.flops
-    out["collectives"] = oc.collectives_row()
-    out["by_axis"] = oc.by_axis_row()
+    if oc is not None:
+        out.update(flops=oc.flops, collectives=oc.collectives_row(),
+                   by_axis=oc.by_axis_row())
     del params, state
     _free(device)
     return out
@@ -4452,7 +4830,7 @@ def _rank_11f(mesh, device: str, reduced: bool, case) -> dict:
     from repro_torch.launch.op_cost import OpCost
 
     cache0, tokens, lengths = case
-    arch = _sharded_train_arch(reduced)
+    arch = _sharded_decode_arch(reduced)
     params = distribute_params(mesh, arch.init(seed=0, device=device))
     _free(device)
     out = {}
@@ -4511,13 +4889,15 @@ def _rank_phase11(rank, world, device, reduced, tokens, routes, reduced_cases,
                      ("11b", lambda: _rank_11b(mesh, device, reduced, tokens, routes)),
                      ("11d", lambda: _rank_11d(mesh, device, reduced_cases)),
                      ("11e", lambda: _rank_11a(mesh, device, reduced, SHARD_FISSION_MB)),
+                     ("11e-retrace", lambda: _rank_11a(mesh, device, reduced, SHARD_FISSION_MB,
+                                                       retrace=True)),
                      ("11f", lambda: _rank_11f(mesh, device, reduced, decode_case))):
         t0 = time.perf_counter()
         out[name] = fn()
         if rank == 0:
             log(f"[sharded] rank 0: {name} done in {time.perf_counter() - t0!r} s")
     if rank:
-        out["11a"]["wq0"] = out["11e"]["wq0"] = None
+        out["11a"]["wq0"] = out["11e"]["wq0"] = out["11e-retrace"]["wq0"] = None
         out["11b"]["logits"] = None
         out["11d"] = {k: None if k.endswith("/decode") else (v[0], None)
                       for k, v in out["11d"].items()}
@@ -4620,7 +5000,7 @@ def _train_reference(smi, device: str = "cuda", reduced: bool = False, mb: int =
         params, state, m = step(params, state, stream.batch_at(i))
         losses.append(float(m["loss"]))
     wq_after = params["layers"]["attn"]["wq"][0].float().cpu()
-    del params, state, m
+    del params, state, m, step, init
     _free(device)
     log(f"[sharded-train] unsharded reference on {smi}, {mb} microbatch(es): losses {losses}")
     return losses, wq_init, wq_after
@@ -4635,7 +5015,7 @@ def _decode_reference(smi, device: str = "cuda", reduced: bool = False):
     host)."""
     import torch
     d = SHARD_DECODE
-    arch = _sharded_train_arch(reduced)
+    arch = _sharded_decode_arch(reduced)
     params = arch.init(seed=0, device=device)
     prompts = np.random.default_rng(13).integers(
         0, arch.cfg.vocab_size, size=(d["lanes"], d["prompt"])).astype(np.int64)
@@ -4744,7 +5124,7 @@ def _gate_11f(smi, res, twin_logits, twin_rows, reduced: bool = False) -> dict:
     partial sums round apart from the twin's as they do the logits).  A
     row written into a copy instead would miss by its whole size."""
     import torch
-    cfg = _sharded_train_arch(reduced).cfg
+    cfg = _sharded_decode_arch(reduced).cfg
     steps = SHARD_DECODE["steps"]
     want = {"flash_attention": 0, "batched_gather": steps, "paged_decode_attention": 0,
             "decode_attention": cfg.n_layers * steps, "ssd_scan": 0, "ssd_scan_bwd": 0}
@@ -4920,9 +5300,31 @@ def phase_sharded(smi, device: str = "cuda", reduced: bool = False) -> dict:
              "sharded-fission": _gate_11a(smi, res, fission_ref, reduced, "11e",
                                           SHARD_FISSION_MB),
              "sharded-decode": _gate_11f(smi, res, twin_logits, twin_rows, reduced)}
+    _gate_11e_traces(res)
     _gate_11d(res, refs)
     _phase_11c(smi, res, reduced)
     return paths
+
+
+def _gate_11e_traces(res) -> None:
+    """11e's plan kept across steps: on every rank ``trace_body`` runs in
+    the first step only, as much as a run that traces afresh (its plans
+    cleared) does; the first loss equals that run's bit for bit (later
+    ones are held to the unsharded twin by ``_gate_11a``)."""
+    for r, out in enumerate(res):
+        kept, again = out["11e"], out["11e-retrace"]
+        log(f"[sharded-fission] rank {r}: trace_body calls a step {kept['traces']} "
+            f"({sum(kept['traces'])} over {len(kept['traces'])} steps), a run tracing afresh "
+            f"{again['traces']}; first loss {kept['losses'][0]!r} / {again['losses'][0]!r}, "
+            f"{'equal' if kept['losses'][0] == again['losses'][0] else 'DIFFERENT'}; first "
+            f"step walls {kept['walls'][0]!r} / {again['walls'][0]!r} s, later "
+            f"{kept['walls'][1:]} s")
+        first = kept["traces"][0]
+        if first < 1 or any(kept["traces"][1:]) or again["traces"] != [first]:
+            fail(f"sharded-fission: rank {r} traced {kept['traces']} a step (afresh "
+                 f"{again['traces']})")
+        if kept["losses"][0] != again["losses"][0]:
+            fail(f"sharded-fission: rank {r}'s kept plan gives another first loss")
 
 
 def _sync(device) -> None:
@@ -4941,8 +5343,16 @@ def _clone(tree):
 
 
 # -------------------------------------------------------------------- main
+_T_START = [0.0]
+
+
+def _elapsed(label: str) -> None:
+    """Log the script's wall so far at a phase's end (where its time goes)."""
+    log(f"[time] {label} done at {time.perf_counter() - _T_START[0]!r} s")
+
+
 def main() -> None:
-    t_start = time.perf_counter()
+    t_start = _T_START[0] = time.perf_counter()
     smi, kind = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -4952,6 +5362,7 @@ def main() -> None:
     timer = Timer()
     log(f"[kernels] on {smi}")
     rows = phase_kernels(timer)
+    _elapsed("kernels")
     del timer
     torch.cuda.empty_cache()
 
@@ -4963,11 +5374,12 @@ def main() -> None:
     log(f"[main] llama3-8b full width: {arch.cfg.n_layers} layers, d_model "
         f"{arch.cfg.d_model}, {n_params} parameters in bf16, drawn from seed 0 "
         f"in {time.perf_counter() - t0!r} s")
-    paths = {"main": phase_main_path(arch, params)}
-    paths["async"], async_wall = phase_async(arch, params)
+    _warm(arch, params)
+    paths = {"main": phase_main_path(arch, params, drives=1 + WARM_DRIVES)}
+    paths["async"], async_wall = phase_async(arch, params, drives=1 + WARM_DRIVES)
     paths["dense"] = phase_dense(arch, params)
     log(f"[prefix] on {smi}")
-    paths.update(phase_prefix(arch, params))
+    paths.update(phase_prefix(arch, params, drives=1 + WARM_DRIVES))
     log(f"[spill] on {smi}")
     paths.update(phase_spill(arch, params))
     log(f"[app-traces] on {smi}")
@@ -4976,14 +5388,17 @@ def main() -> None:
     paths["model-service"] = phase_model_service(arch, params)
     log(f"[chaos] on {smi}")
     paths.update(phase_chaos(arch, params))
+    _elapsed("llama3-8b paths")
     log(f"[graphs] on {smi}")
     phase_graph_twins(arch, params)
+    _elapsed("4s graphs")
     phase_logits_check(arch, params)
     log(f"[check] on {smi}")
     phase_prefix_check(arch, params)
     phase_profile(arch, params)
     phase_build_memory(arch, params)
     phase_prefill_memory(arch, params)
+    _elapsed("profile and memory")
     del params
     gc.collect()  # engines and their threads can hold the weights in cycles
     torch.cuda.empty_cache()
@@ -5005,6 +5420,7 @@ def main() -> None:
     phase_ssm_logits_check(arch, params)
     log(f"[profile] on {smi}")
     phase_ssm_profile(arch, params)
+    _elapsed("mamba2")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5020,11 +5436,13 @@ def main() -> None:
     phase_logits_check(arch, params)
     log(f"[profile] on {smi}")
     phase_moe_profile(arch, params)
+    _elapsed("deepseek-moe-16b")
     del arch, params
     gc.collect()
     torch.cuda.empty_cache()
     paths["configs"] = phase_configs(smi)
     paths["launcher"] = phase_launcher(smi)
+    _elapsed("configs and launcher")
 
     from repro_torch.serving.engine import InferenceEngine
     arch, params = _init_full("hymba-1.5b", smi)
@@ -5037,6 +5455,7 @@ def main() -> None:
     paths["hymba-chunked"], _w = phase_hymba_chunked(arch, params)
     log(f"[check] on {smi}")
     phase_hymba_check(arch, params)
+    _elapsed("hymba")
     del arch, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5052,14 +5471,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     arch, params = _init_full("seamless-m4t-medium", smi)
     paths["encdec"], _w = phase_encdec(arch, params)
+    _elapsed("vlm and encdec")
     del arch, params
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(phase_train(smi))
+    _elapsed("8 train")
     log(f"[train-ssm] on {smi}")
     paths.update(phase_train_ssm(smi))
+    _elapsed("8b train-ssm")
     log(f"[train-hybrid] on {smi}")
     paths.update(phase_train_hybrid(smi))
+    _elapsed("8c train-hybrid")
     phase_reduced_check()
     phase_reduced_bridge()
     phase_reduced_check("mamba2-1.3b", ("dense", "dense-async", "paged-ssm"))
@@ -5067,14 +5490,18 @@ def main() -> None:
         phase_reduced_check(config, ("paged", "dense", "async", "paged-prefix", "paged-spill"))
     phase_reduced_check("hymba-1.5b", ("dense", "dense-async", "paged-ssm"))
     phase_reduced_steps()
+    _elapsed("7 reduced checks")
     log(f"[check] on {smi}")
     phase_train_reduced()
     phase_train_families()
     phase_train_restart()
+    _elapsed("9 train checks")
     log(f"[fission] on {smi}")
     phase_fission()
+    _elapsed("10 fission")
     log(f"[sharded] on {smi}")
     paths.update(phase_sharded(smi))
+    _elapsed("11 sharded")
 
     # Launches on the serving paths and the training runs (llama3-8b's two,
     # train-ssm's six steps, train-hybrid's two, phase 11's sharded runs

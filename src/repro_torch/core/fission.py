@@ -70,13 +70,15 @@ functional collectives (``_c10d_functional.all_gather_into_tensor``,
 ``all_reduce``, ``reduce_scatter_tensor``, ``wait_tensor``), which are pure
 to the DDG: they write nothing and have no effect.  Every rank traces the
 same graph and runs the same producer, batched query and consumer, so the
-collectives keep one order on all ranks.  The closed-over parameters'
-local shards enter as constants, and their FSDP gathers are loop
-invariant, recomputed on each side that reads them.  A carry whose body
-changes its placement (a replicated accumulator plus a partial-sum
-gradient is a partial sum) is traced again under the placement it comes
-out with, and ``init`` is redistributed to it; the results come back as
-DTensors under the placements the trace recorded.
+collectives keep one order on all ranks.  The parameters (``consts``)
+enter as their local shards, inputs of the graph as on one device, and
+their FSDP gathers are loop invariant, recomputed on each side that reads
+them.  The rank's plan is kept in ``plans`` under its local signature
+and the leaves' placements, so a rank traces once per batch shape.  A
+carry whose body changes its placement (a replicated accumulator plus a
+partial-sum gradient is a partial sum) is traced again under the
+placement it comes out with, and ``init`` is redistributed to it; the
+results come back as DTensors under the placements the trace recorded.
 """
 from __future__ import annotations
 
@@ -305,9 +307,9 @@ def fission_scan(
     if _depth > 8:
         raise RecursionError("fission_scan: too many chained queries")
     bound = f if consts is None else (lambda carry, x: f(carry, x, consts))
-    if any(isinstance(t, DTensor) for t in pytree.tree_leaves((init, xs, consts))):
-        return _fission_sharded(bound, init, xs, length, report)
     plans = {} if plans is None else plans
+    if any(isinstance(t, DTensor) for t in pytree.tree_leaves((init, xs, consts))):
+        return _fission_sharded(f, init, xs, consts, length, report, plans)
     key = (_signature(init), _signature(xs), _signature(consts), length)
     if key not in plans:
         tr = _traced if _traced is not None else trace_body(f, init, xs, consts)
@@ -592,47 +594,81 @@ def _strided_offsets_untraced():
         cls.local_shard_size_and_offset = orig
 
 
-def _fission_sharded(f: Callable, init, xs, length, report):
+@dataclasses.dataclass
+class _ShardedPlan:
+    """What :func:`_fission_sharded` keeps of one signature: the carry's
+    settled placements, the placements and structure the trace recorded
+    for the results, and the plans of the rank's local program."""
+
+    carry_pl: list
+    seen: dict
+    sub: dict
+
+
+def _fission_sharded(f: Callable, init, xs, consts, length, report, plans: dict):
     """:func:`fission_scan` over DTensor leaves: Rule A on each rank's own
-    traced program (module docstring)."""
+    traced program (module docstring), its plan kept in ``plans`` under
+    the rank's local signature and the placements, so each rank traces
+    once per batch shape."""
     flat_init, carry_tree = pytree.tree_flatten(init)
     flat_xs, xs_tree = pytree.tree_flatten(xs)
-    mesh = next(t for t in flat_init + flat_xs if isinstance(t, DTensor)).device_mesh
-    carry_pl = [_placements(t, mesh) for t in flat_init]
+    flat_c, c_tree = ([], None) if consts is None else pytree.tree_flatten(consts)
+    mesh = next(t for t in flat_init + flat_xs + flat_c if isinstance(t, DTensor)).device_mesh
+    carry_pl0 = [_placements(t, mesh) for t in flat_init]
     x_pl = [_shift(_placements(t, mesh), -1) for t in flat_xs]
-    seen: dict = {}
+    c_pl = [_placements(t, mesh) if isinstance(t, DTensor) else None for t in flat_c]
+    local_xs = pytree.tree_unflatten([_local(t) for t in flat_xs], xs_tree)
+    local_c = None if consts is None else pytree.tree_unflatten([_local(t) for t in flat_c],
+                                                                 c_tree)
+    key = ("sharded", mesh, _signature(pytree.tree_unflatten([_local(t) for t in flat_init],
+                                                             carry_tree)),
+           tuple(carry_pl0), _signature(local_xs), tuple(x_pl), _signature(local_c),
+           tuple(c_pl), length)
+    entry = plans.get(key)
+    fresh = entry is None
+    if fresh:
+        entry = _ShardedPlan(carry_pl0, {}, {})
+    seen = entry.seen
 
     def wrap(ts, pls):
-        return [DTensor.from_local(t, mesh, pl, run_check=False) for t, pl in zip(ts, pls)]
+        return [t if pl is None else DTensor.from_local(t, mesh, pl, run_check=False)
+                for t, pl in zip(ts, pls)]
 
-    def local_f(carry, x):
-        c = wrap(pytree.tree_leaves(carry), carry_pl)
-        new_carry, y = f(pytree.tree_unflatten(c, carry_tree),
-                         pytree.tree_unflatten(wrap(pytree.tree_leaves(x), x_pl), xs_tree))
-        flat_c = pytree.tree_leaves(new_carry)
+    def local_f(carry, x, c=None):
+        cw = pytree.tree_unflatten(wrap(pytree.tree_leaves(carry), entry.carry_pl), carry_tree)
+        xw = pytree.tree_unflatten(wrap(pytree.tree_leaves(x), x_pl), xs_tree)
+        if consts is None:
+            new_carry, y = f(cw, xw)
+        else:
+            new_carry, y = f(cw, xw, pytree.tree_unflatten(wrap(pytree.tree_leaves(c), c_pl),
+                                                           c_tree))
+        out_c = pytree.tree_leaves(new_carry)
         flat_y, seen["y_tree"] = pytree.tree_flatten(y)
-        seen["carry"] = [_placements(t, mesh) for t in flat_c]
+        seen["carry"] = [_placements(t, mesh) for t in out_c]
         seen["y"] = [None if t is None else _placements(t, mesh) for t in flat_y]
-        return (pytree.tree_unflatten([_local(t) for t in flat_c], carry_tree),
+        return (pytree.tree_unflatten([_local(t) for t in out_c], carry_tree),
                 pytree.tree_unflatten([None if t is None else _local(t) for t in flat_y],
                                       seen["y_tree"]))
 
     def local_init():
         return pytree.tree_unflatten([_local_as(t, mesh, pl) for t, pl in
-                                      zip(flat_init, carry_pl)], carry_tree)
+                                      zip(flat_init, entry.carry_pl)], carry_tree)
 
-    local_xs = pytree.tree_unflatten([_local(t) for t in flat_xs], xs_tree)
+    tr = None
     with _strided_offsets_untraced():
-        for _ in range(3):  # the carry's placements to a fixed point
-            tr = trace_body(local_f, local_init(), local_xs)
-            if seen["carry"] == carry_pl:
-                break
-            carry_pl = seen["carry"]
-        else:
-            raise FissionPreconditionError(f"the carry's placements do not settle: {carry_pl}")
-        carry, ys = fission_scan(local_f, local_init(), local_xs, length=length, report=report,
-                                 _traced=tr)
-    flat_carry = wrap(pytree.tree_leaves(carry), carry_pl)
+        if fresh:
+            for _ in range(3):  # the carry's placements to a fixed point
+                tr = trace_body(local_f, local_init(), local_xs, local_c)
+                if seen["carry"] == entry.carry_pl:
+                    break
+                entry.carry_pl = seen["carry"]
+            else:
+                raise FissionPreconditionError(
+                    f"the carry's placements do not settle: {entry.carry_pl}")
+        carry, ys = fission_scan(local_f, local_init(), local_xs, length=length,
+                                 consts=local_c, plans=entry.sub, report=report, _traced=tr)
+    plans[key] = entry
+    flat_carry = wrap(pytree.tree_leaves(carry), entry.carry_pl)
     flat_ys = [None if t is None else DTensor.from_local(t, mesh, _shift(pl, 1),
                                                          run_check=False)
                for t, pl in zip(pytree.tree_leaves(ys), seen["y"])]

@@ -237,9 +237,10 @@ class ModelService(_StatsMixin):
     Each forward is a compiled step (:mod:`repro_torch.serving.graphs`,
     the counterpart of the reference's jit): ``execute`` replays a step
     keyed on its parameters' shapes, dtypes and device, the batched form
-    one keyed on the stacked shapes.  A step is built, and on the card
-    captured as a CUDA graph, at its key's first use, from whichever
-    thread calls first; the parameters are copied (the batched ones
+    one keyed on the stacked shapes.  A step is built at its key's first
+    use, from whichever thread calls first, and that call runs it; on the
+    card it also records the step as a CUDA graph for the calls after it
+    (each a replay); the parameters are copied (the batched ones
     stacked) straight into its static inputs and the results copied out of
     its outputs before the step is released.  On the CPU a step runs the
     function on its static inputs; under ``graphs.eager()`` it runs as

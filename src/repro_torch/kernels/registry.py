@@ -26,7 +26,10 @@ tally instead of the counts, and each replay adds the tally once
 (:func:`add_launches`).  The counts keep meaning launches that ran.  The
 tally is per thread: the speculation thread launches while the main
 thread may capture, so a before-and-after difference of the counts would
-take in the other thread's launches.
+take in the other thread's launches.  A capture that names its stream
+also takes the launches of any other thread whose current stream that is:
+autograd runs a captured backward on its own device thread, on the
+stream the forward ran on.
 """
 from __future__ import annotations
 
@@ -77,6 +80,7 @@ class KernelOp:
 _OPS: dict[str, KernelOp] = {}
 _LAUNCH_LOCK = threading.Lock()
 _CAPTURE = threading.local()  # .tally: this thread's capture tally, or None
+_STREAM_TALLIES: dict = {}  # capture stream handle -> its capture's tally
 
 
 def register(name: str, *, ref: Callable, kernel: Callable,
@@ -135,24 +139,34 @@ def count_launch(kernel: Callable) -> None:
     thread the launch was only recorded into a graph, and it goes into the
     capture's tally instead."""
     tally = getattr(_CAPTURE, "tally", None)
-    if tally is not None:
-        tally[kernel] = tally.get(kernel, 0) + 1
-        return
+    if tally is None and _STREAM_TALLIES:
+        tally = _STREAM_TALLIES.get(torch.cuda.current_stream().cuda_stream)
     with _LAUNCH_LOCK:
-        kernel.launches += 1
+        if tally is not None:
+            tally[kernel] = tally.get(kernel, 0) + 1
+        else:
+            kernel.launches += 1
 
 
 @contextlib.contextmanager
-def capture_tally():
-    """Collect this thread's ``count_launch`` calls into the yielded
+def capture_tally(stream: Optional[torch.cuda.Stream] = None):
+    """Collect this thread's ``count_launch`` calls, and with ``stream``
+    those of every thread launching on that stream, into the yielded
     ``{kernel: launches}`` dict instead of the counts (a graph capture;
     module docstring).  Other threads keep counting as before."""
     prev = getattr(_CAPTURE, "tally", None)
     _CAPTURE.tally = tally = {}
+    key = None if stream is None else stream.cuda_stream
+    if key is not None:
+        with _LAUNCH_LOCK:
+            _STREAM_TALLIES[key] = tally
     try:
         yield tally
     finally:
         _CAPTURE.tally = prev
+        if key is not None:
+            with _LAUNCH_LOCK:
+                del _STREAM_TALLIES[key]
 
 
 def add_launches(tally: dict) -> None:

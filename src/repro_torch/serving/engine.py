@@ -28,8 +28,9 @@ host as numpy arrays and is uploaded once per tick; the reference keeps
 
 **Compiled dispatches** (:mod:`repro_torch.serving.graphs`, the
 counterpart of the reference's ``jax.jit``).  At construction the engine
-builds two kinds of :class:`~repro_torch.serving.graphs.CompiledStep`,
-each captured as one CUDA graph on the card:
+builds two kinds of :class:`~repro_torch.serving.graphs.CompiledStep`;
+on the card each one's first call runs it for real and records it as one
+CUDA graph, which every later call replays:
 
 * the tick: one ``decode_step`` over the engine's cache, whose address is
   fixed for the engine's life, with the token and lengths in static
@@ -42,9 +43,9 @@ each captured as one CUDA graph on the card:
   both, so a chunk of C tokens is C replays.  The staged prefill's cache
   is copied into the staging cache before them and back after them.
 
-* the prefill steps, one per (batch, prompt) bucket, built and captured
-  at the bucket's first dispatch (a :class:`~repro_torch.serving.graphs.
-  StepCache`): ``_prefill`` of the padded tokens and lengths in static
+* the prefill steps, one per (batch, prompt) bucket, built at the
+  bucket's first dispatch, which runs it and records it (a
+  :class:`~repro_torch.serving.graphs.StepCache`): ``_prefill`` of the padded tokens and lengths in static
   buffers, writing its KV into the ``[:, :batch]`` view of one staging
   cache per engine (allocated once, at the largest bucket:
   ``_bucket(n_lanes)`` lanes of the prefill's rows), so memory does not
@@ -407,7 +408,8 @@ class InferenceEngine:
     reserves decode lanes per template (:class:`KVPartition`);
     ``kv_spill`` stages retired lanes' KV in host memory for
     :meth:`try_restore`.  Construction builds the compiled dispatches
-    (module docstring), capturing their graphs on the card.
+    (module docstring); on the card each records its graph at its first
+    call.
     """
 
     arch: Arch
@@ -571,9 +573,7 @@ class InferenceEngine:
     def _make_prefill(self, shape: tuple, pool, hold) -> graphs.CompiledStep:
         """The prefill of one (batch, prompt) bucket: ``_prefill`` of the
         static tokens and lengths, its KV written into the ``[:, :batch]``
-        view of the staging cache → first tokens (batch,) int32.  Built
-        under the prefill steps' hold, so the staging cache, which no
-        caller keeps, is zeroed for the capture."""
+        view of the staging cache → first tokens (batch,) int32."""
         bsz, plen = shape
         lanes = next(_tensors(self._prefill_out)).shape[1]
         if bsz > lanes:
@@ -582,8 +582,6 @@ class InferenceEngine:
         inputs = graphs.StaticInputs({"tokens": (bsz, plen), "plens": (bsz,)}, self.device)
         out = {name: {k: a[:, :bsz] for k, a in stack.items()}
                for name, stack in self._prefill_out.items()}
-        for a in _tensors(self._prefill_out):
-            a.zero_()
 
         def prefill():
             return self._prefill(inputs["tokens"], inputs["plens"], out)[0]

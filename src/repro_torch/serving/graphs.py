@@ -1,35 +1,52 @@
-"""Compiled engine dispatches: the port's counterpart of ``jax.jit``.
+"""Compiled dispatches: the port's counterpart of ``jax.jit``.
 
-The reference compiles each fixed-shape engine dispatch into one XLA
-program (``_decode``, ``_extend``, ``_paged``, ``_fused``,
-``_shared_tail``), so a dispatch costs one launch.  The port issued every
-op of those programs from Python instead.  A :class:`CompiledStep` owns:
+The reference compiles each fixed-shape dispatch into one XLA program
+(the engines' ``_decode``, ``_extend``, ``_paged``, ``_fused``,
+``_shared_tail``, and ``train_step``), so a dispatch costs one launch.
+The port issued every op of those programs from Python instead.  A
+:class:`CompiledStep` owns:
 
 * static input buffers (:class:`StaticInputs`): one flat int32 tensor on
   the device, cut into named views of int32, float32 or int64, filled from
   one host array by a single copy per call, or written on the device;
 * a step function written only against those buffers and against tensors
   whose address is fixed for the step's life (an engine's cache, a
-  staging cache);
+  staging cache, a train step's parameters and moments);
 * on the card, one ``torch.cuda.CUDAGraph`` of that function, replayed on
   the current stream;
-* the capture's launch tally (:func:`repro_torch.kernels.registry.
+* the recording's launch tally (:func:`repro_torch.kernels.registry.
   capture_tally`), added to the kernels' counts once per replay.
 
-Capture follows PyTorch's rules for graphs: the function first runs once
-on a side stream (kernel libraries load, ``configure_kernel`` raises its
-shared-memory limits, cuBLAS sets up), then runs under capture on
-PyTorch's capture stream.  The warm-up is set-up, as a compilation is:
-the tensors the function writes hold zeros when the step is built (a new
-engine's cache, a staging cache, the buffers) and are zeroed again after
-it, so capturing changes no state and needs no copy of an engine's
-cache, and its launches go into a tally that is dropped, not into the
-counts, which keep counting the launches of dispatches only.  Captures hold one process-wide lock, since
-only one capture may be underway at a time; their error mode is
-``thread_local``, so another thread's launches and allocations during a
-capture are legal.  The garbage collector is held off while a step
-captures: a collection could free an older engine's graph, whose
-teardown is illegal while a stream captures and spoils the capture.
+**The first call is the dispatch itself**, as a ``jax.jit`` function's
+first call traces, compiles and runs once.  On the card the step's first
+call runs the function for real, on the current stream, and its outputs
+are that call's answer; its launches are a dispatch's and are counted.
+That run is also the warm-up PyTorch asks of a graph: kernel libraries
+load, ``configure_kernel`` raises its shared-memory limits, cuBLAS sets
+up.  Right after that run the function is recorded as the graph for the
+calls after it, each of which replays it.  Recording executes nothing, so
+no state is written twice and none has to be zero when the step is
+built, and every launch count equals :func:`eager`'s exactly.  A first
+call whose recording fails has already written the state; it raises, and
+so does every later call, without running the function again.
+
+A recording holds one process-wide lock, since only one capture may be
+underway at a time, on a capture stream of its own.  That stream comes
+from PyTorch's high-priority pool: pooled streams are handed out round
+robin, 32 a pool, so after enough engines have each taken a stream of
+the default pool one of them would be the capture stream itself, and the
+speculation thread's work on it would land in another thread's graph.
+The recording's error mode is ``thread_local``, so another thread's
+launches and allocations meanwhile are legal, and the kernels autograd's
+device thread launches on the capture stream (a train step's backward)
+go into its tally.  The garbage collector is held off while a step
+records: a collection could free an older engine's graph, whose teardown
+is illegal while a stream captures and spoils the capture.  A step runs
+and records under ``torch.no_grad()`` unless it is built with
+``grad=True`` (a train step takes its gradients inside); one built with
+``release=True`` empties the allocator's cache before it records, so the
+first call's freed temporaries do not stay reserved beside the graph's
+pool.
 
 Graphs that share a memory pool may reuse each other's intermediates, so
 they must never run at the same time, and each one's outputs must be read
@@ -39,23 +56,24 @@ replays on its own stream another.
 
 Dispatches whose shape is known only when they come (the engines'
 prefill, one per pinned bucket; ``ModelService``'s forwards, one per
-parameter shape) keep their steps in a :class:`StepCache`: a step is
-built, and on the card captured, at its key's first use, from whichever
-thread uses it first.  The steps of one cache share one hold and one pool,
-and every caller copies what it keeps out of the outputs before it
-releases the hold.
+parameter shape; a train step, one per batch signature) keep their steps
+in a :class:`StepCache`: a step is built at its key's first use, from
+whichever thread uses it first.  The steps of one cache share one hold
+and one pool, and every caller copies what it keeps out of the outputs
+before it releases the hold.
 
 On CPU operands there is no graph: the step runs its function directly on
 the same buffers, so the CPU tests exercise the static-buffer plumbing.
 :func:`eager` (the counterpart of ``jax.disable_jit``) does the same on
 the card, process-wide, for as long as it is open.  Nothing switches to
-eager on its own: a capture or a replay that fails raises.
+eager on its own: a recording or a replay that fails raises.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
 import threading
+import time
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -66,6 +84,7 @@ from repro_torch.kernels import registry
 __all__ = ["CompiledStep", "StaticInputs", "StepCache", "eager", "is_eager", "new_pool"]
 
 _CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS: dict = {}  # device index -> the stream recordings run on
 _EAGER_LOCK = threading.Lock()
 _EAGER_DEPTH = 0
 
@@ -73,9 +92,9 @@ _EAGER_DEPTH = 0
 @contextlib.contextmanager
 def eager():
     """Run every :class:`CompiledStep` as plain PyTorch ops while open, on
-    every thread (the speculation thread's chunks included).  It changes
-    how steps run, not how they are built: a step built inside it is
-    captured all the same."""
+    every thread (the speculation thread's chunks included).  A step
+    called inside it neither records nor replays: its first call outside
+    it is its first call."""
     global _EAGER_DEPTH
     with _EAGER_LOCK:
         _EAGER_DEPTH += 1
@@ -188,74 +207,111 @@ def _numel(shape) -> int:
 class CompiledStep:
     """One fixed-shape dispatch over static buffers (module docstring).
 
-    ``fn()`` reads ``inputs`` and writes only tensors in ``state`` (besides
-    ``inputs`` themselves), which hold zeros when the step is built, and
-    returns its outputs, a tensor or a tuple of them.  On the card the
-    outputs are the graph's own tensors, overwritten by the next call,
-    replayed or under :func:`eager`: read them first.  ``pool``
-    is :func:`new_pool`'s handle, or ``None`` for a pool of its own.
-    Construction captures on the card.
+    ``fn()`` reads ``inputs`` and tensors whose address is fixed, writes
+    only ``state`` (the tensors it writes besides ``inputs``; any values)
+    and returns its outputs, a tensor or a tuple of them.  On the card the
+    first call returns the outputs of a real run and every replay the
+    graph's own tensors, overwritten by the next replay: read them first.
+    ``out`` is the last call's outputs.  ``pool`` is :func:`new_pool`'s
+    handle, or ``None`` for a pool of its own.  ``grad`` lets ``fn`` take
+    gradients (the default runs it under ``torch.no_grad()``);
+    ``release`` empties the allocator's cache before the recording.
     :meth:`exclusive` serialises callers that share the step across
     threads; steps given one ``hold`` (a :class:`StepCache`'s) serialise
-    together.
+    together.  ``calls`` counts the calls on the card outside
+    :func:`eager`, ``replays`` those that replayed; ``parts`` holds the
+    host seconds of the first real run and of the recording
+    (``"run"``, ``"record"``, ``"instantiate"``).  A first call that
+    raises in its recording has already written ``state``; the step is
+    then spoilt, and every later call raises without running ``fn``.
     """
 
     def __init__(self, fn: Callable, inputs: StaticInputs,
                  state: Iterable[torch.Tensor], device: torch.device, pool=None,
-                 hold: Optional[_Hold] = None):
+                 hold: Optional[_Hold] = None, *, grad: bool = False,
+                 release: bool = False):
         self.fn = fn
         self.inputs = inputs
         self.state = [inputs.flat, *state]
         self.device = device
-        self.pool = pool
+        self.pool = pool if pool is not None else new_pool(device)
         self.hold = hold if hold is not None else _Hold()
+        self.grad = grad
+        self.release = release
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tally: dict = {}   # launches a replay makes
-        self.replays = 0        # replays of the captured graph
+        self.calls = 0          # calls on the card outside eager()
+        self.replays = 0        # of which replays of the recorded graph
+        self.parts: dict = {}   # host seconds of the first run and the recording
         self.out = None
-        if device.type == "cuda":
-            self._capture()
+        self._graph_out = None
+        self._spoilt: Optional[BaseException] = None  # the recording's error
 
     @property
     def captured(self) -> bool:
         return self.graph is not None
 
-    def _capture(self) -> None:
-        """Warm up on a side stream, zero the state again, and capture
-        ``fn`` as one CUDA graph with its launch tally (module docstring)."""
-        cur = torch.cuda.current_stream(self.device)
-        with _CAPTURE_LOCK, torch.no_grad(), _no_collection():
-            if any(bool(t.any()) for t in self.state):
-                raise ValueError("a compiled step's state must hold zeros when it is built")
-            side = torch.cuda.Stream(device=self.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side), registry.capture_tally():
-                self.fn()
-            cur.wait_stream(side)
-            for t in self.state:
-                t.zero_()
-            graph = torch.cuda.CUDAGraph()
-            with registry.capture_tally() as tally:
-                with torch.cuda.graph(graph, pool=self.pool,
-                                      capture_error_mode="thread_local"):
+    def _mode(self):
+        return contextlib.nullcontext() if self.grad else torch.no_grad()
+
+    def _run(self):
+        with self._mode():
+            self.out = self.fn()
+        return self.out
+
+    def _record(self) -> None:
+        """Record ``fn`` as the step's graph, with its launch tally,
+        executing nothing (module docstring).  The process must have run
+        the kernels ``fn`` launches once already (its warm-up)."""
+        device = self.device
+        # the template kept apart, so its instantiation is timed apart
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with _CAPTURE_LOCK, self._mode(), _no_collection():
+            stream = _CAPTURE_STREAMS.get(device.index)
+            if stream is None:  # module docstring: why the high-priority pool
+                stream = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device=device,
+                                                                            priority=-1)
+            if self.release:
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            with torch.cuda.stream(stream), registry.capture_tally(stream) as tally:
+                graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+                try:
                     out = self.fn()
-        self.graph, self.tally, self.out = graph, tally, out
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                t1 = time.perf_counter()
+                graph.capture_end()
+                graph.instantiate()
+            t2 = time.perf_counter()
+        self.graph, self.tally, self._graph_out = graph, tally, out
+        self.parts.update(record=t1 - t0, instantiate=t2 - t1)
 
     def __call__(self):
-        """Run the step once: a replay on the card, the function itself on
-        the CPU or under :func:`eager`."""
+        """Run the step once: a replay on the card once recorded, the
+        function itself before that, on the CPU or under :func:`eager`."""
         if self.device.type != "cuda" or is_eager():
-            with torch.no_grad():
-                out = self.fn()
-            if self.graph is None:
-                self.out = out
-            else:  # the graph's outputs stay the step's: its replays return them
-                for o, e in zip(_leaves(self.out), _leaves(out)):
-                    o.copy_(e)
-            return self.out
+            return self._run()
+        if self._spoilt is not None:
+            raise RuntimeError("this step's recording failed; its first call wrote its "
+                               "state already") from self._spoilt
+        self.calls += 1
+        if self.graph is None:
+            t0 = time.perf_counter()
+            out = self._run()
+            self.parts["run"] = time.perf_counter() - t0
+            try:
+                self._record()
+            except BaseException as e:
+                self._spoilt = e
+                raise
+            return out
         self.graph.replay()
         registry.add_launches(self.tally)
         self.replays += 1
+        self.out = self._graph_out
         return self.out
 
     @contextlib.contextmanager
@@ -276,7 +332,8 @@ class CompiledStep:
 
 class StepCache:
     """Compiled steps keyed by a static shape, each built by ``build(key,
-    pool, hold)`` at its key's first use (module docstring).  The steps
+    pool, hold)`` at its key's first use and run for real at its first
+    call (module docstring).  The steps
     share one hold and one graph pool: :meth:`exclusive` holds them all,
     and what a caller keeps of a step's outputs it copies out before the
     hold ends."""
@@ -303,3 +360,8 @@ class StepCache:
     def replays(self) -> int:
         """Replays of every step's graph so far."""
         return sum(s.replays for s in self.steps.values())
+
+    @property
+    def calls(self) -> int:
+        """Calls of every step on the card outside :func:`eager` so far."""
+        return sum(s.calls for s in self.steps.values())

@@ -184,8 +184,10 @@ def adamw_update(cfg: AdamWConfig, grads: dict, state: dict, params: dict, *,
         np_, nmu = one(g, mu, p)
         new_p.append(np_)
         new_mu.append(nmu)
-    metrics = {"grad_norm": gnorm,
-               "lr": torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)}
+    # torch.full, not as_tensor: no host-to-device copy (a recorded step holds none)
+    lr_t = (lr.to(torch.float32) if isinstance(lr, torch.Tensor)
+            else torch.full((), lr, dtype=torch.float32, device=gnorm.device))
+    metrics = {"grad_norm": gnorm, "lr": lr_t}
     if inplace:
         state["step"].copy_(step)
         return params, state, metrics

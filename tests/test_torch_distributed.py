@@ -20,7 +20,9 @@ the elastic restore.
   the mesh: each rank executes the gather query once a step fissioned and
   4 times not; losses within 1e-5 and parameters within 1e-4 of each
   other, losses within 1e-4 of the JAX package's unsharded fissioned
-  ``make_train_step(microbatches=4)``.
+  ``make_train_step(microbatches=4)``; over 3 steps each rank traces its
+  program in the first step only, and the losses equal a run that
+  traces every step (the first bit for bit).
 * The twin of ``test_checkpoint.py::test_elastic_restore_onto_8_devices``.
 """
 from __future__ import annotations
@@ -122,6 +124,38 @@ def _fissioned_steps(ta, tree, batches, mesh, fission: bool):
     return {"losses": losses, "gathers": gathers, "params": _full_numpy(params)}
 
 
+def _traced_steps(ta, tree, batches, mesh, retrace: bool):
+    """The fissioned sharded step at ``MICROBATCHES`` microbatches over
+    ``batches``: its losses and ``trace_body`` calls in each step;
+    ``retrace`` clears ``train_step.plans`` before every step."""
+    from repro_torch.core import fission
+    from repro_torch.distributed.sharding import distribute_params
+
+    calls, real = [], fission.trace_body
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    params = distribute_params(mesh, params_from_numpy(tree, ta.cfg, device="cpu"))
+    init, step = make_train_step(ta, topt.AdamWConfig(lr=LR),
+                                 TrainStepConfig(microbatches=MICROBATCHES, fission=True),
+                                 mesh=mesh)
+    state, losses, traces = init(params), [], []
+    fission.trace_body = counted
+    try:
+        for b in batches:
+            if retrace:
+                step.plans.clear()
+            n0 = len(calls)
+            params, state, m = step(params, state, b)
+            traces.append(len(calls) - n0)
+            losses.append(float(m["loss"]))
+    finally:
+        fission.trace_body = real
+    return {"losses": losses, "traces": traces}
+
+
 def _full_numpy(tree):
     return {k: _full_numpy(v) if isinstance(v, dict) else v.full_tensor().numpy()
             for k, v in tree.items()}
@@ -155,6 +189,9 @@ def _worker(rank, world, np_params, batches, moe_cases):
                 if rank:
                     run["params"] = None
                 out[name][f"microbatched_fission_{fission}"] = run
+        if name == "llama3-8b":
+            out[name]["traced"] = {r: _traced_steps(ta, tree, batches + [_tokens(3)], mesh, r)
+                                   for r in (False, True)}
     for name, (p, x) in moe_cases.items():
         _ja, ta = _archs(name[: -len("-moe")])
         tp = distribute_params(mesh, params_from_numpy({"moe": p}, ta.cfg, device="cpu"))
@@ -236,6 +273,21 @@ def test_fissioned_sharded_step_gathers_once_a_step(ranks, name):
     for r in ranks[3]:
         assert r[name]["microbatched_fission_True"]["gathers"] == [1, 1]
         assert r[name]["microbatched_fission_False"]["gathers"] == [MICROBATCHES] * 2
+
+
+def test_fissioned_sharded_step_traces_once_over_three_steps(ranks):
+    """Three fissioned steps on the mesh trace each rank's program in the
+    first step only (its plan kept in ``train_step.plans`` under the local
+    signature and placements), where a run that clears the plans traces
+    as much every step; the first loss is bit for bit the re-tracing
+    run's, the later ones within 1e-5."""
+    for r in ranks[3]:
+        cached, again = (r["llama3-8b"]["traced"][f] for f in (False, True))
+        first = cached["traces"][0]
+        assert first >= 1 and cached["traces"] == [first, 0, 0]
+        assert again["traces"] == [first] * 3
+        assert cached["losses"][0] == again["losses"][0]
+        np.testing.assert_allclose(cached["losses"], again["losses"], rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", FISSION_ARCHS)

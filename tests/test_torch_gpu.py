@@ -1759,10 +1759,12 @@ def _graph_drive(arch, params, kind):
     (n, k) for n in GRAPH_ARCHS for k in ("main", "async", "prefix", "spill")
     if k != "prefix" or n in ("llama3-8b", "deepseek-moe-16b")])
 def test_graphs_match_eager_on_card(gen, name, kind):
-    """Reduced configs in float32 on the card: the captured dispatches give
-    ``eager()``'s streams, counters and launch counts exactly (replays
-    count their kernels), on the main, async, prefix-hit and spill paths;
-    the graphs were captured and replayed."""
+    """Reduced configs in float32 on the card: the compiled dispatches give
+    ``eager()``'s streams, counters and launch counts exactly (each step's
+    first call runs it and counts its launches, the replays after it count
+    their kernels), on the main, async, prefix-hit and spill paths; the
+    graphs were recorded and replayed, every tick but the first a
+    replay."""
     from repro_torch.serving import graphs
 
     arch, cpu_params = _reduced(name)
@@ -1772,9 +1774,11 @@ def test_graphs_match_eager_on_card(gen, name, kind):
         want = _graph_drive(arch, params, kind)
     assert got[:3] == want[:3]
     eng = got[3]
-    assert eng._tick_step.captured and all(s.captured for s in eng._chunk_steps.values())
-    assert eng._tick_step.replays == got[1]["decode_steps"]
-    assert want[3]._tick_step.replays == 0  # run under eager(): nothing replayed
+    steps = [eng._tick_step, *eng._chunk_steps.values(), *eng._prefill_steps.steps.values()]
+    assert all(s.captured and s.replays == s.calls - 1 for s in steps if s.calls)
+    assert eng._tick_step.calls == got[1]["decode_steps"]
+    assert eng._tick_step.replays == got[1]["decode_steps"] - 1
+    assert want[3]._tick_step.calls == 0  # run under eager(): nothing recorded
     if kind == "async":
         assert got[1]["spec_chunks"] >= 2
         assert sum(s.replays for s in eng._chunk_steps.values()) > 0
@@ -1871,8 +1875,9 @@ def test_switching_modes_on_one_engine_keeps_the_graphs_outputs(gen, paged, firs
     """One engine runs its first two ticks and chunks in one mode and the
     next two in the other (``eager()`` then replays, and the reverse):
     each tick's tokens and logits and each chunk's logits equal those of a
-    fresh engine that only replays, and the tick step's outputs stay the
-    capture's tensors."""
+    fresh engine that only replays, the first call outside ``eager()``
+    records the tick and every later one replays it, returning the
+    recorded graph's outputs."""
     from repro_torch.serving import graphs
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.paged_kv import PagedInferenceEngine
@@ -1888,7 +1893,6 @@ def test_switching_modes_on_one_engine_keeps_the_graphs_outputs(gen, paged, firs
         kw = dict(page_size=8) if paged else {}
         eng = (PagedInferenceEngine if paged else InferenceEngine)(
             arch, params, n_lanes=3, max_prompt_len=16, max_len=48, device="cuda", **kw)
-        outs = eng._tick_step.out
         eng.admit([Request(rid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)])
         got = []
         for mode in modes:
@@ -1898,8 +1902,9 @@ def test_switching_modes_on_one_engine_keeps_the_graphs_outputs(gen, paged, firs
                 part, _c, _l = eng._extend(arch.init_cache(1, 48, "cuda"), chunk,
                                            torch.zeros(1, dtype=torch.int32, device="cuda"))
             got.append((toks, tick, part))
-        assert all(a is b for a, b in zip(eng._tick_step.out, outs))
-        assert eng._tick_step.replays == modes.count("graph")
+        step = eng._tick_step
+        assert (step.out is step._graph_out) == (modes[-1] == "graph")
+        assert (step.calls, step.replays) == (modes.count("graph"), modes.count("graph") - 1)
         return got
 
     other = "graph" if first == "eager" else "eager"
@@ -1923,12 +1928,13 @@ def _same_staged(got, want) -> None:
 
 @pytest.mark.parametrize("name", ["llama3-8b", "mamba2-1.3b", "hymba-1.5b", "qwen2-vl-2b"])
 def test_prefill_replay_equals_eager_prefill(gen, name):
-    """Reduced configs in float32: a prefill dispatch that replays its
-    bucket's captured step gives the first tokens and KV cache of the same
+    """Reduced configs in float32: a bucket's first prefill dispatch runs
+    the step function once for real and records it (one call of
+    ``_prefill`` outside the capture and one inside), the next replays it
+    (no call); both give the first tokens and KV cache of the same
     dispatch under ``eager()`` bit for bit (the same kernels on the same
     inputs; hymba's bucket of 16 is its window, so the ring re-layout
-    runs); the first dispatch built the step, each dispatch outside
-    ``eager()`` was one replay."""
+    runs)."""
     from repro_torch.serving import graphs
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.request import Request
@@ -1940,13 +1946,25 @@ def test_prefill_replay_equals_eager_prefill(gen, name):
     rng = np.random.default_rng(10)
     reqs = [Request(rid=i, prompt=rng.integers(1, 200, size=n).astype(np.int32))
             for i, n in enumerate((5, 11, 3))]
-    got = [eng.prefill_dispatch(reqs) for _ in range(2)]
+    runs, inner = [], eng._prefill
+
+    def noted(*args):
+        runs[-1].append(torch.cuda.is_current_stream_capturing())
+        return inner(*args)
+
+    eng._prefill = noted
+    got = []
+    for _ in range(2):
+        runs.append([])
+        got.append(eng.prefill_dispatch(reqs))
+    runs.append([])
     with graphs.eager():
         want = eng.prefill_dispatch(reqs)
     torch.cuda.synchronize()
+    assert runs == [[False, True], [], [False]]
     assert list(eng._prefill_steps.steps) == [(4, 16)]
     step = eng._prefill_steps.steps[(4, 16)]
-    assert step.captured and step.replays == 2
+    assert step.captured and (step.calls, step.replays) == (2, 1)
     for g in got:
         _same_staged(g, want)
 
@@ -2007,10 +2025,13 @@ def test_prefill_capture_on_a_second_thread_while_ticks_replay(gen):
 @pytest.mark.parametrize("donate", [False, True])
 def test_cached_fission_plan_equals_retracing_on_card(gen, donate):
     """Reduced llama3-8b in float32, 3 fissioned steps at 4 microbatches:
-    the step that traced its body once against one that traces every step
-    — one and three ``trace_body`` calls, the same first loss bit for bit
-    and the later ones within 1e-6 relative (the embedding gradient's
-    scatter-add uses atomics), parameters within 1e-5."""
+    the compiled step, which traces its body at its first call and
+    replays its graph after it, against the step under ``eager()``
+    tracing every step — one and three ``trace_body`` calls, the same
+    first loss bit for bit and the later ones within 1e-6 relative (the
+    embedding gradient's scatter-add uses atomics), parameters within
+    1e-5."""
+    from repro_torch.serving import graphs
     from repro_torch.core import fission as fission_mod
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.step import TrainStepConfig, make_train_step
@@ -2033,11 +2054,12 @@ def test_cached_fission_plan_equals_retracing_on_card(gen, donate):
                                          TrainStepConfig(microbatches=4, donate=donate))
             state, losses = init(params), []
             registry.reset_launches()
-            for b in batches:
-                if retrace:
-                    step.plans.clear()
-                params, state, m = step(params, state, b)
-                losses.append(float(m["loss"]))
+            with graphs.eager() if retrace else contextlib.nullcontext():
+                for b in batches:
+                    if retrace:
+                        step.plans.clear()
+                    params, state, m = step(params, state, b)
+                    losses.append(float(m["loss"]))
             torch.cuda.synchronize()
         assert registry.launch_counts()["batched_gather"] == len(batches)
         runs[retrace] = (losses, params, len(calls))
@@ -2051,10 +2073,10 @@ def test_cached_fission_plan_equals_retracing_on_card(gen, donate):
 
 def test_model_service_replays_under_four_threads_equal_eager(gen):
     """``ModelService`` over ``batched_gather``, called by 4 threads at once
-    (single queries and batches of 3, 5 and 9 ids), replays one captured
+    (single queries and batches of 3, 5 and 9 ids), keeps one compiled
     step per shape (4 steps): each result equals the same call's under
-    ``eager()`` bit for bit, every call was one replay and one gather
-    launch."""
+    ``eager()`` bit for bit, every call was one gather launch, and every
+    call but a step's first one replay."""
     import threading
 
     from repro_torch.core.services import ModelService
@@ -2091,7 +2113,8 @@ def test_model_service_replays_under_four_threads_equal_eager(gen):
     calls = sum(len(p) for p in plans)
     assert len(svc.steps) == 1
     cache = next(iter(svc.steps.values()))
-    assert cache.replays == calls == registry.launch_counts()["batched_gather"]
+    assert cache.calls == calls == registry.launch_counts()["batched_gather"]
+    assert cache.replays == calls - 4
     assert len(cache.steps) == 4 and all(s.captured for s in cache.steps.values())
     want = [[] for _ in plans]
     with graphs.eager():
@@ -2102,3 +2125,90 @@ def test_model_service_replays_under_four_threads_equal_eager(gen):
     for g, wnt in zip(got, want):
         for a, b in zip(g, wnt):
             assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ----------------------------------------------------- the compiled train step
+
+TRAIN_GRAPH_CASES = {"llama3-8b": dict(microbatches=4), "mamba2-1.3b": {},
+                     "deepseek-moe-16b": {}}
+
+
+def _compiled_train(arch, cpu_params, ts_kw: dict, batches, eager: bool):
+    """3 steps of the compiled train step on the card, replayed or under
+    ``graphs.eager()``: per step (loss, grad norm, launches), the final
+    parameters, the step."""
+    from repro_torch.serving import graphs
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    params = _to(cpu_params, "cuda")
+    init, step = make_train_step(arch, AdamWConfig(lr=1e-3), TrainStepConfig(**ts_kw))
+    state, out = init(params), []
+    with graphs.eager() if eager else contextlib.nullcontext():
+        for b in batches:
+            registry.reset_launches()
+            params, state, m = step(params, state, b)
+            torch.cuda.synchronize()
+            out.append((float(m["loss"]), float(m["grad_norm"]), registry.launch_counts()))
+    return out, params, step
+
+
+@pytest.mark.parametrize("name", list(TRAIN_GRAPH_CASES))
+def test_train_step_replays_equal_eager(gen, name):
+    """Reduced llama3-8b (``query_embedding``, 4 microbatches, fissioned),
+    mamba2-1.3b and deepseek-moe-16b in float32, 3 steps: the compiled
+    step runs its first call and replays its graph once a step after it;
+    its launches per step equal ``eager()``'s; the first loss equals
+    ``eager()``'s bit for bit; later losses, grad norms and every
+    parameter bit for bit where two ``eager()`` runs repeat each other bit
+    for bit, and within 1e-4 where they do not (a scatter-add with
+    atomics)."""
+    arch, _p = _reduced(name)
+    if name == "llama3-8b":
+        arch = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, query_embedding=True))
+    cpu_params = arch.init(seed=0, device="cpu")
+    batches = [_train_batch(arch.cfg, i) for i in range(3)]
+    kw = TRAIN_GRAPH_CASES[name]
+    got, gp, step = _compiled_train(arch, cpu_params, kw, batches, eager=False)
+    e1, ep1, _s = _compiled_train(arch, cpu_params, kw, batches, eager=True)
+    e2, ep2, _s = _compiled_train(arch, cpu_params, kw, batches, eager=True)
+    assert (step.calls, step.replays, len(step.cache.steps)) == (3, 2, 1)
+    assert [g[2] for g in got] == [e[2] for e in e1]
+    assert got[0][0] == e1[0][0]
+    for g, a, b in zip(got, e1, e2):
+        for k in (0, 1):
+            if a[k] == b[k]:
+                assert g[k] == a[k]
+            else:
+                assert abs(g[k] - a[k]) <= 1e-4 * max(1.0, abs(a[k]))
+    for g, a, b in zip(_leaves(gp), _leaves(ep1), _leaves(ep2)):
+        if torch.equal(a, b):
+            assert torch.equal(g, a)
+        else:
+            torch.testing.assert_close(g, a, rtol=1e-4, atol=1e-4)
+
+
+def test_a_step_that_cannot_be_recorded_raises(gen):
+    """A step whose function reads a value back to the host (``.item()``)
+    runs its first call for real, then its recording raises instead of
+    falling back; a later call raises without running the function; the
+    card goes on working."""
+    from repro_torch.serving import graphs
+
+    x = torch.arange(4, dtype=torch.float32, device="cuda")
+    inputs = graphs.StaticInputs({"n": (1,)}, torch.device("cuda"))
+    ran = []
+
+    def fn():
+        ran.append(torch.cuda.is_current_stream_capturing())
+        return x * float(x.sum().item())
+
+    step = graphs.CompiledStep(fn, inputs, [], torch.device("cuda"))
+    with pytest.raises(RuntimeError):
+        step()
+    assert ran == [False, True] and not step.captured
+    assert not torch.cuda.is_current_stream_capturing()
+    with pytest.raises(RuntimeError, match="recording failed"):
+        step()
+    assert ran == [False, True]
+    assert (x * 2).sum().item() == 12.0

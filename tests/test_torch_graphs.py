@@ -15,7 +15,11 @@ oversubscribed pool with a host spill pool; in dense-compute mode,
 ``lane_timeout`` spills and restores).  Greedy streams and the counters
 must be equal exactly, and equal again under ``graphs.eager()``.
 
-Also here: the registry's capture tally across threads, the device
+Also here: a step's first call (the function run once, its outputs
+returned, the graph recorded for the calls after it, at the first or the
+second call; the card's path with the graph stood in for), the
+registry's capture tally across threads and on a capture stream, the
+device
 sampler (greedy lanes against ``jnp.argmax``, draws against the softmax),
 and twins of the two public functions the port lacked,
 ``serving/engine.py::proportional_shares`` and
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -227,6 +232,130 @@ def test_compiled_step_runs_its_function_on_the_cpu():
         step()
         out = step()
     assert acc.tolist() == [2, 4, 6] and out.tolist() == [4, 8, 12] and step.out is out
+
+
+class _Recorded:
+    """A stand-in for a recorded graph on a CPU-only build: ``replay``
+    notes that it ran."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def replay(self):
+        self.log.append("replay")
+
+
+@pytest.mark.parametrize("start", [0, 5])
+def test_first_call_is_the_dispatch(monkeypatch, start):
+    """The card's path of a step, its graph stood in for: over state that
+    need not be zero, the first call runs the function once (no warm-up
+    run besides) and returns that run's own outputs, its launches counted;
+    the graph is recorded right after that run, executing nothing; every
+    later call is one replay, adding the recording's tally; under
+    ``eager()`` the function runs again and the next replay returns the
+    graph's outputs."""
+    kernel = registry.get("batched_gather").kernel
+    log, runs, state = [], [], torch.full((3,), start, dtype=torch.int32)
+
+    def record(self):
+        log.append(("record", self.calls))
+        self.graph, self.tally = _Recorded(log), {kernel: 2}
+        self._graph_out = (torch.zeros(3),)
+        self.parts.update(record=0.0, instantiate=0.0)
+
+    monkeypatch.setattr(graphs.CompiledStep, "_record", record)
+    inp = graphs.StaticInputs({"x": (3,)}, torch.device("cpu"))
+
+    def fn():
+        runs.append(1)
+        registry.count_launch(kernel)
+        registry.count_launch(kernel)
+        state.add_(inp["x"])
+        out = (state * 2,)
+        log.append(("run", out))
+        return out
+
+    step = graphs.CompiledStep(fn, inp, [state], torch.device("cuda"), pool=object())
+    inp.put("x", [1, 2, 3])
+    inp.upload()
+    registry.reset_launches()
+    first = step()
+    assert len(runs) == 1 and first is log[0][1] and step.out is first
+    assert state.tolist() == [start + 1, start + 2, start + 3]
+    assert first[0].tolist() == [2 * v for v in state.tolist()]
+    assert registry.launch_counts()["batched_gather"] == 2
+    assert step.captured and "run" in step.parts
+    second = step()
+    assert len(runs) == 1 and second is step._graph_out and step.captured
+    assert [e for e in log if e[0] == "record"] == [("record", 1)]
+    assert (step.calls, step.replays) == (2, 1)
+    assert registry.launch_counts()["batched_gather"] == 4
+    with graphs.eager():
+        third = step()
+    assert len(runs) == 2 and third is log[-1][1] and (step.calls, step.replays) == (2, 1)
+    assert step() is step._graph_out and (step.calls, step.replays) == (3, 2)
+    assert log.count("replay") == 2
+    assert registry.launch_counts()["batched_gather"] == 8
+    registry.reset_launches()
+
+
+def test_a_failed_recording_spoils_the_step(monkeypatch):
+    """The card's path of a step whose recording raises: the first call ran
+    the function once (its state written) and raises the recording's
+    error; every later call raises without running the function again, so
+    a caller that retries applies no update twice."""
+    runs, state = [], torch.zeros((3,), dtype=torch.int32)
+
+    def record(self):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(graphs.CompiledStep, "_record", record)
+    inp = graphs.StaticInputs({"x": (3,)}, torch.device("cpu"))
+
+    def fn():
+        runs.append(1)
+        state.add_(inp["x"])
+        return state * 2
+
+    step = graphs.CompiledStep(fn, inp, [state], torch.device("cuda"), pool=object())
+    inp.put("x", [1, 2, 3])
+    inp.upload()
+    with pytest.raises(RuntimeError, match="capturing"):
+        step()
+    assert runs == [1] and state.tolist() == [1, 2, 3] and not step.captured
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="recording failed"):
+            step()
+    assert runs == [1] and state.tolist() == [1, 2, 3] and (step.calls, step.replays) == (1, 0)
+
+
+def test_capture_tally_takes_the_capture_streams_launches_from_any_thread(monkeypatch):
+    """A capture that names its stream takes the launches of another thread
+    whose current stream it is (autograd's device thread in a recorded
+    backward), not those of a thread on another stream."""
+    kernel = registry.get("batched_gather").kernel
+    current = threading.local()
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: SimpleNamespace(cuda_stream=getattr(current, "s", 0)))
+    capture, other = SimpleNamespace(cuda_stream=7), 8
+    registry.reset_launches()
+
+    def launch(stream: int, n: int):
+        current.s = stream
+        for _ in range(n):
+            registry.count_launch(kernel)
+
+    with registry.capture_tally(capture) as tally:
+        for stream, n in ((7, 3), (other, 2)):
+            t = threading.Thread(target=launch, args=(stream, n))
+            t.start()
+            t.join()
+        registry.count_launch(kernel)
+    assert tally == {kernel: 4}
+    assert registry.launch_counts()["batched_gather"] == 2
+    launch(7, 1)  # after the capture: counted
+    assert registry.launch_counts()["batched_gather"] == 3
+    registry.reset_launches()
 
 
 def test_capture_tally_counts_only_the_capturing_thread():

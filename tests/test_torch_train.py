@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from repro.data.pipeline import SyntheticLMStream as JStream
 from repro.models import transformer as jtf
@@ -218,8 +219,9 @@ def test_head_bf16_gradient_matches_reference():
 
 # ------------------------------------------------------------ train step
 
-def _run_reference(ja, jp, ts_kw: dict, batches):
-    init, step = jmake_train_step(ja, jopt.AdamWConfig(lr=LR), JTSConfig(donate=False, **ts_kw))
+def _run_reference(ja, jp, ts_kw: dict, batches, moments: str = "float32"):
+    init, step = jmake_train_step(ja, jopt.AdamWConfig(lr=LR, moments_dtype=moments),
+                                  JTSConfig(donate=False, **ts_kw))
     state, losses = init(jp), []
     for b in batches:
         jp, state, m = step(jp, state, b)
@@ -272,6 +274,98 @@ def test_train_step_matches_reference(reduced, microbatches, fission_on, compres
     tl, tparams = _run_port(ta, np_params, ts_kw, batches)
     np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
     _assert_params_close(tparams, jparams)
+
+
+COMPILED = {  # id -> (TrainStepConfig keywords, AdamW moments)
+    "donate-mb1": (dict(microbatches=1), "float32"),
+    "kept-mb1": (dict(microbatches=1, donate=False), "float32"),
+    "donate-mb4-fission": (dict(microbatches=4), "float32"),
+    "kept-mb4-fission": (dict(microbatches=4, donate=False), "float32"),
+    "kept-mb4-plain": (dict(microbatches=4, fission=False, donate=False), "float32"),
+    "donate-int8_ef": (dict(microbatches=1, grad_compression="int8_ef"), "float32"),
+    "kept-mb4-int8_ef": (dict(microbatches=4, grad_compression="int8_ef", donate=False),
+                         "float32"),
+    "donate-int8-moments": (dict(microbatches=1), "int8"),
+    "kept-mb4-int8-moments": (dict(microbatches=4, donate=False), "int8"),
+}
+
+
+@pytest.mark.parametrize("case", list(COMPILED))
+def test_compiled_train_step_matches_reference(reduced, case):
+    """Three steps of the compiled step, through its static batch buffers,
+    against the JAX ``make_train_step`` from the same parameters and
+    batches: losses and parameters within the train-step tolerances.  One
+    step per batch signature; donating, every call returns the tensors
+    passed in and copies nothing; not donating, no tensor passed in is
+    written, the returned ones are new, and every call copies in."""
+    ja, ta, jp, np_params, _b = reduced
+    ts_kw, moments = COMPILED[case]
+    donate = ts_kw.get("donate", True)
+    batches = [_tokens(1), _tokens(2), _tokens(3)]
+    jl, jparams = _run_reference(ja, jp, {k: v for k, v in ts_kw.items() if k != "donate"},
+                                 batches, moments)
+    params = params_from_numpy(np_params, ta.cfg, device="cpu")
+    init, step = make_train_step(ta, topt.AdamWConfig(lr=LR, moments_dtype=moments),
+                                 TrainStepConfig(**ts_kw))
+    state, losses = init(params), []
+    for b in batches:
+        given = list(step_mod._tensors_by_path((params, state)).values())
+        before = [t.clone() for t in given]
+        new_params, new_state, m = step(params, state, b)
+        assert (new_params is params and new_state is state) == donate
+        if not donate:
+            assert all(torch.equal(a, c) for a, c in zip(given, before))
+            out = step_mod._tensors_by_path((new_params, new_state)).values()
+            assert not {t.data_ptr() for t in given} & {t.data_ptr() for t in out}
+        params, state = new_params, new_state
+        losses.append(float(m["loss"]))
+    assert step.copies_in == (0 if donate else len(batches))
+    assert len(step.cache.steps) == 1
+    assert int(state["opt"]["step"]) == len(batches)
+    np.testing.assert_allclose(losses, jl, rtol=1e-4, atol=1e-4)
+    _assert_params_close(params_to_numpy(params), jparams)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_compiled_train_step_copies_foreign_tensors_in(reduced, donate):
+    """Donating, a call with tensors the step did not return (a restore, a
+    caller's copy) copies them into the step's own and counts one copy
+    in, and a later call with the returned tensors copies nothing; not
+    donating, every call copies in.  Either way the steps after the
+    foreign call give the losses and parameters of a run that passed the
+    returned tensors all along, bit for bit."""
+    _ja, ta, _jp, np_params, _b = reduced
+    batches = [_tokens(1), _tokens(2), _tokens(3), _tokens(4)]
+    runs = {}
+    for foreign in (False, True):
+        params = params_from_numpy(np_params, ta.cfg, device="cpu")
+        init, step = make_train_step(ta, topt.AdamWConfig(lr=LR, moments_dtype="int8"),
+                                     TrainStepConfig(microbatches=2, donate=donate))
+        state, losses, copies = init(params), [], []
+        for i, b in enumerate(batches):
+            if foreign and i == 2:
+                params = pytree.tree_map(torch.clone, params)
+                state = _cloned_state(state)
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+            copies.append(step.copies_in)
+        runs[foreign] = (losses, params, copies)
+    if donate:
+        assert runs[False][2] == [0, 0, 0, 0] and runs[True][2] == [0, 0, 1, 1]
+    else:
+        assert runs[False][2] == runs[True][2] == [1, 2, 3, 4]
+    assert runs[True][0] == runs[False][0]
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(runs[True][1]), _leaves(runs[False][1])))
+
+
+def _cloned_state(state):
+    def one(x):
+        if isinstance(x, topt.QuantizedTensor):
+            return topt.QuantizedTensor(x.q.clone(), x.scale.clone(), shape=x.shape, pad=x.pad,
+                                        sqrt_domain=x.sqrt_domain)
+        return x.clone()
+
+    return pytree.tree_map(one, state)
 
 
 def test_microbatch_fission_equals_plain(reduced):

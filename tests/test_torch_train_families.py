@@ -8,7 +8,8 @@ seamless-m4t-medium (encoder-decoder), float32, from the same parameters
 (drawn by the JAX package, carried across by ``params_from_numpy``) and
 the same numpy batches, with ``remat`` off and on, and int8 moments on
 mamba2.  The training forward of mamba2 and hymba is also held against
-the reference's on its own.
+the reference's on its own, and the compiled step without donation
+(the launcher's) over three steps, its inputs left unwritten.
 
 Tolerances, as ``test_torch_train.py`` states and why: the forward's
 logits 1e-4; losses 1e-4; parameters after two steps
@@ -120,6 +121,35 @@ def test_train_step_matches_reference(name, remat, monkeypatch):
         _assert_params_close(params_to_numpy(tp), jax.tree_util.tree_map(np.asarray, jp))
         if routes is not None:
             _check_routes(ja.cfg, routes[start:], router[0])
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_compiled_step_keeping_its_inputs_matches_reference(name):
+    """Three steps of the compiled step with ``donate=False`` (the
+    launcher's) through its static batch buffers (tokens; float32
+    embeddings with (3, B, S) positions; source frames and target tokens):
+    losses and parameters against the JAX step; no tensor passed in is
+    written; one step, each call a copy in."""
+    ja, ta = _archs(name)
+    jp = ja.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), ta.cfg, device="cpu")
+    jinit, jstep = j_make_train_step(ja, jopt.AdamWConfig(lr=LR), JTSConfig(donate=False))
+    tinit, tstep = make_train_step(ta, topt.AdamWConfig(lr=LR), TrainStepConfig(donate=False))
+    js, ts = jinit(jp), tinit(tp)
+    for seed in (1, 2, 3):
+        b = batch_for(ta.cfg, seed)
+        given = [t.clone() for t in _flat_tensors((tp, ts))]
+        jp, js, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in b.items()})
+        new_p, new_s, tm = tstep(tp, ts, b)
+        assert all(torch.equal(a, c) for a, c in zip(_flat_tensors((tp, ts)), given))
+        tp, ts = new_p, new_s
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-4, atol=1e-4)
+        _assert_params_close(params_to_numpy(tp), jax.tree_util.tree_map(np.asarray, jp))
+    assert tstep.copies_in == 3 and len(tstep.cache.steps) == 1
+
+
+def _flat_tensors(tree) -> list:
+    return torch.utils._pytree.tree_leaves(tree)
 
 
 def _check_routes(jcfg, calls, jrouter) -> None:

@@ -4,18 +4,23 @@
 
 ``DIR`` holds another tree of this repository (for example ``git archive
 <commit> | tar -x -C DIR``).  Runs the parent, this tree, this tree and the
-parent again, each in a process of its own, and in each: ``chip_smoke.py``'s
-phase 4a (``phase_main_path``: 16 requests of 32 new tokens on a fresh
-paged engine) three times, then one engine serving the same traffic three
-times in a row (a new scheduler each time).  Prints every wall, in seconds
-for the 512 tokens, and the card's name and power limit.  Needs one CUDA
+parent again, each in a process of its own, and in each: after
+``chip_smoke.py``'s warm-up, phase 4a's traffic (16 requests of 32 new
+tokens, ``chip_smoke._drive``) on a fresh paged engine three times, each
+engine's construction timed apart, then one engine serving the same
+traffic three times in a row (a new scheduler each time).  Prints every wall, in seconds
+for the 512 tokens, the medians of the fresh engines' drives, of their
+construction and drive together, and of the one engine's second and
+third drives (a warmed engine), and the card's name and power limit.  Needs one CUDA
 card; every number it prints is that card's.
 """
 from __future__ import annotations
 
 import argparse
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -38,20 +43,34 @@ def _walls(tree: str, tag: str) -> None:
     arch = get_arch("llama3-8b")
     params = arch.init(seed=0, device="cuda")
     cs._warm(arch, params)
-    walls = {"fresh": [], "same": []}
-    for i in range(3):
-        cs.phase_main_path(arch, params, label=f"{tag}-fresh{i}")
-        walls["fresh"].append(cs.RUNS[f"{tag}-fresh{i}"]["wall"])
-    eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256, max_len=512,
-                               page_size=16)
-    for i in range(3):
+    def engine():
+        t0 = time.perf_counter()
+        eng = PagedInferenceEngine(arch, params, n_lanes=8, max_prompt_len=256, max_len=512,
+                                   page_size=16)
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    def drive(eng, label):
         sched = ContinuousBatchingScheduler(eng, strategy=GrowingUpperThreshold(initial_upper=2))
-        cs._drive(f"{tag}-same{i}", eng, sched, cs._requests(Request, arch.cfg.vocab_size),
-                  "cuda")
-        walls["same"].append(cs.RUNS[f"{tag}-same{i}"]["wall"])
+        cs._drive(label, eng, sched, cs._requests(Request, arch.cfg.vocab_size), "cuda")
+        return cs.RUNS[label]["wall"]
+
+    walls = {"build": [], "fresh": [], "same": []}
+    for i in range(3):
+        eng, built = engine()
+        walls["build"].append(built)
+        walls["fresh"].append(drive(eng, f"{tag}-fresh{i}"))
+        del eng
+    eng, _built = engine()
+    for i in range(3):
+        walls["same"].append(drive(eng, f"{tag}-same{i}"))
     torch.cuda.synchronize()
-    print(f"[ab] {tag}: main path walls (512 tokens), fresh engines {walls['fresh']}, "
-          f"one engine {walls['same']}", flush=True)
+    med = statistics.median
+    print(f"[ab] {tag}: main path walls (512 tokens), fresh engines {walls['fresh']} (built "
+          f"in {walls['build']}), one engine {walls['same']}; medians: fresh "
+          f"{med(walls['fresh'])!r} s, built and driven "
+          f"{med(b + f for b, f in zip(walls['build'], walls['fresh']))!r} s, the one "
+          f"engine's second and third drives {med(walls['same'][1:])!r} s", flush=True)
 
 
 def main(argv=None) -> int:
