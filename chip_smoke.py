@@ -17,30 +17,30 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    reference's sweep shapes in float32 and bf16; ``batched_gather``: the
    llama3-8b table and one training step's 4096 ids, N = 1, 16 steps'
    65536 ids and ragged shapes, bit for bit, timed against
-   ``index_select`` at 4096 and 65536; ``flash_attention`` at the
-   serving shape and the trainer's, both instances at ragged shapes, bf16
-   at D 16 to 128; ``decode_attention`` at the dense engine's 8 lanes and
-   the chunk side's 1; ``paged_decode_attention`` beside
-   ``decode_attention`` on the same keys gathered dense, and the host time
-   of one call of each; the three attention kernels again at the head
-   layouts of phases 4l-4o, Hq/Hkv 16/16, 20/20 and 32/2 at D 128, as
-   logged sub-rows; and at the layouts of phases 4p-4r, as sub-rows that
-   the JSON line carries: the banded flash of hymba's prefill, B 8, S
-   2048, 25/5, D 64, W 1024, against SDPA with a boolean band mask, the
-   band's edges W = S (the causal bits) and W = 1 (each query's own value
-   row) and ragged bands on both instances, unmasked flash at seamless's
-   encoder (S = T = 512) and cross attention (S 64, T 512), decode at
-   groups 5 (T 1024), 6 (D 128) and 1 (self and cross), paged decode at
-   12/2 and ``ssd_scan`` at hymba's H 25, N 16); the ``ssd_scan_bwd``
-   kernel (the scan's adjoint, a training step's backward) at mamba2's
-   and hymba's training shapes and ragged ones in float32 and bf16,
-   against its plain version and autograd of the plain scan, three calls
-   bit for bit; each with the tolerance stated; a repeated call of
-   any attention kernel must give the same bits; its time, the plain
-   version's, one library call's as a yardstick where one exists (never
-   called by the port) and the least time the card could take
-   (``bound_ms``); rows 1 and 3b again inside one captured CUDA graph of
-   100 back-to-back launches, operands cold and in L2 (sub-rows 1j, 3j;
+   ``index_select`` at 4096 and 65536; ``flash_attention`` at the serving
+   shape and the trainer's, both instances at ragged shapes, bf16 at D 16
+   to 128; ``decode_attention`` at the dense engine's 8 lanes and the
+   chunk side's 1; ``paged_decode_attention`` beside ``decode_attention``
+   on the same keys gathered dense, and the host time of one call of each;
+   the three attention kernels again at the head layouts of phases 4l-4o,
+   Hq/Hkv 16/16, 20/20 and 32/2 at D 128, as logged sub-rows (both decode
+   kernels at 8 lanes and at 1); and at the layouts of phases 4p-4r, as
+   sub-rows that the JSON line carries: the banded flash of hymba's
+   prefill, B 8, S 2048, 25/5, D 64, W 1024, against SDPA with a boolean
+   band mask, the band's edges W = S (the causal bits) and W = 1 (each
+   query's own value row) and ragged bands on both instances, unmasked
+   flash at seamless's encoder (S = T = 512) and cross attention (S 64, T
+   512), decode at groups 5 (T 1024), 6 (D 128) and 1 (self and cross),
+   paged decode at 12/2 and ``ssd_scan`` at hymba's H 25, N 16); the
+   ``ssd_scan_bwd`` kernel (the scan's adjoint, a training step's
+   backward) at mamba2's and hymba's training shapes and ragged ones in
+   float32 and bf16, against its plain version and autograd of the plain
+   scan, three calls bit for bit; each with the tolerance stated; a
+   repeated call of any attention kernel must give the same bits; its
+   time, the plain version's, one library call's as a yardstick where one
+   exists (never called by the port) and the least time the card could
+   take (``bound_ms``); rows 1 and 3b again inside one captured CUDA graph
+   of 100 back-to-back launches, operands cold and in L2 (sub-rows 1j, 3j;
    3j's library time is row 3b's SDPA call in the same kind of graph);
 4. serving paths — llama3-8b at full width (32 layers, bf16, weights
    drawn from seed 0 on the card) served through
@@ -57,8 +57,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    of a chunk step, and that each step ran once for real and replayed
    every call after (the first call's launches and the replays' count
    alike; the reduced runs of phase 7 and the app traces check the
-   prefill calls too).  Paths a, b and d drive their engine three times
-   (a new scheduler and the same prompts): fresh, then warmed:
+   prefill calls too).  Paths a, b and d drive their engine twice (a new
+   scheduler and the same prompts): fresh, then warmed:
    a. main — the synchronous path, ``PagedInferenceEngine``, 16 requests:
       ``paged_decode_attention`` = decode steps x 32, ``flash_attention``
       = prefill dispatches x 32;
@@ -97,7 +97,7 @@ Phases, each ending in ``torch.cuda.synchronize()``:
       decode and prefill faults) with ``Resilience``: faults of both
       kinds, quarantined lanes, spills = restores, streams equal 16/16;
    s. graphs — a, b and d on llama3-8b at full width cut to 2 of 32
-      layers, three drives each, with graphs and under ``graphs.eager()``
+      layers, two drives each, with graphs and under ``graphs.eager()``
       (every compiled step, the prefill steps included, run as plain ops
       on its static buffers, the counterpart of ``jax.disable_jit``):
       each drive's greedy tokens and exact launch counts equal to its
@@ -234,10 +234,11 @@ Phases, each ending in ``torch.cuda.synchronize()``:
       checkpoint read back bit for bit; step walls beside the writes they
       overlapped, how long ``save()`` blocked against the write's time on
       the runtime's thread, bytes written, memory and the graph pool;
-   c. train-hybrid — hymba-1.5b at full width (32 layers, bf16, remat), 3
-      compiled steps of 8 x 2048 and one profiled, and their ``eager()``
-      twins: ``flash_attention`` (banded) 64, ``ssd_scan`` 64,
-      ``ssd_scan_bwd`` 32 a step, ``_against_eager``, walls and memory;
+   c. train-hybrid — hymba-1.5b at full width cut to 16 of 32 layers
+      (bf16, remat), 3 compiled steps of 8 x 2048 and one profiled, and
+      their ``eager()`` twins: ``flash_attention`` (banded) 32,
+      ``ssd_scan`` 32, ``ssd_scan_bwd`` 16 a step, ``_against_eager``,
+      walls and memory;
 9. train check — reduced llama3-8b in float32 trained 3 compiled steps on
    the card and on the CPU, fissioned and not: losses, parameters, launch
    counts and a replay a step; reduced mamba2, hymba, deepseek-moe-16b,
@@ -255,15 +256,15 @@ Phases, each ending in ``torch.cuda.synchronize()``:
     model) = (2, 2); each rank first runs once every collective the phase
     uses; the functional all-gather's CUDA kernel is c10d's, since gloo's
     functional all-gather of CUDA tensors never completes):
-    a. sharded-train — llama3-8b at full width cut to 4 layers, parameters
+    a. sharded-train — llama3-8b at full width cut to 2 layers, parameters
        placed by ``param_shardings``, ``make_train_step(..., mesh=)`` on
        phase 8's 8 x 512 batch in one microbatch (microbatches multiply
        the FSDP gathers, fissioned or not), 2 steps, held to the same
        steps unsharded on the card
        (same seed and batches): both losses within 1e-3 relative, layer 0
        of ``wq`` after them within 0.25 of the distance the unsharded
-       steps moved it; ``wq``'s local shard (4, 2048, 16, 128), per
-       rank and step ``flash_attention`` = 4 and ``batched_gather`` = 1
+       steps moved it; ``wq``'s local shard (2, 2048, 16, 128), per
+       rank and step ``flash_attention`` = 2 and ``batched_gather`` = 1
        (the masked vocabulary-parallel gather); step
        walls, peak memory, and the second step's collectives by kind,
        count, bytes and mesh axis (``OpCost``) printed per rank;
@@ -290,18 +291,18 @@ Phases, each ending in ``torch.cuda.synchronize()``:
        fissioned (Rule A on each rank's traced program, the plan kept
        across steps), 2 steps, held to an unsharded fissioned twin at 2
        microbatches on the card as a is; per rank and step
-       ``batched_gather`` = 1 and ``flash_attention`` = 8; ``trace_body``
+       ``batched_gather`` = 1 and ``flash_attention`` = 4; ``trace_body``
        in the first step only, as much as a one-step run that traces
        afresh does, whose loss it equals bit for bit; its
        counted step equal to c's dry run in flops and collectives;
     f. sharded-decode — a's model at 2 of 32 layers (full width) decoding
        on the mesh: an unsharded twin on the card prefills 8 random
        256-token prompts into caches of 512
-       rows and takes 16 greedy steps; each rank places the twin's caches
+       rows and takes 8 greedy steps; each rank places the twin's caches
        as the dry run places a decode cell's, in the default layout
        (lanes over ``data``, replicated over ``model``) and under
        ``kv_seq_shard`` (rows over ``model``: the split-KV decode), and
-       takes 16 steps on the twin's tokens: every step's logits within
+       takes 8 steps on the twin's tokens: every step's logits within
        0.05 x max |logit| of the twin's, the new cache rows of layer 0
        within 1e-2 of their largest entry and of every layer within 0.05,
        ``decode_attention`` = 2 a step and ``batched_gather`` = 1, and
@@ -309,6 +310,39 @@ Phases, each ending in ``torch.cuda.synchronize()``:
        more than the default layout's and no more all-gathers over
        ``model`` (no cache gathered); step walls printed, never
        compared.
+
+12. examples (run after phase 10, before phase 11) — the JAX package's
+    examples through the port's twins (``repro_torch.examples``), at
+    full width, weights from seed 0:
+    a. depth — llama3-8b (32 layers, bf16) on ``PagedInferenceEngine``
+       at ``spec_depth`` 1, 2 and 4 and on ``InferenceEngine`` at 2
+       (``overlap=True``, ``chunk_tokens`` 256, ``PureAsync``), 48
+       single-request bets over 6 templates, prompts of 128-256 tokens and
+       three of 320-512 (chunked), 16-48 new tokens; each engine driven
+       fresh and warmed, then depth 2 under ``graphs.eager()``: every
+       stream equal to depth 1's request by request, no speculation
+       crash, the ledger balanced, exact launches against the engine's
+       counters, every dispatch a call of its compiled step and every
+       call but a step's first a replay; tokens/s, TTFT, aborts and
+       settle order printed, never compared;
+    b. serving example — ``serve_continuous_batching``'s strategies,
+       mixed-template lanes (each template's own bucket), overlap demo
+       (``kv_shares`` from ``lane_weights``) and depth-2 demo (the
+       oversized prompt chunked, every spilled lane restored) on
+       llama3-8b at the example's lane sizes, exact launches;
+    c. training example — ``train_checkpoint_restart.run`` on olmo-1b
+       (16 layers, bf16, float32 moments): 6 steps, an asynchronous
+       checkpoint every 2, ``on_preempt`` at 6, a restore into fresh
+       tensors and 2 resumed steps, against the preempted state continued
+       in memory: the first resumed loss bit for bit, the second within
+       1e-5 relative; one compiled step copied into and replayed every
+       call; ``save()``'s blocked seconds and each write's seconds and
+       bytes printed;
+    d. device fission — ``device_fission`` at the example's sizes and on
+       the llama3-8b embedding table (128256 x 4096 bf16, 256 ids):
+       ``batched_gather`` launched 256 times by the plain loop and once
+       by the fissioned one, the same bits, the gradient's nonzero rows
+       the ids.
 
 Phase 3 also times the flash kernel at a rank's shard in phase 11a (B 1,
 16 / 4 heads, S 512; the JSON line's sub-row 2g), the decode kernel with
@@ -503,7 +537,8 @@ def _paged_case(gen, rng, b, hq, hkv, d, ps, np_, dtype):
     vp = torch.randn((n_pages, ps, hkv, d), generator=gen, device="cuda").to(dtype)
     tables = rng.permutation(np.arange(1, n_pages)).reshape(b, np_).astype(np.int32)
     lengths = rng.integers(1, np_ * ps + 1, size=(b,)).astype(np.int32)
-    lengths[0] = 0  # a lane with nothing to attend: zeros, never NaN
+    if b > 1:
+        lengths[0] = 0  # a lane with nothing to attend: zeros, never NaN
     return (q, kp, vp, torch.as_tensor(tables, device="cuda"),
             torch.as_tensor(lengths, device="cuda"))
 
@@ -900,7 +935,8 @@ CONFIG_HEADS = (("deepseek-moe-16b/olmo-1b", 16, 16), ("qwen1.5-4b", 20, 20),
 
 def _config_shapes(timer, gen, rng) -> None:
     """The three attention kernels of the serving paths at the new
-    configurations' head layouts, bf16, D 128, against their plain
+    configurations' head layouts, bf16, D 128 (both decode kernels at 8
+    lanes and at 1), against their plain
     versions at the tolerances above (1e-2), a repeated call bit for bit,
     and timed beside the plain version, the bound and the library call
     (SDPA; the paged kernel has none): a group of 1 (Hq = Hkv) and
@@ -918,20 +954,22 @@ def _config_shapes(timer, gen, rng) -> None:
 
     d, bf = 128, torch.bfloat16
     for label, hq, hkv in CONFIG_HEADS:
-        args = _paged_case(gen, rng, 8, hq, hkv, d, 16, 32, bf)
-        out = paged_decode_attention_cuda(*args)
-        err = _compare(f"paged_decode_attention bf16 {label} B=8 Hq={hq} Hkv={hkv} D={d} "
-                       "ps=16 NP=32", out, paged_decode_ref(*args), 1e-2, 1e-2)
-        _repeat(f"paged_decode_attention ({label})",
-                lambda: paged_decode_attention_cuda(*args), out)
-        kv_tokens = int(args[4].sum())
-        bound, by = _bound(args[0].numel() * 2 * 2 + 2 * kv_tokens * hkv * d * 2
-                           + args[3].numel() * 4 + 8 * 4, 4 * hq * d * kv_tokens)
-        log(f"[kernels] paged_decode_attention ({label}, Hq {hq} Hkv {hkv}): " + repr(dict(
-            max_abs_err=err, ms=timer.ms(lambda: paged_decode_attention_cuda(*args)),
-            plain_ms=timer.ms(lambda: paged_decode_ref(*args)), bound_ms=bound,
-            bound_by=by, library_ms=None)))
-        del args, out
+        for lanes in (8, 1):
+            args = _paged_case(gen, rng, lanes, hq, hkv, d, 16, 32, bf)
+            out = paged_decode_attention_cuda(*args)
+            err = _compare(f"paged_decode_attention bf16 {label} B={lanes} Hq={hq} Hkv={hkv} "
+                           f"D={d} ps=16 NP=32", out, paged_decode_ref(*args), 1e-2, 1e-2)
+            _repeat(f"paged_decode_attention ({label}, B {lanes})",
+                    lambda: paged_decode_attention_cuda(*args), out)
+            kv_tokens = int(args[4].sum())
+            bound, by = _bound(args[0].numel() * 2 * 2 + 2 * kv_tokens * hkv * d * 2
+                               + args[3].numel() * 4 + lanes * 4, 4 * hq * d * kv_tokens)
+            log(f"[kernels] paged_decode_attention ({label}, Hq {hq} Hkv {hkv}, B {lanes}): "
+                + repr(dict(max_abs_err=err,
+                            ms=timer.ms(lambda: paged_decode_attention_cuda(*args)),
+                            plain_ms=timer.ms(lambda: paged_decode_ref(*args)),
+                            bound_ms=bound, bound_by=by, library_ms=None)))
+            del args, out
 
         b, sq = 8, 256
         fq, fk, fv = _flash_case(gen, b, hq, hkv, sq, d, bf)
@@ -1770,7 +1808,7 @@ def phase_prefix(arch, params, device="cuda", suffix: str = "", drives: int = 1)
     return out
 
 
-WARM_DRIVES = 2  # 4a, 4b, 4d, 4s: a warmed engine's drives after its first
+WARM_DRIVES = 1  # 4a, 4b, 4d, 4s: a warmed engine's drives after its first (2 until PR 26)
 TWIN_LAYERS = 2  # 4s's depth: llama3-8b at full width, 2 of its 32 layers
 
 
@@ -4296,9 +4334,12 @@ def _check_readback(ckpt, out) -> None:
         fail(f"train-ssm: the checkpoint of step {step} differs from what was saved: {bad[:5]}")
 
 
+HYBRID_TRAIN_LAYERS = 16  # 8c: hymba-1.5b at full width, 16 of its 32 layers (32 until PR 26)
+
+
 def phase_train_hybrid(smi, steps: int = 3, batch: int = 8, seq: int = 2048):
-    """Phase 8c, ``train-hybrid``: hymba-1.5b at full width (32 hybrid
-    layers, bf16, seed 0, remat), ``steps`` compiled train steps of
+    """Phase 8c, ``train-hybrid``: hymba-1.5b at full width cut to
+    ``HYBRID_TRAIN_LAYERS`` hybrid layers (bf16, seed 0, remat), ``steps`` compiled train steps of
     ``batch`` x ``seq`` tokens through ``make_train_step`` and one more
     under the profiler, then the same under ``graphs.eager()``: the banded
     flash kernel and ``ssd_scan`` forward, ``ssd_scan_bwd`` in the
@@ -4307,9 +4348,8 @@ def phase_train_hybrid(smi, steps: int = 3, batch: int = 8, seq: int = 2048):
     op's backward builds the plain version's (8, 25, 2048, 2048) float32
     scores, a layer at a time)."""
     import torch
-    from repro_torch.models.registry import get_arch
 
-    arch = get_arch("hymba-1.5b")
+    arch = _cut("hymba-1.5b", n_layers=HYBRID_TRAIN_LAYERS)
     want = _train_expect(arch.cfg)
     pair = {}
 
@@ -4499,6 +4539,391 @@ def phase_fission(v: int = 10_000, d: int = 256, n: int = 2048, device: str = "c
     _sync(device)
 
 
+# ---------------------------------------------------------------- phase 12
+DEPTH_ENGINE = dict(n_lanes=8, max_prompt_len=256, max_len=576)  # 12a; the paged one in pages of 16
+DEPTH_CHUNK = 256
+DEPTHS = (1, 2, 4)
+
+
+def _depth_requests(Request, vocab: int, n: int = 48, n_templates: int = 6):
+    """12a's traffic, ``benchmarks/bench_lanes.py::run_overlap_depth``'s
+    shape at full width: ``n`` single-request bets over ``n_templates``
+    templates (round robin), prompts of 128-256 tokens and three of
+    320-512, longer than ``max_prompt_len`` 256 (chunked), generation
+    lengths staggered over 16-48 tokens, from ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 257, size=n)
+    for at, m in zip((5, 20, 35), rng.integers(320, 513, size=3)):
+        lens[at] = m
+    news = rng.integers(16, 49, size=n)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, size=int(m)).astype(np.int32),
+                    max_new_tokens=int(k), template=f"t{i % n_templates}")
+            for i, (m, k) in enumerate(zip(lens, news))]
+
+
+def _depth_drives(label, arch, params, depth: int, paged: bool, device: str, drives: int,
+                  want=None):
+    """``drives`` drives of 12a's traffic at ``spec_depth`` ``depth`` on one
+    fresh engine (``PureAsync``, ``overlap=True``, ``chunk_tokens`` 256):
+    every request's greedy stream equal to ``want``'s (by request), no
+    speculation crash, the ledger balanced, exact launches against the
+    engine's counters (``flash_attention`` = prefill dispatches x L,
+    aborted bets included; ``decode_attention`` = tokens through the
+    decode path x L, plus decode ticks x L on the dense engine;
+    ``paged_decode_attention`` = decode ticks x L), and through ``_drive``
+    every dispatch a call of its compiled step, each step's first call a
+    real run and the others replays.  Returns (the first drive's launches,
+    its streams, [(tokens/s, TTFT p50 ms) per drive])."""
+    import torch
+    from repro_torch.core.strategies import PureAsync
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    L = arch.cfg.n_layers
+    if paged:
+        eng = PagedInferenceEngine(arch, params, page_size=16, device=device, **DEPTH_ENGINE)
+    else:
+        eng = InferenceEngine(arch, params, device=device, **DEPTH_ENGINE)
+    n_prefill = _count_calls(eng, "_prefill_step")
+    n_extend = _count_calls(eng, "_extend")
+    fed = _count_calls(eng, "_extend", lambda _c, toks, _l: int(toks.shape[1]))
+    first, facts = None, []
+    for i in range(drives):
+        lab = label if i == 0 else f"{label}-warm{i}"
+        sched = ContinuousBatchingScheduler(eng, strategy=PureAsync(), overlap=True,
+                                            spec_depth=depth, chunk_tokens=DEPTH_CHUNK)
+        c0 = (n_prefill[0], n_extend[0], fed[0], eng.dispatches, eng.decode_steps,
+              getattr(eng, "fused_folds", 0))
+        reqs = _depth_requests(Request, arch.cfg.vocab_size)
+        launches, wall = _drive(lab, eng, sched, reqs, device)
+        pre, ext, tok, disp, ticks, folds = (b - a for a, b in zip(c0, (
+            n_prefill[0], n_extend[0], fed[0], eng.dispatches, eng.decode_steps,
+            getattr(eng, "fused_folds", 0))))
+        st = sched.stats
+        streams = RUNS[lab]["streams"]
+        ttft = float(np.median([r.metrics.ttft for r in reqs])) * 1e3
+        facts.append((RUNS[lab]["tokens"] / wall, ttft))
+        log(f"[{lab}] spec_depth {depth}: spec_dispatched {st.spec_dispatched}, "
+            f"spec_committed {st.spec_committed}, spec_aborted {st.spec_aborted}, "
+            f"spec_chunks {st.spec_chunks}, spec_crashes {st.spec_crashes}, fused_folds "
+            f"{folds}; prefill dispatches {pre}, chunk extends {ext}, tokens through the "
+            f"decode path {tok}; settle order (tick, admitted) {st.admission_trace}")
+        if st.spec_crashes or st.spec_dispatched != st.spec_committed + st.spec_aborted:
+            fail(f"{lab}: spec_crashes {st.spec_crashes}, or spec_dispatched != "
+                 "spec_committed + spec_aborted")
+        if st.spec_chunks < 1 or disp != pre + ext + ticks - folds:
+            fail(f"{lab}: no chunk, or dispatches != prefills + extends + ticks - fused folds")
+        want_launches = {"flash_attention": pre * L, "ssd_scan": 0,
+                         "decode_attention": (tok if paged else tok + ticks) * L,
+                         "paged_decode_attention": ticks * L if paged else 0}
+        _expect(lab, launches, want_launches)
+        _expect_chunk_calls(lab, tok, device)
+        want = streams if want is None else want
+        bad = [r.rid for r, a, b in zip(reqs, streams, want) if a != b]
+        if bad:
+            fail(f"{lab}: greedy streams differ from depth 1's for requests {bad}")
+        first = (launches, streams) if first is None else first
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return first[0], first[1], facts
+
+
+def phase_depth(arch, params, device="cuda") -> dict:
+    """12a: depth k over the compiled engines, llama3-8b at full width.
+    ``spec_depth`` 1, 2 and 4 on ``PagedInferenceEngine`` (fused chunk
+    ticks) and 2 on the dense ``InferenceEngine``, each fresh and warmed
+    (a second drive of the same engine), then depth 2 on the paged engine
+    under ``graphs.eager()``: every stream equal to the paged depth-1
+    run's, request by request.  Returns launches by path."""
+    from repro_torch.serving import graphs
+
+    paths, facts = {}, {}
+    runs = [(f"depth-{d}", d, True) for d in DEPTHS] + [("depth-2-dense", 2, False)]
+    want = None
+    for label, depth, paged in runs:
+        paths[label], streams, facts[label] = _depth_drives(
+            label, arch, params, depth, paged, device, 1 + 1, want)
+        want = streams if want is None else want
+    with graphs.eager():
+        paths["depth-2-eager"], _s, facts["depth-2-eager"] = _depth_drives(
+            "depth-2-eager", arch, params, 2, True, device, 1, want)
+    log(f"[depth] tokens/s and TTFT p50 ms (fresh, warmed) by run: {facts}")
+    return paths
+
+
+def _engines_made():
+    """Patch the engines' ``_compile`` to collect every engine built while
+    open, and ``_extend`` to count the tokens it feeds (this script's
+    instrumentation): yields (engines, fed)."""
+    from repro_torch.serving.engine import InferenceEngine
+
+    made, fed = [], [0]
+    compile_, extend = InferenceEngine._compile, InferenceEngine._extend
+
+    def compile_and_keep(self):
+        made.append(self)
+        return compile_(self)
+
+    def extend_and_count(self, cache, toks, lengths):
+        fed[0] += int(np.asarray(toks).shape[1])
+        return extend(self, cache, toks, lengths)
+
+    return (mock.patch.object(InferenceEngine, "_compile", compile_and_keep),
+            mock.patch.object(InferenceEngine, "_extend", extend_and_count), made, fed)
+
+
+def _example_part(label, arch, fn, device="cuda"):
+    """Run one part of the serving example with every launch count set to
+    0 before and read after; every engine it built ran each compiled step
+    once for real and replayed it after, and launched exactly one
+    ``flash_attention`` a layer per prefill dispatch and one
+    ``decode_attention`` a layer per decode tick and per token fed through
+    the decode path.  Returns (fn's result, launches)."""
+    from repro_torch.kernels import registry
+
+    L = arch.cfg.n_layers
+    p_compile, p_extend, made, fed = _engines_made()
+    _sync(device)
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    with p_compile, p_extend:
+        out = fn()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    ticks = sum(e._tick_step.calls for e in made)
+    prefills = sum(e._prefill_steps.calls for e in made)
+    chunks = sum(s.calls for e in made for s in e._chunk_steps.values())
+    for e in made:
+        _expect_first_call_runs(label, _steps_of(e), device)
+    if device == "cuda" and chunks != fed[0]:
+        fail(f"{label}: {chunks} chunk-step calls for {fed[0]} tokens fed through _extend")
+    _expect(label, launches, {"flash_attention": prefills * L,
+                              "decode_attention": (ticks + fed[0]) * L,
+                              "paged_decode_attention": 0, "ssd_scan": 0})
+    log(f"[{label}] {len(made)} engines, {ticks} decode ticks, {prefills} prefill "
+        f"dispatches, {fed[0]} tokens through the decode path in {wall!r} s; launches "
+        f"{launches}")
+    return out, launches
+
+
+def phase_example_serving(arch, params, device="cuda") -> dict:
+    """12b: ``repro_torch.examples.serve_continuous_batching``'s parts on
+    ``arch`` at full width, at the example's lane sizes (``max_prompt_len``
+    16, ``max_len`` 48): the three strategies, the mixed-template lanes
+    (each template's bucket its own: homogeneous admissions), the overlap
+    demo with ``kv_shares`` from ``lane_weights``, and the depth-2 demo
+    (its oversized prompt chunked, every spilled lane restored).  Returns
+    launches by part."""
+    from repro_torch.examples import serve_continuous_batching as ex
+    from repro_torch.serving.engine import proportional_shares
+
+    vocab = arch.cfg.vocab_size
+    rng = np.random.default_rng(0)
+    paths = {}
+
+    def in_vocab(label, done, n):
+        if len(done) != n or not all(r.done and r.generated and
+                                     all(0 <= t < vocab for t in r.generated) for r in done):
+            fail(f"{label}: not every request finished with in-vocabulary tokens")
+
+    runs, paths["example-strategies"] = _example_part(
+        "example-strategies", arch, lambda: ex.compare_strategies(arch, params, rng,
+                                                                  verbose=False, device=device),
+        device)
+    for name, (done, eng, dt) in runs.items():
+        in_vocab(f"example {name}", done, 24)
+        toks = sum(len(r.generated) for r in done)
+        log(f"[example-strategies] {name}: {toks / dt!r} tokens/s, TTFT p50 "
+            f"{float(np.median([r.metrics.ttft for r in done])) * 1e3!r} ms, decode steps "
+            f"{eng.decode_steps}, prefills {eng.prefill_calls} (warmed engine)")
+    (done, sched, eng), paths["example-lanes"] = _example_part(
+        "example-lanes", arch, lambda: ex.mixed_lanes_demo(arch, params, rng, verbose=False,
+                                                           device=device), device)
+    in_vocab("example-lanes", done, 16)
+    adm = {t: [n for _, n in tr] for t, tr in sched.stats.lane_admissions.items()}
+    log(f"[example-lanes] admissions {adm}; buckets {eng.template_shapes}")
+    if eng.template_shapes["chat"][1] != 8 or eng.template_shapes["summarize"][1] != 16 \
+            or {t: sum(v) for t, v in adm.items()} != {"chat": 8, "summarize": 8}:
+        fail("example-lanes: a lane's admissions were not homogeneous")
+    (done, st), paths["example-overlap"] = _example_part(
+        "example-overlap", arch, lambda: ex.overlap_kv_demo(arch, params, verbose=False,
+                                                            device=device), device)
+    in_vocab("example-overlap", done, 16)
+    shares = proportional_shares({"chat": 2.0, "summarize": 1.0}, n_lanes=8, reserve=0.5)
+    log(f"[example-overlap] kv_shares {shares}; spec {st.spec_dispatched} dispatched, "
+        f"{st.spec_committed} committed, {st.spec_aborted} aborted; admissions "
+        f"{st.lane_admissions}")
+    if shares != {"chat": 3, "summarize": 1} or \
+            st.spec_dispatched != st.spec_committed + st.spec_aborted or st.spec_crashes:
+        fail("example-overlap: kv_shares, or the speculation ledger")
+    (done, st), paths["example-depth-spill"] = _example_part(
+        "example-depth-spill", arch, lambda: ex.depth_spill_demo(arch, params, verbose=False,
+                                                                 device=device), device)
+    in_vocab("example-depth-spill", done, 12)
+    log(f"[example-depth-spill] spec {st.spec_dispatched} dispatched / {st.spec_committed} "
+        f"committed / {st.spec_aborted} aborted, {st.spec_chunks} prefill chunks, kv "
+        f"spilled {st.kv_spilled} restored {st.kv_restored}, crashes {st.spec_crashes}")
+    if st.spec_chunks < 1 or st.kv_restored != st.kv_spilled or st.spec_crashes or \
+            st.spec_dispatched != st.spec_committed + st.spec_aborted:
+        fail("example-depth-spill: need spec_chunks >= 1, kv_restored == kv_spilled, no "
+             "crash and a balanced ledger")
+    return paths
+
+
+EXAMPLE_TRAIN = dict(steps=6, every=2, resume=2)  # 12c's cadence (the reference: 60, 20, 20)
+
+
+def phase_example_train(smi, arch=None, params=None) -> dict:
+    """12c: ``repro_torch.examples.train_checkpoint_restart.run`` on
+    olmo-1b at full width (16 layers, bf16 parameters, float32 moments,
+    the reference's AdamW and ``donate=False``), 6 steps with an
+    asynchronous checkpoint every 2, ``on_preempt`` at 6, a restore into
+    fresh tensors and 2 resumed steps; beside it the uninterrupted twin,
+    the preempted parameters and state continued in memory through the
+    same compiled step on the same batches.  The first resumed loss bit
+    for bit the twin's step 7, the second within 1e-5 relative (the
+    backward's sums with atomics); one compiled step, every call a copy
+    in, every call after the first a replay; each call's launches
+    ``_train_expect``'s.  Returns the launches."""
+    import tempfile
+
+    import torch
+    from repro_torch.examples import train_checkpoint_restart as ex
+    from repro_torch.kernels import registry
+
+    if arch is None:
+        arch, params = _init_full("olmo-1b", smi)
+    device = _device_of(params)
+    c = EXAMPLE_TRAIN
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        out = ex.run(arch, params, ckpt_dir=d, verbose=False, **c)
+        wall = time.perf_counter() - t0
+        params, state, step = out["params"], out["state"], out["step"]
+        twin = []
+        for i in range(c["resume"]):
+            params, state, m = step(params, state, out["stream"].batch_at(c["steps"] + i))
+            twin.append(float(m["loss"]))
+        _sync(device)
+        launches = registry.launch_counts()
+    writes = [(w["step"], w["bytes"], w["end"] - w["start"]) for w in out["writes"]]
+    calls = c["steps"] + 2 * c["resume"]
+    log(f"[example-train] {arch.cfg.name} on {smi}: losses {out['losses']}, resumed at "
+        f"{out['resumed_at']}: {out['resumed']}, uninterrupted twin {twin}; save() blocked "
+        f"{out['save_blocked']} s; writes (step, bytes, s) {writes}; on_preempt "
+        f"{out['preempt_s']!r} s; restore {out['restore_s']!r} s; run {wall!r} s; step "
+        f"calls {step.calls}, replays {step.replays}, copies in {step.copies_in}, "
+        f"signatures {len(step.cache.steps)}; launches {launches}")
+    if not all(np.isfinite(out["losses"] + out["resumed"] + twin)):
+        fail("example-train: a loss is not finite")
+    if out["resumed_at"] != c["steps"] or out["resumed"][0] != twin[0]:
+        fail(f"example-train: resumed at {out['resumed_at']}, first resumed loss "
+             f"{out['resumed'][0]!r} against the twin's {twin[0]!r}")
+    if any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(out["resumed"], twin)):
+        fail("example-train: a resumed loss differs from the twin's beyond 1e-5 relative")
+    if device == "cuda" and (step.calls, step.replays, step.copies_in,
+                             len(step.cache.steps)) != (calls, calls - 1, calls, 1):
+        fail("example-train: not one compiled step copied into and replayed every call")
+    if [w[0] for w in writes] != list(range(c["every"], c["steps"] + 1, c["every"])):
+        fail(f"example-train: writes of steps {[w[0] for w in writes]}")
+    _expect("example-train", launches,
+            {k: v * calls for k, v in _train_expect(arch.cfg).items()})
+    del out, params, state, step
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+EXAMPLE_TABLES = (("example", 5000, 64, "float32"),
+                  ("llama3-8b embedding", 128256, 4096, "bfloat16"))
+
+
+def phase_example_fission(device="cuda", tables=EXAMPLE_TABLES) -> dict:
+    """12d: ``repro_torch.examples.device_fission`` at the example's sizes
+    (a 5000 x 64 float32 table, ids ``arange(256) * 37 % 5000``) and on
+    the llama3-8b embedding table (128256 x 4096 bf16, 256 ids): the plain
+    loop launches ``batched_gather`` once an id, the fissioned one once;
+    both give the same bits; one query batched; the traced programs hold
+    256 per-iteration queries against one batched gather; the gradient's
+    nonzero rows are the distinct ids.  Returns the launches."""
+    import torch
+    from repro_torch.core.fission import FissionReport, fission_scan, scan
+    from repro_torch.examples import device_fission as ex
+    from repro_torch.kernels import registry
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    total = {}
+    for label, v, d, dtype in tables:
+        table = torch.randn((v, d), generator=gen, device=device).to(getattr(torch, dtype))
+        ids = ((torch.arange(256, device=device) * 37) % v).to(torch.int32)
+        got = {}
+        for name, fn in (("scan", scan), ("fission_scan", fission_scan)):
+            rep = FissionReport()
+            _sync(device)
+            registry.reset_launches()
+            t0 = time.perf_counter()
+            out = ex.loop(fn, table, ids, report=rep if fn is fission_scan else None)
+            _sync(device)
+            got[name] = (out, time.perf_counter() - t0, registry.launch_counts(), rep)
+            for k, n in got[name][2].items():
+                total[k] = total.get(k, 0) + n
+        (a, wa, la, _r), (b, wb, lb, rep) = got["scan"], got["fission_scan"]
+        plain, fissioned = ex.structure(scan, table, ids), ex.structure(fission_scan, table, ids)
+        g, rows = ex.table_grad(table, ids)
+        nz = torch.nonzero(g.float().abs().sum(-1)).flatten()
+        distinct = torch.unique(ids.long())
+        log(f"[example-fission] {label} {v} x {d} {dtype}: carry {float(a[0])!r} / "
+            f"{float(b[0])!r}; batched_gather launches {la['batched_gather']} / "
+            f"{lb['batched_gather']}; walls {wa!r} / {wb!r} s; {rep.n_queries_batched} query "
+            f"batched; traced {plain} / {fissioned}; gradient {tuple(g.shape)}, {rows} "
+            f"nonzero rows of {len(distinct)} distinct ids")
+        if (la["batched_gather"], lb["batched_gather"]) != (len(ids), 1):
+            fail(f"example-fission {label}: batched_gather launches {la['batched_gather']} / "
+                 f"{lb['batched_gather']}, expected {len(ids)} / 1")
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            fail(f"example-fission {label}: the fissioned loop's results differ")
+        if rep.n_queries_batched != 1 or plain != {"table_gather": len(ids),
+                                                   "batched_gather": 0} or \
+                fissioned != {"table_gather": 0, "batched_gather": 1}:
+            fail(f"example-fission {label}: the loop's structure")
+        if rows != len(distinct) or not torch.equal(nz, distinct):
+            fail(f"example-fission {label}: the gradient's nonzero rows are not the ids")
+        del table, g
+    _sync(device)
+    return total
+
+
+def phase_examples(smi) -> dict:
+    """Phase 12: the JAX package's examples through the port's twins
+    (``repro_torch.examples``), 12a-d.  Returns launches by path."""
+    import torch
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch("llama3-8b")
+    params = arch.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[examples] llama3-8b full width, weights from seed 0 (phase 4's) on {smi}")
+    _warm(arch, params)
+    paths = phase_depth(arch, params)
+    _elapsed("12a depth")
+    paths.update(phase_example_serving(arch, params))
+    _elapsed("12b serving example")
+    del arch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["example-train"] = phase_example_train(smi)
+    _elapsed("12c training example")
+    paths["example-fission"] = phase_example_fission()
+    return paths
+
+
 # ---------------------------------------------------------------- phase 11
 SHARD_MESH = (2, 2)  # (data, model): four ranks sharing the one card, over gloo
 # 11a: phase 8's batch in one microbatch (4 microbatches move 13.2 GB a
@@ -4508,7 +4933,10 @@ SHARD_MESH = (2, 2)  # (data, model): four ranks sharing the one card, over gloo
 SHARD_TRAIN = dict(steps=2, batch=8, seq=512)
 SHARD_FISSION_MB = 2
 # 11f: decode on the mesh, 8 lanes of 256-token prompts, caches of 512 rows
-SHARD_DECODE = dict(lanes=8, prompt=256, max_len=512, steps=16)
+SHARD_DECODE = dict(lanes=8, prompt=256, max_len=512, steps=8)  # 16 steps until PR 26
+# 11a, 11c, 11e: llama3-8b at full width, 2 of its 32 layers (4 until PR 26;
+# phase 12's time came out of earlier phases)
+SHARD_TRAIN_LAYERS = 2
 SHARD_DECODE_LAYERS = 2  # 11f: llama3-8b at full width, 2 of its 32 layers
 MOE_EP_LAYERS = 4  # 11b: deepseek-moe-16b's dense block and 3 MoE blocks
 MOE_EP_BATCH = (8, 256)
@@ -4530,7 +4958,7 @@ def _sharded_train_arch(reduced: bool = False):
     kw = dict(query_embedding=True, remat=False)
     if reduced:
         return _reduced_cut("llama3-8b", **kw)
-    return _cut("llama3-8b", n_layers=TRAIN_LAYERS, **kw)
+    return _cut("llama3-8b", n_layers=SHARD_TRAIN_LAYERS, **kw)
 
 
 def _sharded_decode_arch(reduced: bool = False):
@@ -4627,7 +5055,7 @@ def _collective_probe(mesh, device: str) -> dict:
 
 
 def _rank_11a(mesh, device: str, reduced: bool, mb: int = 1, retrace: bool = False) -> dict:
-    """11a on one rank: llama3-8b at full width cut to 4 layers, its
+    """11a on one rank: llama3-8b at full width cut to 2 layers, its
     parameters placed by ``param_shardings``, ``SHARD_TRAIN["steps"]``
     sharded steps; the last under ``OpCost``.  With ``mb`` > 1 (11e) the
     batch is split into ``mb`` microbatches and the loop fissioned: its
@@ -5073,7 +5501,7 @@ def _gate_11a(smi, res, ref, reduced: bool = False, key: str = "11a", mb: int = 
     want = {"flash_attention": cfg.n_layers * mb, "batched_gather": 1,
             "paged_decode_attention": 0, "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     dm, mm = SHARD_MESH
-    wq = (cfg.n_layers, cfg.d_model // dm, cfg.n_heads // mm, cfg.hd)  # (4, 2048, 16, 128)
+    wq = (cfg.n_layers, cfg.d_model // dm, cfg.n_heads // mm, cfg.hd)  # (2, 2048, 16, 128)
     tag = "sharded-train" if mb == 1 else "sharded-fission"
     for r, out in enumerate(res):
         a = out[key]
@@ -5333,6 +5761,11 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _device_of(tree) -> str:
+    """The device type of a params tree's first leaf."""
+    return next(iter(_leaves(tree))).device.type
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -5499,6 +5932,9 @@ def main() -> None:
     log(f"[fission] on {smi}")
     phase_fission()
     _elapsed("10 fission")
+    log(f"[examples] on {smi}")
+    paths.update(phase_examples(smi))
+    _elapsed("12 examples")
     log(f"[sharded] on {smi}")
     paths.update(phase_sharded(smi))
     _elapsed("11 sharded")

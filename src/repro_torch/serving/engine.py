@@ -458,8 +458,11 @@ class InferenceEngine:
         # dispatches too.
         self.dispatches = 0
         self._dispatch_lock = threading.Lock()
-        # template -> pinned (batch, prompt) prefill bucket (monotone max).
+        # template -> pinned (batch, prompt) prefill bucket (monotone max),
+        # read and raised under its lock: at spec_depth > 1 several
+        # speculation threads dispatch one template's prefills at once.
         self.template_shapes: dict[str, tuple[int, int]] = {}
+        self._shape_lock = threading.Lock()
         # The stream prefill_dispatch / prefill_resume enqueue on (module
         # docstring); None on the CPU.
         self._stream = None
@@ -690,10 +693,11 @@ class InferenceEngine:
         prompts = [r.prompt[-self.max_prompt_len:] for r in requests]
         plen = min(self.max_prompt_len, _bucket(max(len(p) for p in prompts)))
         if template is not None:
-            pinned = self.template_shapes.get(template, (1, 1))
-            bsz = max(bsz, pinned[0])
-            plen = max(plen, pinned[1])
-            self.template_shapes[template] = (bsz, plen)
+            with self._shape_lock:
+                pinned = self.template_shapes.get(template, (1, 1))
+                bsz = max(bsz, pinned[0])
+                plen = max(plen, pinned[1])
+                self.template_shapes[template] = (bsz, plen)
         toks = np.zeros((bsz, plen), np.int32)
         plens = np.ones((bsz,), np.int32)
         for i, p in enumerate(prompts):

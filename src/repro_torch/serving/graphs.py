@@ -30,23 +30,29 @@ built, and every launch count equals :func:`eager`'s exactly.  A first
 call whose recording fails has already written the state; it raises, and
 so does every later call, without running the function again.
 
-A recording holds one process-wide lock, since only one capture may be
-underway at a time, on a capture stream of its own.  That stream comes
-from PyTorch's high-priority pool: pooled streams are handed out round
-robin, 32 a pool, so after enough engines have each taken a stream of
-the default pool one of them would be the capture stream itself, and the
-speculation thread's work on it would land in another thread's graph.
-The recording's error mode is ``thread_local``, so another thread's
-launches and allocations meanwhile are legal, and the kernels autograd's
-device thread launches on the capture stream (a train step's backward)
-go into its tally.  The garbage collector is held off while a step
-records: a collection could free an older engine's graph, whose teardown
-is illegal while a stream captures and spoils the capture.  A step runs
-and records under ``torch.no_grad()`` unless it is built with
-``grad=True`` (a train step takes its gradients inside); one built with
-``release=True`` empties the allocator's cache before it records, so the
-first call's freed temporaries do not stay reserved beside the graph's
-pool.
+A recording holds one process-wide lock, so one capture is underway at a
+time, on a capture stream of its own for each stream steps replay on (a
+step is called on the stream of its first call). cuBLAS takes its
+workspace per (handle, stream), and a graph keeps the workspace of its
+recording: graphs recorded on one stream by one thread, a tick and a
+prefill say, would share one workspace, and replayed beside each other
+on an engine's two streams their matrix products would write each
+other's partial sums (wrong tokens, and on the card a hang). With a
+capture stream per replay stream, graphs that share a workspace replay
+on one stream, one after the other. The capture streams are made through
+the driver, not taken from PyTorch's pools, which hand out their 32
+streams round robin: a pooled capture stream could be another engine's
+stream or another replay stream's capture stream. The recording's error
+mode is ``thread_local``, so another thread's launches and allocations
+meanwhile are legal, and the kernels autograd's device thread launches
+on the capture stream (a train step's backward) go into its tally. The
+garbage collector is held off while a step records: a collection could
+free an older engine's graph, whose teardown is illegal while a stream
+captures and spoils the capture. A step runs and records under
+``torch.no_grad()`` unless it is built with ``grad=True`` (a train step
+takes its gradients inside); one built with ``release=True`` empties the
+allocator's cache before it records, so the first call's freed
+temporaries do not stay reserved beside the graph's pool.
 
 Graphs that share a memory pool may reuse each other's intermediates, so
 they must never run at the same time, and each one's outputs must be read
@@ -71,6 +77,7 @@ eager on its own: a recording or a replay that fails raises.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import threading
 import time
@@ -84,7 +91,7 @@ from repro_torch.kernels import registry
 __all__ = ["CompiledStep", "StaticInputs", "StepCache", "eager", "is_eager", "new_pool"]
 
 _CAPTURE_LOCK = threading.Lock()
-_CAPTURE_STREAMS: dict = {}  # device index -> the stream recordings run on
+_CAPTURE_STREAMS: dict = {}  # (device index, replay stream) -> the stream its steps record on
 _EAGER_LOCK = threading.Lock()
 _EAGER_DEPTH = 0
 
@@ -191,6 +198,31 @@ def _no_collection():
             gc.enable()
 
 
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream the steps that replay on the current stream record on
+    (module docstring), made at its first use."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    stream = _CAPTURE_STREAMS.get(key)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[key] = _new_stream(device)
+    return stream
+
+
+def _new_stream(device: torch.device) -> torch.cuda.ExternalStream:
+    """A non-blocking stream of this module's own, made through the driver
+    in the calling thread's current context (the thread has run the step
+    once already)."""
+    create = ctypes.CDLL("libcuda.so.1").cuStreamCreate
+    create.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_uint]
+    create.restype = ctypes.c_int
+    handle = ctypes.c_void_p()
+    with torch.cuda.device(device):
+        code = create(ctypes.byref(handle), 1)  # CU_STREAM_NON_BLOCKING
+    if code != 0:
+        raise RuntimeError(f"cuStreamCreate failed with CUresult {code}")
+    return torch.cuda.ExternalStream(handle.value, device=device)
+
+
 def _leaves(out) -> tuple:
     """A step's outputs as a tuple of tensors."""
     return out if isinstance(out, tuple) else (out,)
@@ -267,10 +299,7 @@ class CompiledStep:
         # the template kept apart, so its instantiation is timed apart
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with _CAPTURE_LOCK, self._mode(), _no_collection():
-            stream = _CAPTURE_STREAMS.get(device.index)
-            if stream is None:  # module docstring: why the high-priority pool
-                stream = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device=device,
-                                                                            priority=-1)
+            stream = _capture_stream(device)
             if self.release:
                 torch.cuda.empty_cache()
             t0 = time.perf_counter()

@@ -9,6 +9,8 @@ notes the port adds and names here.  ``core/services.py`` is a copy up to
 """
 from __future__ import annotations
 
+import re
+import sys
 from pathlib import Path
 
 import pytest
@@ -28,6 +30,9 @@ NOTES = {
         '    "torch_block",\n'],
     "launch/roofline.py": [
         'RESULTS = RESULTS.with_name("dryrun_torch.json")  # the port\'s dry run writes its own\n'],
+    "examples/quickstart.py": [
+        "\nThe port's copy, imports rewritten: run it as\n"
+        "``python -m repro_torch.examples.quickstart``.\n"],
 }
 
 VERBATIM = [
@@ -48,6 +53,10 @@ VERBATIM = [
 ]
 
 
+# copies of the reference's examples (base ``examples/``, not ``src/repro/``)
+EXAMPLES = ["examples/quickstart.py"]
+
+
 def _port_text(rel: str) -> str:
     text = (PORT / rel).read_text()
     for note in NOTES.get(rel, ()):
@@ -59,6 +68,11 @@ def _port_text(rel: str) -> str:
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_copy_equals_reference(rel):
     assert _port_text(rel) == (REF / rel).read_text()
+
+
+@pytest.mark.parametrize("rel", EXAMPLES)
+def test_example_copy_equals_reference(rel):
+    assert _port_text(rel) == (ROOT / rel).read_text()
 
 
 def test_services_equal_reference_up_to_model_service():
@@ -74,9 +88,29 @@ def test_services_equal_reference_up_to_model_service():
     assert "jax" not in tail.replace("JAX", "")
 
 
-@pytest.mark.parametrize("rel", VERBATIM + ["core/services.py"])
+@pytest.mark.parametrize("rel", VERBATIM + ["core/services.py"] + EXAMPLES)
 def test_copy_imports_only_the_port(rel):
     for line in (PORT / rel).read_text().splitlines():
         s = line.strip()
         if s.startswith(("from repro", "import repro")):
             assert s.startswith(("from repro_torch", "import repro_torch")), line
+
+
+def test_quickstart_sum_equals_reference(capsys):
+    """Both quickstarts print the same ``sum (both)``: the transformed
+    program's answer equals the original's in each package."""
+    from repro_torch.examples import quickstart
+
+    def printed_sum():
+        out = capsys.readouterr().out
+        return int(re.search(r"sum \(both\)\s*: (\d+)", out).group(1))
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        reference = __import__("quickstart")
+    finally:
+        sys.path.pop(0)
+    reference.main()
+    want = printed_sum()
+    quickstart.main()
+    assert printed_sum() == want == sum(10 * c for c in range(300))

@@ -2212,3 +2212,102 @@ def test_a_step_that_cannot_be_recorded_raises(gen):
         step()
     assert ran == [False, True]
     assert (x * 2).sum().item() == 12.0
+
+
+# ------------------------------------------------------- depth k on the card
+
+def _depth_streams(arch, params, depth: int, paged: bool) -> tuple:
+    """Reduced llama3-8b's depth traffic (single-request bets over four
+    templates, three prompts longer than ``max_prompt_len`` chunked) at
+    ``spec_depth`` ``depth`` on the card → (streams by rid, stats)."""
+    from repro_torch.core.strategies import PureAsync
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.paged_kv import PagedInferenceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    kw = dict(n_lanes=4, max_prompt_len=16, max_len=48, device="cuda")
+    eng = PagedInferenceEngine(arch, params, page_size=8, **kw) if paged else \
+        InferenceEngine(arch, params, **kw)
+    sched = ContinuousBatchingScheduler(eng, strategy=PureAsync(), overlap=True,
+                                        spec_depth=depth, chunk_tokens=8)
+    rng = np.random.default_rng(2)
+    lens = [int(n) for n in rng.integers(4, 17, size=21)] + [23, 27, 30]
+    reqs = [Request(rid=i, prompt=rng.integers(1, 256, size=n).astype(np.int32),
+                    max_new_tokens=int(rng.integers(2, 12)), template=f"t{i % 4}")
+            for i, n in enumerate(lens)]
+    for r in reqs:
+        sched.submit(r)
+    sched.producer_done()
+    sched.run_until_drained()
+    assert all(r.done for r in reqs)
+    return {r.rid: list(r.generated) for r in reqs}, sched.stats
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_depth_four_on_card_equals_depth_one_and_eager(gen, paged):
+    """Four speculation threads over the compiled engine on the card (the
+    prefill steps' first calls recorded from whichever thread dispatches,
+    chunk steps on two streams, the paged engine's fused chunk ticks):
+    every request's stream equals depth 1's and a depth-4 run under
+    ``graphs.eager()``; no speculation crash; the ledger balances."""
+    from repro_torch.serving import graphs
+
+    arch, cpu_params = _reduced("llama3-8b")
+    params = _to(cpu_params, "cuda")
+    base, _st = _depth_streams(arch, params, 1, paged)
+    got, st = _depth_streams(arch, params, 4, paged)
+    with graphs.eager():
+        eager, _st = _depth_streams(arch, params, 4, paged)
+    assert got == base == eager
+    assert st.spec_crashes == 0 and st.spec_chunks >= 1
+    assert st.spec_dispatched == st.spec_committed + st.spec_aborted
+
+
+def test_depth_spill_demo_on_card_equals_eager(gen):
+    """The serving example's depth-2 demo (chunked prefill, host KV spill)
+    on the card: streams per rid equal to the same demo under
+    ``graphs.eager()``, its prompt chunked and every spilled lane
+    restored."""
+    from repro_torch.examples.serve_continuous_batching import depth_spill_demo
+    from repro_torch.serving import graphs
+
+    arch, cpu_params = _reduced("llama3-8b")
+    params = _to(cpu_params, "cuda")
+    done, st = depth_spill_demo(arch, params, verbose=False)
+    with graphs.eager():
+        edone, _est = depth_spill_demo(arch, params, verbose=False)
+    assert {r.rid: r.generated for r in done} == {r.rid: r.generated for r in edone}
+    assert st.spec_chunks >= 1 and st.kv_restored == st.kv_spilled and st.spec_crashes == 0
+
+
+def test_graphs_of_one_thread_replayed_on_two_streams_keep_apart(gen):
+    """Two compiled matrix products recorded by one thread, each at its
+    first call on a stream of its own, then replayed beside each other on
+    those streams 200 times: each replay equals its first call bit for
+    bit.  Recorded on one capture stream they shared one cuBLAS workspace,
+    and split-K products replayed at once wrote each other's partial
+    sums."""
+    from repro_torch.serving import graphs
+
+    x = [torch.randn((8, 14336), generator=gen, device="cuda").to(torch.bfloat16)
+         for _ in range(2)]
+    w = torch.randn((14336, 4096), generator=gen, device="cuda").to(torch.bfloat16) * 0.01
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    steps, want = [], []
+    for i, s in enumerate(streams):
+        inputs = graphs.StaticInputs({"unused": (1,)}, torch.device("cuda"))
+        step = graphs.CompiledStep(lambda i=i: x[i] @ w, inputs, [], torch.device("cuda"))
+        with torch.cuda.stream(s):
+            want.append(step().clone())
+        steps.append(step)
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(200):
+        for i, (s, step) in enumerate(zip(streams, steps)):
+            with torch.cuda.stream(s):
+                outs[i].append(step().clone())
+    torch.cuda.synchronize()
+    assert all(st.replays == 200 for st in steps)
+    for i in range(2):
+        assert all(torch.equal(o, want[i]) for o in outs[i]), i
