@@ -96,6 +96,7 @@ import time
 from collections import OrderedDict, deque
 from typing import Any, Optional
 
+from repro_torch import tracing
 from repro_torch.core.concurrency import QuotaGate, ReadyLanes, ShardedCounter
 from repro_torch.core.lane_policy import LanePolicy
 from repro_torch.core.resilience import (DeadlineExceeded, FailureDomain,
@@ -491,6 +492,8 @@ class AsyncQueryRuntime:
                 live = rs.queued.get(req) or rs.inflight.get(req)
                 if live is not None:
                     live.keys.append(key)
+                    if tracing.enabled() and rs.queued.get(req) is live:
+                        tracing.start((self, key))
                     self.stats.deduped.add()
                     return handle
                 # Re-probe the cache under the registry lock: _complete
@@ -519,6 +522,7 @@ class AsyncQueryRuntime:
             entry = _Entry(key, lane_query, params)
 
         # 3) enqueue on this template's lane
+        tracing.start((self, key))
         self._append_entry(lk, entry)
         return handle
 
@@ -902,6 +906,10 @@ class AsyncQueryRuntime:
                 else:
                     self.stats.batch_executions.add()
             more = bool(lane.entries) and not lane.dead
+        if picked and tracing.enabled():
+            for entry in picked:
+                for k in entry.keys:
+                    tracing.finish((self, k), "runtime.queued", key=k, lane=lane_key)
         if more:
             # Leftover backlog: stay scheduled so another worker (or this
             # one, next round) keeps draining the lane.
@@ -1207,16 +1215,19 @@ class AsyncQueryRuntime:
                 continue
             query_name, picked = work
 
-            out, errs = self._execute_resilient(lane_key, query_name, picked)
-            try:
-                self._complete(picked, out, errs)
-            except BaseException as e:  # noqa: BLE001 — never strand fetchers
-                # A fault in fan-out itself (e.g. a poisoned cache or dedup
-                # registry) must still resolve every attached handle — an
-                # exception mid-_complete would otherwise strand fetchers on
-                # an unsignalled CV forever.  Deliveries are idempotent, so
-                # re-completing the already-resolved prefix is a no-op.
-                self._complete(picked, None, [e] * len(picked))
+            with tracing.span("runtime.batch", lane=lane_key, size=len(picked)) as sp:
+                if tracing.enabled():
+                    sp.set(keys=[k for e in picked for k in e.keys])
+                out, errs = self._execute_resilient(lane_key, query_name, picked)
+                try:
+                    self._complete(picked, out, errs)
+                except BaseException as e:  # noqa: BLE001 — never strand fetchers
+                    # A fault in fan-out itself (e.g. a poisoned cache or dedup
+                    # registry) must still resolve every attached handle — an
+                    # exception mid-_complete would otherwise strand fetchers on
+                    # an unsignalled CV forever.  Deliveries are idempotent, so
+                    # re-completing the already-resolved prefix is a no-op.
+                    self._complete(picked, None, [e] * len(picked))
             # Sticky: keep draining this lane while it has work — the next
             # _take re-checks under the lane lock, so no ready-queue round
             # trip (lock + wakeup) is paid per batch on a busy lane.  The

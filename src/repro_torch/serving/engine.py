@@ -87,6 +87,7 @@ from typing import Callable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as _tf
 from repro_torch.models.registry import Arch
@@ -527,20 +528,23 @@ class InferenceEngine:
                              f"{self.max_len} tokens, got {toks.shape}")
         step = self._chunk_step()
         staging = step.staging
-        with step.exclusive():
-            if cache is not staging:
-                _copy_cache(staging, cache)
-            inputs = step.inputs
-            inputs.put("j", [0])
-            inputs.put("toks", toks[0])
-            inputs.upload(2 + c)  # j, a stale length, the chunk's tokens
-            inputs["length"].copy_(lengths.reshape(1))
-            for _ in range(c):
-                step()
-            logits = step.out.clone() if c else None
-            lengths = inputs["length"].clone()
-            if cache is not staging:
-                _copy_cache(cache, staging)
+        with contextlib.ExitStack() as held:
+            with tracing.span("prefill.hold"):
+                held.enter_context(step.exclusive())
+            with tracing.span("prefill.launch"):
+                if cache is not staging:
+                    _copy_cache(staging, cache)
+                inputs = step.inputs
+                inputs.put("j", [0])
+                inputs.put("toks", toks[0])
+                inputs.upload(2 + c)  # j, a stale length, the chunk's tokens
+                inputs["length"].copy_(lengths.reshape(1))
+                for _ in range(c):
+                    step()
+                logits = step.out.clone() if c else None
+                lengths = inputs["length"].clone()
+                if cache is not staging:
+                    _copy_cache(cache, staging)
         return logits, cache, lengths
 
     def _prefill_step(self, toks: np.ndarray, plens: np.ndarray):
@@ -551,13 +555,16 @@ class InferenceEngine:
         of the staging cache into new tensors → (first (bsz,) int32, KV
         cache), both the caller's."""
         bsz = toks.shape[0]
-        with self._prefill_steps.exclusive(toks.shape) as step:
-            step.inputs.put("tokens", toks)
-            step.inputs.put("plens", plens)
-            step.inputs.upload()
-            first = step().clone()
-            cache = {name: {k: a[:, :bsz].clone() for k, a in stack.items()}
-                     for name, stack in self._prefill_out.items()}
+        with contextlib.ExitStack() as held:
+            with tracing.span("prefill.hold"):
+                step = held.enter_context(self._prefill_steps.exclusive(toks.shape))
+            with tracing.span("prefill.launch"):
+                step.inputs.put("tokens", toks)
+                step.inputs.put("plens", plens)
+                step.inputs.upload()
+                first = step().clone()
+                cache = {name: {k: a[:, :bsz].clone() for k, a in stack.items()}
+                         for name, stack in self._prefill_out.items()}
         return first, cache
 
     # ------------------------------------------------------ compiled steps
@@ -672,7 +679,22 @@ class InferenceEngine:
         now and stages the rest as ``pending`` chunks for
         :meth:`prefill_resume`; a batch holding such prompts becomes one
         single-request part per prompt under an aggregate parent.  Prompts
-        that fit one chunk take the ordinary path."""
+        that fit one chunk take the ordinary path.
+
+        One ``prefill.dispatch`` span, with the requests' ids and prompt
+        lengths and the padded bucket, holds ``prefill.pad`` (the host's
+        padding), ``prefill.hold`` (waiting for the prefill steps' hold) and
+        ``prefill.launch``."""
+        with tracing.span("prefill.dispatch") as sp:
+            staged = self._dispatch(requests, template, chunk)
+            if tracing.enabled():
+                sp.set(rids=_rids(requests), prompts=[len(r.prompt) for r in requests],
+                       shape=tuple(staged.shape))
+            return staged
+
+    def _dispatch(self, requests: Sequence, template: Optional[str],
+                  chunk: Optional[int]) -> StagedPrefill:
+        """:meth:`prefill_dispatch` inside its span."""
         self._check_prompts(requests)
         if chunk is not None and chunk >= 1:
             cprompts = [np.asarray(r.prompt[-(self.max_len - 1):], np.int32)
@@ -689,20 +711,21 @@ class InferenceEngine:
                     np.concatenate([pt.plens for pt in parts]),
                     (len(requests), int(max(len(p) for p in cprompts))),
                     parts=parts)
-        bsz = _bucket(len(requests))
-        prompts = [r.prompt[-self.max_prompt_len:] for r in requests]
-        plen = min(self.max_prompt_len, _bucket(max(len(p) for p in prompts)))
-        if template is not None:
-            with self._shape_lock:
-                pinned = self.template_shapes.get(template, (1, 1))
-                bsz = max(bsz, pinned[0])
-                plen = max(plen, pinned[1])
-                self.template_shapes[template] = (bsz, plen)
-        toks = np.zeros((bsz, plen), np.int32)
-        plens = np.ones((bsz,), np.int32)
-        for i, p in enumerate(prompts):
-            toks[i, : len(p)] = p  # right-pad; causal mask hides pad keys
-            plens[i] = len(p)
+        with tracing.span("prefill.pad"):
+            bsz = _bucket(len(requests))
+            prompts = [r.prompt[-self.max_prompt_len:] for r in requests]
+            plen = min(self.max_prompt_len, _bucket(max(len(p) for p in prompts)))
+            if template is not None:
+                with self._shape_lock:
+                    pinned = self.template_shapes.get(template, (1, 1))
+                    bsz = max(bsz, pinned[0])
+                    plen = max(plen, pinned[1])
+                    self.template_shapes[template] = (bsz, plen)
+            toks = np.zeros((bsz, plen), np.int32)
+            plens = np.ones((bsz,), np.int32)
+            for i, p in enumerate(prompts):
+                toks[i, : len(p)] = p  # right-pad; causal mask hides pad keys
+                plens[i] = len(p)
         with self._side():
             first, cache = self._prefill_step(toks, plens)
             staged = StagedPrefill(template, list(requests), first, cache,
@@ -740,7 +763,9 @@ class InferenceEngine:
         chunk also yields the first generated token.  Returns
         completeness.  Mutates only the staged object, so it is safe on
         the speculation thread.  A batched-chunk parent advances ONE chunk
-        of its first incomplete part per call."""
+        of its first incomplete part per call.  A chunk is one
+        ``prefill.dispatch`` span (``resume`` in its data) holding
+        ``prefill.hold`` and ``prefill.launch``."""
         if staged.complete:
             return True
         if staged.parts:
@@ -749,15 +774,18 @@ class InferenceEngine:
                     self.prefill_resume(part)
                     break
             return staged.complete
-        toks = staged.pending.pop(0)
-        with self._side():
-            self._adopt(staged)
-            logits, staged.cache, staged.lengths_dev = self._extend(
-                staged.cache, toks, staged.lengths_dev)
-            if not staged.pending:
-                staged.first = logits.argmax(dim=-1).to(torch.int32)
-            self._mark(staged)
-        self._count_dispatch()
+        with tracing.span("prefill.dispatch", resume=True) as sp:
+            if tracing.enabled():
+                sp.set(rids=_rids(staged.requests))
+            toks = staged.pending.pop(0)
+            with self._side():
+                self._adopt(staged)
+                logits, staged.cache, staged.lengths_dev = self._extend(
+                    staged.cache, toks, staged.lengths_dev)
+                if not staged.pending:
+                    staged.first = logits.argmax(dim=-1).to(torch.int32)
+                self._mark(staged)
+            self._count_dispatch()
         return staged.complete
 
     def commit_prefill(self, staged: StagedPrefill,
@@ -768,7 +796,10 @@ class InferenceEngine:
         parent delegates to its parts in order — waiting for the device
         results, allocating each a lane from its template's pools and
         splicing its KV into the engine's cache.  Returns the padded
-        ``(batch, prompt)`` bucket dispatched."""
+        ``(batch, prompt)`` bucket dispatched.  Each batch committed is one
+        ``prefill.commit`` span (its requests' ids and ``n``) holding
+        ``commit.wait`` (the wait for the first tokens) and
+        ``commit.insert`` (the splice)."""
         assert staged.complete, \
             "commit_prefill() of a chunked staged prefill with pending chunks"
         if staged.parts:
@@ -785,17 +816,22 @@ class InferenceEngine:
             "commit_prefill() beyond this template's free lanes"
         if not reqs:
             return staged.shape
-        self._adopt(staged)
-        first = staged.first.cpu().numpy()  # waits for the dispatched prefill
-        lanes = [self.partition.alloc(staged.template) for _ in reqs]
-        self._insert_staged(staged, lanes)
-        for i, (r, lane) in enumerate(zip(reqs, lanes)):
-            r.lane = lane
-            r.generated.append(int(first[i]))
-            self.last_token[lane] = first[i]
-            self.lengths[lane] = staged.plens[i]  # real prompt length
-            self.active[lane] = True
-        self.prefill_calls += 1
+        with tracing.span("prefill.commit") as sp:
+            if tracing.enabled():
+                sp.set(rids=_rids(reqs), n=len(reqs))
+            self._adopt(staged)
+            with tracing.span("commit.wait"):
+                first = staged.first.cpu().numpy()  # waits for the dispatched prefill
+            lanes = [self.partition.alloc(staged.template) for _ in reqs]
+            with tracing.span("commit.insert"):
+                self._insert_staged(staged, lanes)
+            for i, (r, lane) in enumerate(zip(reqs, lanes)):
+                r.lane = lane
+                r.generated.append(int(first[i]))
+                self.last_token[lane] = first[i]
+                self.lengths[lane] = staged.plens[i]  # real prompt length
+                self.active[lane] = True
+            self.prefill_calls += 1
         return staged.shape
 
     def _insert_staged(self, staged: StagedPrefill, lanes: list[int]) -> None:
@@ -815,14 +851,23 @@ class InferenceEngine:
         """One batched decode step over all lanes → ``{lane: token}``.
         Every lane decodes (inactive lanes' rows are rewritten by the next
         commit); lengths stop at ``max_len - 1``.  One replay of the tick
-        step between copying the lane arrays in and the tokens out."""
-        if not self.active.any():
-            return {}
-        step = self._tick_step
-        step.inputs.put("token", self.last_token)
-        step.inputs.put("lengths", self.lengths)
-        step.inputs.upload()
-        nxt = step()[1].cpu().numpy()
+        step between copying the lane arrays in and the tokens out.
+
+        One ``decode.tick`` span, with the active lanes' positions, holds
+        ``decode.prep`` (:meth:`_prepare_tick`: the host's work before the
+        launch), ``decode.launch`` (the tick step's call) and
+        ``decode.wait`` (the wait for its tokens)."""
+        with tracing.span("decode.tick") as sp:
+            if tracing.enabled():
+                sp.set(positions=self.lengths[self.active].tolist())
+            with tracing.span("decode.prep"):
+                launch = self._prepare_tick()
+            if not launch:
+                return {}
+            with tracing.span("decode.launch"):
+                out = self._tick_step()
+            with tracing.span("decode.wait"):
+                nxt = out[1].cpu().numpy()
         self._count_dispatch()
         self.lengths = np.where(self.active,
                                 np.minimum(self.lengths + 1, self.max_len - 1),
@@ -830,6 +875,18 @@ class InferenceEngine:
         self.last_token = nxt
         self.decode_steps += 1
         return {int(lane): int(nxt[lane]) for lane in np.nonzero(self.active)[0]}
+
+    def _prepare_tick(self) -> bool:
+        """The tick's host work before its launch: the lane arrays into
+        the tick step's static inputs.  Returns whether there is a tick to
+        launch (some lane active)."""
+        if not self.active.any():
+            return False
+        inputs = self._tick_step.inputs
+        inputs.put("token", self.last_token)
+        inputs.put("lengths", self.lengths)
+        inputs.upload()
+        return True
 
     def retire(self, lane: int) -> None:
         """Free a lane; it returns to its home pool."""
@@ -908,6 +965,11 @@ class InferenceEngine:
     def free_lanes(self) -> list[int]:
         """Sorted snapshot of every free lane."""
         return self.partition.free_lanes
+
+
+def _rids(requests) -> list:
+    """The requests' ids, for a span's data."""
+    return [getattr(r, "rid", None) for r in requests]
 
 
 def _copy_cache(dst: dict, src: dict) -> None:

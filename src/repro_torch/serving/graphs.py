@@ -86,6 +86,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import registry
 
 __all__ = ["CompiledStep", "StaticInputs", "StepCache", "eager", "is_eager", "new_pool"]
@@ -253,7 +254,9 @@ class CompiledStep:
     together.  ``calls`` counts the calls on the card outside
     :func:`eager`, ``replays`` those that replayed; ``parts`` holds the
     host seconds of the first real run and of the recording
-    (``"run"``, ``"record"``, ``"instantiate"``).  A first call that
+    (``"run"``, ``"record"``, ``"instantiate"``), which one ``graph.build``
+    span covers, with the step's function's name and ``key`` (a
+    :class:`StepCache`'s key, else ``None``).  A first call that
     raises in its recording has already written ``state``; the step is
     then spoilt, and every later call raises without running ``fn``.
     """
@@ -275,6 +278,7 @@ class CompiledStep:
         self.calls = 0          # calls on the card outside eager()
         self.replays = 0        # of which replays of the recorded graph
         self.parts: dict = {}   # host seconds of the first run and the recording
+        self.key = None         # the StepCache key it was built for
         self.out = None
         self._graph_out = None
         self._spoilt: Optional[BaseException] = None  # the recording's error
@@ -329,13 +333,14 @@ class CompiledStep:
         self.calls += 1
         if self.graph is None:
             t0 = time.perf_counter()
-            out = self._run()
-            self.parts["run"] = time.perf_counter() - t0
-            try:
-                self._record()
-            except BaseException as e:
-                self._spoilt = e
-                raise
+            with tracing.span("graph.build", start=t0, step=self.fn.__name__, key=self.key):
+                out = self._run()
+                self.parts["run"] = time.perf_counter() - t0
+                try:
+                    self._record()
+                except BaseException as e:
+                    self._spoilt = e
+                    raise
             return out
         self.graph.replay()
         registry.add_launches(self.tally)
@@ -382,6 +387,7 @@ class StepCache:
             step = self.steps.get(key)
             if step is None:
                 step = self.steps[key] = self._build(key, self.pool, self.hold)
+                step.key = key
             with step.exclusive():
                 yield step
 

@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.serving.engine import KVPartition
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler
@@ -188,26 +189,31 @@ class SchedulerQueryService:
         self._lock = threading.Lock()
 
     def _drive(self, query_name: str, params_list: Sequence) -> list:
-        with self._lock:
-            reqs = []
-            for params in params_list:
-                self._rid += 1
-                reqs.append(Request(
-                    rid=self._rid,
-                    prompt=_prompt_for(query_name, params),
-                    max_new_tokens=self.max_new_tokens,
-                    template=query_name,
-                ))
-            sched = ContinuousBatchingScheduler(
-                self.engine, strategy=self.strategy_factory())
-            for r in reqs:
-                sched.submit(r)
-            sched.producer_done()
-            sched.run_until_drained()
-            self.stats.round_trips += 1
-            self.stats.requests += len(reqs)
-            self.stats.tokens += sum(len(r.generated) for r in reqs)
-            return [tuple(r.generated) for r in reqs]
+        with tracing.span("bridge.drive") as sp:
+            tracing.start(sp)
+            with self._lock:
+                tracing.finish(sp, "bridge.lock_wait")
+                reqs = []
+                for params in params_list:
+                    self._rid += 1
+                    reqs.append(Request(
+                        rid=self._rid,
+                        prompt=_prompt_for(query_name, params),
+                        max_new_tokens=self.max_new_tokens,
+                        template=query_name,
+                    ))
+                if tracing.enabled():
+                    sp.set(rids=[r.rid for r in reqs], cohort=len(reqs))
+                sched = ContinuousBatchingScheduler(
+                    self.engine, strategy=self.strategy_factory())
+                for r in reqs:
+                    sched.submit(r)
+                sched.producer_done()
+                sched.run_until_drained()
+                self.stats.round_trips += 1
+                self.stats.requests += len(reqs)
+                self.stats.tokens += sum(len(r.generated) for r in reqs)
+                return [tuple(r.generated) for r in reqs]
 
     def execute(self, query_name: str, params):
         """One query, one full scheduler drive (the synchronous tax)."""

@@ -840,14 +840,16 @@ class PagedInferenceEngine(InferenceEngine):
         return True
 
     # ----------------------------------------------------------------- tick
-    def decode_tick(self) -> dict[int, int]:
-        """One paged decode step over every lane, fused with any staged
-        prefill chunk: flush restore tails, grow block tables (evicting
-        under page pressure), fence copy-on-write pages, fold the chunk
-        through the decode path, upload the tables and lane state, run
-        :func:`paged_decode_step` and sample → ``{lane: token}``.  With no
-        active lane a staged chunk is resumed on its own.  Dense-compute
-        mode grows the identity tables and runs the dense decode step."""
+    def _prepare_tick(self) -> bool:
+        """The paged tick's host work before its launch (inside the
+        inherited ``decode_tick``), fused with any staged prefill chunk:
+        flush restore tails, grow block tables (evicting under page
+        pressure), fence copy-on-write pages, fold the chunk through the
+        decode path, and upload the tables and lane state for
+        :func:`paged_decode_step` and sampling.  With no active lane a
+        staged chunk is resumed on its own and there is no tick to launch.
+        Dense-compute mode grows the identity tables and prepares the
+        dense decode step."""
         self._flush_restores()
         if not self.paged_compute:
             for lane in np.nonzero(self.active)[0]:
@@ -855,12 +857,12 @@ class PagedInferenceEngine(InferenceEngine):
                 # be in the table before the write.
                 self._ensure_pages(int(lane),
                                    int(self.lengths[lane]) // self.page_size + 1)
-            return super().decode_tick()
+            return super()._prepare_tick()
         part, self._fused_chunk = self._fused_chunk, None
         if not self.active.any():
             if part is not None:  # nothing to fuse with: plain resume
                 self.prefill_resume(part)
-            return {}
+            return False
         for lane in np.nonzero(self.active)[0]:
             lane = int(lane)
             if not self.active[lane]:
@@ -872,7 +874,7 @@ class PagedInferenceEngine(InferenceEngine):
         if not self.active.any():  # growth pressure evicted every lane
             if part is not None:
                 self.prefill_resume(part)
-            return {}
+            return False
         if part is not None:  # the chunk side of the fused dispatch
             toks = part.pending.pop(0)
             self._adopt(part)
@@ -889,14 +891,7 @@ class PagedInferenceEngine(InferenceEngine):
         inputs.put("temps", self.lane_temps)
         inputs.put("seeds", self.lane_seeds)
         self._device_tables()
-        nxt = self._tick_step()[1].cpu().numpy()
-        self._count_dispatch()
-        self.lengths = np.where(self.active,
-                                np.minimum(self.lengths + 1, self.max_len - 1),
-                                self.lengths).astype(np.int32)
-        self.last_token = nxt
-        self.decode_steps += 1
-        return {int(lane): int(nxt[lane]) for lane in np.nonzero(self.active)[0]}
+        return True
 
     def _make_tick(self, pool) -> graphs.CompiledStep:
         """The paged tick (the reference's ``_paged``): ``paged_decode_step``

@@ -114,6 +114,7 @@ import time
 from collections import OrderedDict, deque
 from typing import Optional
 
+from repro_torch import tracing
 from repro_torch.core.concurrency import ReadyLanes
 from repro_torch.core.lane_policy import LanePolicy
 from repro_torch.core.resilience import (
@@ -190,6 +191,7 @@ class _SpecTask:
             target=self._run, args=(engine,), daemon=True,
             name="cbs-spec-prefill",
         )
+        tracing.handoff(self._thread)
         self._thread.start()
 
     def _run(self, engine) -> None:
@@ -951,183 +953,200 @@ class ContinuousBatchingScheduler:
         """One scheduling round: commit the staged speculative prefill,
         admit per strategy (per lane), dispatch the next speculation, run
         one decode step."""
-        # 0) failure domain first: quarantined lanes whose cooldown has
-        # elapsed rejoin their pools before admission counts free lanes,
-        # and a template whose submissions keep failing surfaces as a
-        # typed LaneFailedError rather than spinning forever.
-        self._release_quarantine()
-        self._check_lane_health()
-        # 0.5) tick boundary: the previous tick's speculative prefill lands
-        # (or aborts) before admission sees the free-lane picture.
-        if self.overlap:
-            self._commit_speculative()
+        with tracing.span("scheduler.tick") as sp:
+            if tracing.enabled():
+                st = self.stats
+                sp.set(tick=st.decode_ticks + 1, admitted=len(st.admission_trace),
+                       committed=st.spec_committed, aborted=st.spec_aborted)
+            # 0) failure domain first: quarantined lanes whose cooldown has
+            # elapsed rejoin their pools before admission counts free lanes,
+            # and a template whose submissions keep failing surfaces as a
+            # typed LaneFailedError rather than spinning forever.
+            self._release_quarantine()
+            self._check_lane_health()
+            # 0.5) tick boundary: the previous tick's speculative prefill lands
+            # (or aborts) before admission sees the free-lane picture.
+            if self.overlap:
+                with tracing.span("scheduler.settle"):
+                    self._commit_speculative()
 
-        # 1) admission — the paper's "how many requests does a free worker
-        # take from the queue" decision.  Ready lanes are popped (weighted-
-        # fair under a LanePolicy, round-robin otherwise) only while engine
-        # slots remain free; each lane is consulted at most once per tick
-        # and re-queued if it keeps a backlog, so a tick never scans lanes
-        # with nothing to admit.
-        # Weighted-fair selection costs a policy lock + O(n) scan per pop;
-        # with uniform weights FIFO pop + tail re-push is equally fair
-        # round-robin (same guard as the runtime worker's pop).
-        select = (self.policy.lane_min
-                  if self.policy is not None and self.policy.lane_weights
-                  else None)
-        has_spill = getattr(self.engine, "has_spill", None)
-        consulted: set = set()
-        repush: list = []
-        while self._kv.n_free > 0:
-            tmpl = self._ready.pop(select=select, block=False)
-            if tmpl is None:
-                break
-            if tmpl in consulted:
-                repush.append(tmpl)
-                break
-            consulted.add(tmpl)
-            q = self.queues.get(tmpl)
-            if not q:
-                continue  # stale push: lane drained since
-            if (self.chunk_tokens is not None
-                    and len(q[0].prompt) > self.chunk_tokens
-                    and not (has_spill is not None
-                             and has_spill(q[0].rid))):
-                # Oversized head prompt: admitting it inline is exactly the
-                # stall chunking exists to avoid — leave the lane for the
-                # chunked speculative dispatch (step 1.5) instead.  An
-                # oversized request WITH staged spilled KV falls through:
-                # its restore path pays no prefill at all, and skipping it
-                # here while the spec path also declines spilled requests
-                # would starve it forever.
-                repush.append(tmpl)
-                continue
-            strat = self._strategy_for(tmpl)
-            want = strat.decide(len(q), self._producer_done)
-            # kv_shares: the batch is bounded by THIS template's admissible
-            # lanes (reserved + shared), not the global free count.
-            take = min(want, self._free_for(tmpl), len(q))
-            if take <= 0:
-                repush.append(tmpl)  # strategy says wait: stay scheduled
-                continue
-            batch = [q.popleft() for _ in range(take)]
-            if not q:
-                # GC drained lanes (mirrors the runtime): high-cardinality
-                # template churn must not grow the bookkeeping.
-                del self.queues[tmpl]
-            else:
-                repush.append(tmpl)
-            # Host-KV restore first: a re-admitted request whose spilled
-            # KV survived in the pool resumes decoding directly (no
-            # prefill, no token restart); only the rest go through the
-            # prefill batch.  A request whose entry was evicted (pool
-            # LRU/budget) restarts from scratch — its stale partial
-            # generation is cleared before the re-prefill.
-            restore = getattr(self.engine, "try_restore", None)
-            fresh: list = []
-            n_restored = 0
-            for r in batch:
-                lane = restore(r.rid, tmpl) if restore is not None else None
-                if lane is not None:
-                    r.lane = lane
-                    self.running[lane] = r
-                    self._lane_age[lane] = 0
-                    n_restored += 1
-                    self.stats.kv_restored += 1
-                else:
-                    if r.generated:
-                        r.generated.clear()  # spill entry lost: restart
+            # 1) admission — the paper's "how many requests does a free worker
+            # take from the queue" decision.  Ready lanes are popped (weighted-
+            # fair under a LanePolicy, round-robin otherwise) only while engine
+            # slots remain free; each lane is consulted at most once per tick
+            # and re-queued if it keeps a backlog, so a tick never scans lanes
+            # with nothing to admit.
+            # Weighted-fair selection costs a policy lock + O(n) scan per pop;
+            # with uniform weights FIFO pop + tail re-push is equally fair
+            # round-robin (same guard as the runtime worker's pop).
+            select = (self.policy.lane_min
+                      if self.policy is not None and self.policy.lane_weights
+                      else None)
+            with tracing.span("scheduler.admit"):
+                has_spill = getattr(self.engine, "has_spill", None)
+                consulted: set = set()
+                repush: list = []
+                while self._kv.n_free > 0:
+                    tmpl = self._ready.pop(select=select, block=False)
+                    if tmpl is None:
+                        break
+                    if tmpl in consulted:
+                        repush.append(tmpl)
+                        break
+                    consulted.add(tmpl)
+                    q = self.queues.get(tmpl)
+                    if not q:
+                        continue  # stale push: lane drained since
                     if (self.chunk_tokens is not None
-                            and len(r.prompt) > self.chunk_tokens):
-                        # Oversized restart whose entry was evicted: back
-                        # to the head — the chunk pipeline re-prefills it
-                        # (its spill entry is gone, so the admission gate
-                        # now routes it to the spec path, no starvation).
-                        self._requeue_front(tmpl, [r])
+                            and len(q[0].prompt) > self.chunk_tokens
+                            and not (has_spill is not None
+                                     and has_spill(q[0].rid))):
+                        # Oversized head prompt: admitting it inline is exactly the
+                        # stall chunking exists to avoid — leave the lane for the
+                        # chunked speculative dispatch (step 1.5) instead.  An
+                        # oversized request WITH staged spilled KV falls through:
+                        # its restore path pays no prefill at all, and skipping it
+                        # here while the spec path also declines spilled requests
+                        # would starve it forever.
+                        repush.append(tmpl)
                         continue
-                    fresh.append(r)
-            if n_restored and self.policy is not None:
-                self.policy.charge(tmpl, n_restored)  # restored = service
-            if not fresh:
-                continue
-            now = time.perf_counter()
-            for r in fresh:
-                r.metrics.admitted = now
+                    strat = self._strategy_for(tmpl)
+                    want = strat.decide(len(q), self._producer_done)
+                    # kv_shares: the batch is bounded by THIS template's admissible
+                    # lanes (reserved + shared), not the global free count.
+                    take = min(want, self._free_for(tmpl), len(q))
+                    if take <= 0:
+                        repush.append(tmpl)  # strategy says wait: stay scheduled
+                        continue
+                    batch = [q.popleft() for _ in range(take)]
+                    if not q:
+                        # GC drained lanes (mirrors the runtime): high-cardinality
+                        # template churn must not grow the bookkeeping.
+                        del self.queues[tmpl]
+                    else:
+                        repush.append(tmpl)
+                    # Host-KV restore first: a re-admitted request whose spilled
+                    # KV survived in the pool resumes decoding directly (no
+                    # prefill, no token restart); only the rest go through the
+                    # prefill batch.  A request whose entry was evicted (pool
+                    # LRU/budget) restarts from scratch — its stale partial
+                    # generation is cleared before the re-prefill.
+                    restore = getattr(self.engine, "try_restore", None)
+                    fresh: list = []
+                    n_restored = 0
+                    for r in batch:
+                        lane = restore(r.rid, tmpl) if restore is not None else None
+                        if lane is not None:
+                            r.lane = lane
+                            self.running[lane] = r
+                            self._lane_age[lane] = 0
+                            n_restored += 1
+                            self.stats.kv_restored += 1
+                        else:
+                            if r.generated:
+                                r.generated.clear()  # spill entry lost: restart
+                            if (self.chunk_tokens is not None
+                                    and len(r.prompt) > self.chunk_tokens):
+                                # Oversized restart whose entry was evicted: back
+                                # to the head — the chunk pipeline re-prefills it
+                                # (its spill entry is gone, so the admission gate
+                                # now routes it to the spec path, no starvation).
+                                self._requeue_front(tmpl, [r])
+                                continue
+                            fresh.append(r)
+                    if n_restored and self.policy is not None:
+                        self.policy.charge(tmpl, n_restored)  # restored = service
+                    if not fresh:
+                        continue
+                    now = time.perf_counter()
+                    for r in fresh:
+                        r.metrics.admitted = now
+                    t0 = time.perf_counter()
+                    try:
+                        shape = self._admit_with_retry(fresh, tmpl)
+                    except BaseException:
+                        if self._fd is None:
+                            raise
+                        # Persistent admission failure: the batch goes back to the
+                        # head of its lane (it was next in line) and the failure
+                        # record / breaker absorb the feedback — _check_lane_health
+                        # names the template if this never recovers.
+                        self._requeue_front(tmpl, fresh)
+                        self.stats.requeued += len(fresh)
+                        continue
+                    # Feedback goes to the deciding model (the lane's own under a
+                    # policy); warm-shape guarding and the landing bookkeeping are
+                    # shared with the speculative commit path.
+                    self._land_batch(tmpl, strat, fresh, shape,
+                                     time.perf_counter() - t0)
+                for tmpl in repush:
+                    self._ready.push(tmpl)
+                hits = getattr(self.engine, "prefix_hits", None)
+                if hits is not None:
+                    self.stats.prefix_hits = hits
+
+            # 1.5) speculation: while decode runs below, the next ready lanes'
+            # prefills are already in flight on spec threads (up to
+            # spec_depth staged bets).
+            if self.overlap and len(self._staged) < self.spec_depth:
+                with tracing.span("scheduler.speculate"):
+                    self._dispatch_speculative(select)
+
+            # 2) one batched decode step over all active lanes
+            finished: list[Request] = []
             t0 = time.perf_counter()
-            try:
-                shape = self._admit_with_retry(fresh, tmpl)
-            except BaseException:
-                if self._fd is None:
-                    raise
-                # Persistent admission failure: the batch goes back to the
-                # head of its lane (it was next in line) and the failure
-                # record / breaker absorb the feedback — _check_lane_health
-                # names the template if this never recovers.
-                self._requeue_front(tmpl, fresh)
-                self.stats.requeued += len(fresh)
-                continue
-            # Feedback goes to the deciding model (the lane's own under a
-            # policy); warm-shape guarding and the landing bookkeeping are
-            # shared with the speculative commit path.
-            self._land_batch(tmpl, strat, fresh, shape,
-                             time.perf_counter() - t0)
-        for tmpl in repush:
-            self._ready.push(tmpl)
-        hits = getattr(self.engine, "prefix_hits", None)
-        if hits is not None:
-            self.stats.prefix_hits = hits
-
-        # 1.5) speculation: while decode runs below, the next ready lanes'
-        # prefills are already in flight on spec threads (up to
-        # spec_depth staged bets).
-        if self.overlap and len(self._staged) < self.spec_depth:
-            self._dispatch_speculative(select)
-
-        # 2) one batched decode step over all active lanes
-        finished: list[Request] = []
-        t0 = time.perf_counter()
-        tokens = self._decode_with_recovery()
-        decode_dt = time.perf_counter() - t0
-        self.stats.decode_ticks += 1
-        if self.policy is not None and tokens:
-            # Per-lane decode feedback: every template with a request in this
-            # tick's batch gets the tick duration — the per-token side of its
-            # cost model, next to the prefill F + n·c fit.
-            for tmpl in {r.template for r in self.running.values()}:
-                self.policy.observe_decode(tmpl, decode_dt)
-        for lane, tok in tokens.items():
-            r = self.running.get(lane)
-            if r is None:
-                continue
-            r.generated.append(tok)
-            self._lane_age[lane] += 1
-            if r.done:
-                r.metrics.finished = time.perf_counter()
-                self.engine.retire(lane)
-                del self.running[lane]
-                finished.append(r)
-                self.stats.completed += 1
-            elif self.lane_timeout and self._lane_age[lane] > self.lane_timeout:
-                # Straggler: retire the lane, re-queue the request.  With
-                # an engine spill pool the lane's KV is staged to host
-                # memory and the partial generation is KEPT — re-admission
-                # restores and resumes; without one (or if the entry is
-                # later evicted) the re-admission re-prefills from scratch.
-                spill = getattr(self.engine, "spill", None)
-                if spill is not None:
-                    spilled = spill(lane, key=r.rid, template=r.template)
-                else:
-                    self.engine.retire(lane)
-                    spilled = False
-                del self.running[lane]
-                if spilled:
-                    self.stats.kv_spilled += 1
-                else:
-                    r.generated.clear()
-                r.lane = None
-                rq = self.queues.get(r.template)
-                if rq is None:  # lane may have been GC'd since admission
-                    rq = self.queues[r.template] = deque()
-                rq.appendleft(r)
-                self._ready.push(r.template)
-                self.stats.requeued += 1
-        return finished
+            with tracing.span("scheduler.decode", start=t0):
+                tokens = self._decode_with_recovery()
+                decode_dt = time.perf_counter() - t0
+                tracing.end_at("scheduler.decode", t0 + decode_dt)
+            with tracing.span("scheduler.finish"):
+                self.stats.decode_ticks += 1
+                if self.policy is not None and tokens:
+                    # Per-lane decode feedback: every template with a request in this
+                    # tick's batch gets the tick duration — the per-token side of its
+                    # cost model, next to the prefill F + n·c fit.
+                    for tmpl in {r.template for r in self.running.values()}:
+                        self.policy.observe_decode(tmpl, decode_dt)
+                for lane, tok in tokens.items():
+                    r = self.running.get(lane)
+                    if r is None:
+                        continue
+                    r.generated.append(tok)
+                    self._lane_age[lane] += 1
+                    if r.done:
+                        r.metrics.finished = time.perf_counter()
+                        self.engine.retire(lane)
+                        del self.running[lane]
+                        finished.append(r)
+                        self.stats.completed += 1
+                    elif self.lane_timeout and self._lane_age[lane] > self.lane_timeout:
+                        # Straggler: retire the lane, re-queue the request.  With
+                        # an engine spill pool the lane's KV is staged to host
+                        # memory and the partial generation is KEPT — re-admission
+                        # restores and resumes; without one (or if the entry is
+                        # later evicted) the re-admission re-prefills from scratch.
+                        spill = getattr(self.engine, "spill", None)
+                        if spill is not None:
+                            spilled = spill(lane, key=r.rid, template=r.template)
+                        else:
+                            self.engine.retire(lane)
+                            spilled = False
+                        del self.running[lane]
+                        if spilled:
+                            self.stats.kv_spilled += 1
+                        else:
+                            r.generated.clear()
+                        r.lane = None
+                        rq = self.queues.get(r.template)
+                        if rq is None:  # lane may have been GC'd since admission
+                            rq = self.queues[r.template] = deque()
+                        rq.appendleft(r)
+                        self._ready.push(r.template)
+                        self.stats.requeued += 1
+            if tracing.enabled() and "tick" in sp.data:
+                st, d = self.stats, sp.data
+                committed = st.spec_committed - d["committed"]
+                landed = sum(n for _t, n in st.admission_trace[d["admitted"]:])
+                sp.set(admitted=landed - committed, committed=committed,
+                       aborted=st.spec_aborted - d["aborted"])
+            return finished

@@ -4,8 +4,10 @@
 of every pure-Python module it needs, with only the imports rewritten
 (``repro.`` -> ``repro_torch.``).  Each copy, with ``repro_torch`` read
 back as ``repro``, must equal the reference module exactly, apart from the
-notes the port adds and names here.  ``core/services.py`` is a copy up to
-``ModelService``, which the port rewrites in PyTorch.
+notes the port adds and names here and the port's spans
+(:mod:`repro_torch.tracing`, read away by :func:`_untraced`).
+``core/services.py`` is a copy up to ``ModelService``, which the port
+rewrites in PyTorch.
 """
 from __future__ import annotations
 
@@ -57,12 +59,70 @@ VERBATIM = [
 EXAMPLES = ["examples/quickstart.py"]
 
 
+# A line that calls the port's tracer (no reference module mentions it).
+_TRACES = re.compile(r"\btracing\.")
+
+
+def _untraced(text: str) -> str:
+    """``text`` without the port's spans: the tracer's import and every line
+    that calls it are dropped, an ``if`` on it with its block, and a
+    ``with`` of it with its header only, its block moved back out a level."""
+    out: list[str] = []
+    opened: list[int] = []  # indents of the dropped `with` headers still open
+    dropping = None         # indent of a dropped `if` header while in its block
+    for line in text.splitlines(keepends=True):
+        body = line.strip()
+        indent = len(line) - len(line.lstrip())
+        if body:
+            if dropping is not None and indent > dropping:
+                continue
+            dropping = None
+            while opened and indent <= opened[-1]:
+                opened.pop()
+        elif dropping is not None:
+            continue
+        if body == "from repro_torch import tracing":
+            continue
+        if _TRACES.search(line):
+            if body.startswith("with ") and body.endswith(":"):
+                opened.append(indent)
+            elif body.startswith("if ") and body.endswith(":"):
+                dropping = indent
+            continue
+        out.append(line[4 * len(opened):] if body else line)
+    return "".join(out)
+
+
+def test_untraced_reads_away_exactly_the_spans():
+    traced = (
+        "from repro_torch import tracing\n"
+        "def f(x):\n"
+        "    with tracing.span(\"a\") as sp:\n"
+        "        if tracing.enabled():\n"
+        "            sp.set(n=[\n"
+        "                x])\n"
+        "        y = x  # kept\n"
+        "\n"
+        "        with tracing.span(\"b\"):\n"
+        "            tracing.end_at(\"b\", 0.0)\n"
+        "            if y:\n"
+        "                y += 1\n"
+        "        return y\n")
+    assert _untraced(traced) == (
+        "def f(x):\n"
+        "    y = x  # kept\n"
+        "\n"
+        "    if y:\n"
+        "        y += 1\n"
+        "    return y\n")
+
+
 def _port_text(rel: str) -> str:
     text = (PORT / rel).read_text()
     for note in NOTES.get(rel, ()):
         assert text.count(note) == 1, f"{rel}: note not found once: {note!r}"
         text = text.replace(note, "")
-    return text.replace("repro_torch", "repro")
+    return _untraced(text).replace("repro_torch", "repro")
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
