@@ -10,7 +10,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    (``ssd_scan.cu`` holds the scan and its adjoint, ``ssd_scan_bwd``)
    with ``nvcc`` (one process per source, in parallel) and time it; log
    ``ptxas``' registers and spills of the three attention kernels and the
-   gather, and the SASS instruction mix of their main-path instances;
+   gather, and the SASS instruction mix of their main-path instances and
+   of both paged bodies at G 16 (CUDA cores and tensor cores);
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes in bf16 and at a small ragged float32 shape (the
    ``ssd_scan`` kernel: mamba2-1.3b's prefill shape in float32 and the
@@ -24,7 +25,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    on the same keys gathered dense, and the host time of one call of each;
    the three attention kernels again at the head layouts of phases 4l-4o,
    Hq/Hkv 16/16, 20/20 and 32/2 at D 128, as logged sub-rows (both decode
-   kernels at 8 lanes and at 1); and at the layouts of phases 4p-4r, as
+   kernels at 8 lanes and at 1), the paged kernel's two instances side by
+   side at G 16 (8 lanes, 1, and the long-document cell's 32 lanes over
+   512-page tables) and at G 8; and at the layouts of phases 4p-4r, as
    sub-rows that the JSON line carries: the banded flash of hymba's
    prefill, B 8, S 2048, 25/5, D 64, W 1024, against SDPA with a boolean
    band mask, the band's edges W = S (the causal bits) and W = 1 (each
@@ -427,23 +430,29 @@ def phase_build():
 
 
 # The instances whose SASS phase 2 summarises: the main path's ones (bf16;
-# the gather's slices copy of int32 ids, as the trainer's tokens come).
-_SASS_OF = {"flash_attention": "flash_wgmma_kernelILi128ELb0EE",
-            "decode_attention": "decode_cluster_kernelI13__nv_bfloat16Li4ELi8E",
-            "paged_decode_attention": "paged_cluster_kernelI13__nv_bfloat16Li4ELi8E",
-            "batched_gather": "gather_slicesIiE"}
+# the gather's slices copy of int32 ids, as the trainer's tokens come), and
+# for the paged kernel at G 16 both bodies: the CUDA cores' (MAXG 16) and
+# the tensor cores' (D up to 128).
+_SASS_OF = {"flash_attention": ("flash_wgmma_kernelILi128ELb0EE",),
+            "decode_attention": ("decode_cluster_kernelI13__nv_bfloat16Li4ELi8E",),
+            "paged_decode_attention": ("paged_cluster_kernelI13__nv_bfloat16Li4ELi8E",
+                                       "paged_cluster_kernelI13__nv_bfloat16Li16ELi8E",
+                                       "paged_cluster_kernel_mmaILi128E"),
+            "batched_gather": ("gather_slicesIiE",)}
 
 
 def _compiler_report(build, name, lib):
     """Log ``ptxas``' registers and spills for every kernel in ``name``'s
-    library, and the SASS instruction mix of its main-path instance."""
+    library, and the SASS instruction mix of the instances ``_SASS_OF``
+    names."""
     import re
     kernel = None
     for line in build.ptxas_log(name).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(flash_wgmma_kernel|flash_kernel|decode_cluster_kernel|"
-                          r"paged_cluster_kernel|gather_rows|gather_slices)(I\w*?)EEv",
+                          r"paged_cluster_kernel_mma|paged_cluster_kernel|gather_rows|"
+                          r"gather_slices)(I\w*?)EEv",
                           m.group(1))
             kernel = k.group(1) + k.group(2) if k else m.group(1)
         elif "spill" in line or "registers" in line:
@@ -455,14 +464,16 @@ def _compiler_report(build, name, lib):
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300).stdout
     for func in sass.split("Function : ")[1:]:
-        if _SASS_OF[name] not in func.split("\n", 1)[0]:
-            continue
-        ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", func,
-                         flags=re.M)
-        counts = sorted(((ops.count(o), o) for o in set(ops)), reverse=True)
-        log(f"[build] SASS {name} {_SASS_OF[name]}: {len(ops)} instructions; HGMMA "
-            f"{ops.count('HGMMA')}, UTMALDG {ops.count('UTMALDG')}; "
-            + ", ".join(f"{o} {c}" for c, o in counts[:16]))
+        head = func.split("\n", 1)[0]
+        for inst in _SASS_OF[name]:
+            if inst not in head:
+                continue
+            ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                             func, flags=re.M)
+            counts = sorted(((ops.count(o), o) for o in set(ops)), reverse=True)
+            log(f"[build] SASS {name} {inst}: {len(ops)} instructions; HGMMA "
+                f"{ops.count('HGMMA')}, HMMA {ops.count('HMMA')}, UTMALDG "
+                f"{ops.count('UTMALDG')}; " + ", ".join(f"{o} {c}" for c, o in counts[:16]))
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1012,7 +1023,59 @@ def _config_shapes(timer, gen, rng) -> None:
                             plain_ms=timer.ms(lambda: decode_ref(dq, dk, dv, dlen)),
                             bound_ms=bound, bound_by=by, library_ms=timer.ms(library))))
             del dq, dk, dv, out
+    _group_rows(timer, gen, rng)
     torch.cuda.synchronize()
+
+
+def _group_rows(timer, gen, rng) -> None:
+    """The paged kernel at the groups where the tensor cores take it, both
+    instances on the same operands: chatglm3-6b's 32/2 (G 16) at 8 lanes
+    and 1 (32 pages of 16 keys) and at the long-document cell's tick (32
+    lanes, 512-page tables, lengths 3072 to 8192), and 16/2 (G 8) at 8
+    and 32 lanes, the threshold's other side.  Each against the plain
+    version (1e-2), a repeated call bit for bit, and timed (``ms``, the
+    wrapper's instance) beside the CUDA-core instance (``cores_ms``), the
+    bound and the yardstick ``decode_attention_cuda`` on the same keys
+    gathered dense (``dense_ms``)."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention_cuda
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
+
+    d, ps, bf = 128, 16, torch.bfloat16
+    for hq, hkv, lanes, np_, lo in ((32, 2, 8, 32, 0), (32, 2, 1, 32, 0), (32, 2, 32, 512, 3072),
+                                    (16, 2, 8, 32, 0), (16, 2, 32, 512, 3072)):
+        q, kp, vp, tabs, lens = _paged_case(gen, rng, lanes, hq, hkv, d, ps, np_, bf)
+        if lo:  # the long-document cell's lengths: uniform in [lo, NP * ps]
+            lens = torch.as_tensor(rng.integers(lo, np_ * ps + 1, size=(lanes,)).astype(np.int32),
+                                   device="cuda")
+        args = (q, kp, vp, tabs, lens)
+        label = f"paged G {hq // hkv} ({hq}/{hkv}) B {lanes} ps {ps} NP {np_}"
+        if paged_ops._instance(bf, hq // hkv, d, ps) != paged_ops._TENSOR_CORES:
+            fail(f"{label}: bf16 at G {hq // hkv} is not on the tensor cores")
+        want = paged_decode_ref(*args)
+        out = paged_decode_attention_cuda(*args)
+        err = _compare(f"{label} (tensor cores)", out, want, 1e-2, 1e-2)
+        _repeat(f"paged_decode_attention ({label})", lambda: paged_decode_attention_cuda(*args),
+                out)
+
+        def cores(args=args):
+            return paged_ops._launch(*args, paged_ops._CUDA_CORES)
+
+        _compare(f"{label} (CUDA cores)", cores(), want, 1e-2, 1e-2)
+        kv_tokens = int(lens.sum())
+        bound = _bound(q.numel() * 2 * 2 + 2 * kv_tokens * hkv * d * 2 + tabs.numel() * 4
+                       + lanes * 4, 4 * hq * d * kv_tokens)
+        kd, vd = (x[tabs.long()].reshape(lanes, np_ * ps, hkv, d) for x in (kp, vp))
+        row = _sub_row(label, err, timer.ms(lambda: paged_decode_attention_cuda(*args)),
+                       timer.ms(lambda: paged_decode_ref(*args)), bound)
+        row["cores_ms"] = timer.ms(cores)
+        row["dense_ms"] = timer.ms(lambda: decode_attention_cuda(q, kd, vd, lens))
+        log(f"[kernels] {label}: tensor cores {row['ms']!r} ms, CUDA cores "
+            f"{row['cores_ms']!r} ms, dense yardstick {row['dense_ms']!r} ms, bound "
+            f"{row['bound_ms']!r} ms ({100 * row['bound_ms'] / row['ms']:.2f} % of it)")
+        del q, kp, vp, kd, vd, args, out, want
 
 
 def _sub_row(label, err, ms, plain_ms, bound, library_ms=None):

@@ -16,6 +16,10 @@
 // what costs time is the latency of the loads and of the launches, not the
 // arithmetic: what counts is bytes in flight early, threads that never
 // wait on a copy, chains of dependent instructions short, and one launch.
+// That holds for small groups only: at G 16 the CUDA cores need 16 float32
+// FMA flops per byte, 80 % of their 67 TFLOP/s at the byte rate, so the
+// paged kernel takes the tensor-core body of decode_mma.cuh at G >= 8 in
+// bf16; the body below serves the other groups, float32 and unaligned rows.
 //
 // What the design does about it:
 // * each (lane, kv head) gets a cluster of C blocks (C up to 8, the
@@ -211,6 +215,64 @@ __device__ __forceinline__ void stage_tile(unsigned char* dst, const Keys& keys,
       reinterpret_cast<T*>(vdst + r * L.rsb)[e] = keys.v[off];
     }
   }
+}
+
+// Combine the cluster's blocks through distributed shared memory, in
+// rank order; each block writes its share of the (g, d) outputs.  Each
+// block holds its max and sum of every query head in st_m, st_l (natural
+// log units of the scaled scores) and its unnormalised output, row gi at
+// osm + gi * ostride; `scratch` is shared memory no remote block reads.
+// First every block's max and sum (the remote reads spread over the
+// threads), then each block's weight exp(m_r - m) and the total sum, then
+// the outputs.
+template <typename T, bool LSE>
+__device__ __forceinline__ void cluster_combine(float* scratch, const float* st_m,
+                                                const float* st_l, const float* osm, int ostride,
+                                                T* __restrict__ out, float* __restrict__ lse,
+                                                int b, int h, int hq, int g, int d, int rank,
+                                                int n_rank, int tid) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  float* cm = scratch;                 // n_rank x g maxima
+  float* cl = cm + kMaxCluster * g;    // n_rank x g sums
+  float* cw = cl + kMaxCluster * g;    // n_rank x g weights
+  float* ctot = cw + kMaxCluster * g;  // g total sums
+  for (int i = tid; i < n_rank * g; i += kThreads) {
+    const int r = i / g, gi = i - r * g;
+    cm[i] = cluster.map_shared_rank(st_m, r)[gi];
+    cl[i] = cluster.map_shared_rank(st_l, r)[gi];
+  }
+  __syncthreads();
+  if (tid < g) {
+    float mx = -INFINITY;
+    for (int r = 0; r < n_rank; ++r) mx = fmaxf(mx, cm[r * g + tid]);
+    float l = 0.f;
+    for (int r = 0; r < n_rank; ++r) {
+      const float m_r = cm[r * g + tid];
+      const float w = m_r == -INFINITY ? 0.f : expf(m_r - mx);
+      cw[r * g + tid] = w;
+      l = fmaf(cl[r * g + tid], w, l);
+    }
+    ctot[tid] = fmaxf(l, 1e-30f);
+    if constexpr (LSE) {
+      if (rank == 0) lse[(long long)b * hq + (long long)h * g + tid] = mx + logf(l);
+    }
+  }
+  __syncthreads();
+  const long long obase = ((long long)b * hq + (long long)h * g) * d;
+  for (int i = rank * kThreads + tid; i < g * d; i += n_rank * kThreads) {
+    const int gi = i / d, e = i - gi * d;
+    float part_o[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      part_o[r] = r < n_rank ? cluster.map_shared_rank(osm, r)[gi * ostride + e] : 0.f;
+    float o = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < n_rank) o = fmaf(part_o[r], cw[r * g + gi], o);
+    out[obase + i] = from_f32<T>(o / ctot[gi]);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 // One block of a (lane b = blockIdx.z, kv head h = blockIdx.y) cluster:
@@ -446,73 +508,31 @@ __device__ __forceinline__ void decode_body(unsigned char* smem, const Keys& key
     osm[i] = sum;
   }
 
-  // Combine the cluster's blocks through distributed shared memory, in
-  // rank order; each block writes its share of the (g, d) outputs.  First
-  // every block's max and sum (the remote reads spread over the threads),
-  // then each block's weight exp(m_r - m) and the total sum, then the
-  // outputs.
-  cluster.sync();
-  float* cm = red;                     // n_rank x g maxima (the slices' sums are done)
-  float* cl = cm + kMaxCluster * g;    // n_rank x g sums
-  float* cw = cl + kMaxCluster * g;    // n_rank x g weights
-  float* ctot = cw + kMaxCluster * g;  // g total sums
-  for (int i = tid; i < n_rank * g; i += kThreads) {
-    const int r = i / g, gi = i - r * g;
-    cm[i] = cluster.map_shared_rank(st_m, r)[gi];
-    cl[i] = cluster.map_shared_rank(st_l, r)[gi];
-  }
-  __syncthreads();
-  if (tid < g) {
-    float mx = -INFINITY;
-    for (int r = 0; r < n_rank; ++r) mx = fmaxf(mx, cm[r * g + tid]);
-    float l = 0.f;
-    for (int r = 0; r < n_rank; ++r) {
-      const float m_r = cm[r * g + tid];
-      const float w = m_r == -INFINITY ? 0.f : expf(m_r - mx);
-      cw[r * g + tid] = w;
-      l = fmaf(cl[r * g + tid], w, l);
-    }
-    ctot[tid] = fmaxf(l, 1e-30f);
-    if constexpr (LSE) {
-      if (rank == 0) lse[(long long)b * hq + (long long)h * g + tid] = mx + logf(l);
-    }
-  }
-  __syncthreads();
-  const long long obase = ((long long)b * hq + (long long)h * g) * d;
-  for (int i = rank * kThreads + tid; i < g * d; i += n_rank * kThreads) {
-    const int gi = i / d, e = i - gi * d;
-    float part_o[kMaxCluster];
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r)
-      part_o[r] = r < n_rank ? cluster.map_shared_rank(osm, r)[gi * L.dp + e] : 0.f;
-    float o = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r)
-      if (r < n_rank) o = fmaf(part_o[r], cw[r * g + gi], o);
-    out[obase + i] = from_f32<T>(o / ctot[gi]);
-  }
-  cluster.sync();  // no block leaves while another reads its shared memory
+  cluster_combine<T, LSE>(red, st_m, st_l, osm, L.dp, out, lse, b, h, hq, g, d, rank, n_rank,
+                          tid);
 }
 
 // Encode a 4-d tensor map over `base` (float32 or bf16 by `esize`), with
-// dims innermost first, the byte strides of dims 1..3, and the box.
+// dims innermost first, the byte strides of dims 1..3, the box and the
+// shared-memory swizzle (none: rows land as they are).
 inline bool encode_4d(CUtensorMap* map, const void* base, int esize, const cuuint64_t (&dims)[4],
-                      const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+                      const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const CUtensorMapDataType type =
       esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, estr,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Launch K on a grid of (c, hkv, b) blocks in clusters of c along x, with
-// L.bytes of dynamic shared memory; returns the launch's error.
-template <auto K, typename... Args>
-inline int launch_clusters(const Layout& L, int c, int hkv, int b, cudaStream_t s,
+// L.bytes of dynamic shared memory (a Layout, or decode_mma.cuh's
+// MmaLayout); returns the launch's error.
+template <auto K, typename Lay, typename... Args>
+inline int launch_clusters(const Lay& L, int c, int hkv, int b, cudaStream_t s,
                            Args... args) {
   cudaError_t e = configure_kernel<K>(L.bytes);
   if (e != cudaSuccess) return static_cast<int>(e);

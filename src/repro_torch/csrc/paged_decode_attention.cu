@@ -28,10 +28,18 @@
 // * the G query heads of the group share every K/V row the block stages,
 //   so each K/V byte is read from device memory once.
 //
+// Two instances of the body, picked by the caller (`instance`; the Python
+// wrapper's ops._instance): decode_common.cuh's on the CUDA cores, for
+// small groups, float32 and rows that are not 16-byte aligned; and at
+// groups of 8 to 16 in bf16 (D a multiple of 16, pages a multiple of 8
+// keys) decode_mma.cuh's on the tensor cores, `paged_cluster_kernel_mma`,
+// whose TMA boxes are 64 columns wide and 128-byte swizzled.  The grid,
+// the clusters, the key source and the combine are the same.
+//
 // C interface for ctypes: returns cudaGetLastError() after the launch, or
 // a negative code for arguments it refuses.
 
-#include "decode_common.cuh"
+#include "decode_mma.cuh"
 
 namespace {
 
@@ -49,6 +57,25 @@ paged_cluster_kernel(const __grid_constant__ CUtensorMap mk,
   const PagedKeys<T> keys{&mk, &mv, k_pages, v_pages, tables + (long long)blockIdx.z * np, ps,
                           bx};
   decode_body<T, MAXG, W>(smem, keys, q, lengths, out, np * ps, hq, hkv, d, kpb, scale);
+}
+
+// The tensor-core instance (bf16, D a multiple of 16 up to DMAX).  Three
+// blocks share an SM at D 128 (71 KB of shared memory each); at D 256 one
+// block takes 140 KB, so its registers need not leave room for another.
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads, DMAX <= 128 ? 3 : 1)
+paged_cluster_kernel_mma(const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k_pages,
+                         const __nv_bfloat16* __restrict__ v_pages,
+                         const int* __restrict__ tables, const int* __restrict__ lengths,
+                         __nv_bfloat16* __restrict__ out, int hq, int hkv, int d, int ps, int np,
+                         int bx, int kpb, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+  const PagedKeys<__nv_bfloat16> keys{&mk, &mv, k_pages, v_pages,
+                                      tables + (long long)blockIdx.z * np, ps, bx};
+  decode_body_mma<DMAX>(smem_mma, keys, q, lengths, out, np * ps, hq, hkv, d, kpb, scale);
 }
 
 // Map a (P, ps, Hkv, D) pool for boxes of bx keys of one kv head.
@@ -82,6 +109,27 @@ int launch(const Args& a) {
       a.d, a.ps, a.np, a.bx, a.kpb, 1.0f / sqrtf((float)a.d));
 }
 
+// The tensor-core instance's maps: bf16 boxes of 64 columns (128 bytes,
+// swizzled; columns past D read as zeros) by bx keys.
+template <int DMAX>
+int launch_mma(const Args& a) {
+  CUtensorMap mk = {}, mv = {};
+  const cuuint64_t row = (cuuint64_t)a.d * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)a.d, (cuuint64_t)a.hkv, (cuuint64_t)a.ps,
+                              (cuuint64_t)a.n_pages};
+  const cuuint64_t strides[3] = {row, row * a.hkv, row * a.hkv * a.ps};
+  const cuuint32_t box[4] = {kMmaCols, 1, (cuuint32_t)a.bx, 1};
+  if (!encode_4d(&mk, a.k, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_4d(&mv, a.v, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return -5;
+  return launch_clusters<paged_cluster_kernel_mma<DMAX>>(
+      make_mma_layout(a.d), a.c, a.hkv, a.b, a.s, mk, mv,
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.tables, a.lengths,
+      static_cast<__nv_bfloat16*>(a.out), a.hq, a.hkv, a.d, a.ps, a.np, a.bx, a.kpb,
+      1.0f / sqrtf((float)a.d));
+}
+
 template <typename T, int W>
 int launch_g(const Args& a) {
   const int g = a.hq / a.hkv;
@@ -111,11 +159,14 @@ int launch_t(const Args& a) {
 // `cluster` blocks (1, 2, 4 or 8) of `kpb` keys each, kpb a multiple of ps
 // and cluster * kpb >= NP * ps.  Attends positions [0, lengths) (clipped
 // to [0, NP * ps]); table entries below ceil(length / ps) must be page ids
-// in [0, P).
+// in [0, P).  instance 0 = CUDA cores (any of these operands); 1 = tensor
+// cores (bf16, D a multiple of 16, ps a multiple of 8, q and the pages
+// 16-byte aligned).
 extern "C" int paged_decode_attention(const void* q, const void* k_pages, const void* v_pages,
                                       const int* tables, const int* lengths, void* out, int b,
                                       int hq, int hkv, int d, int n_pages, int ps, int np,
-                                      int cluster, int kpb, int dtype, void* stream) {
+                                      int cluster, int kpb, int dtype, int instance,
+                                      void* stream) {
   if (b <= 0 || b > 65535 || hkv <= 0 || hkv > 65535 || hq <= 0 || hq % hkv != 0 ||
       hq / hkv > kMaxG || d <= 0 || d > kMaxD || n_pages <= 0 || ps <= 0 || np <= 0 ||
       (long long)np * ps > 0x7fffffffLL || kpb <= 0 || kpb % ps != 0 ||
@@ -126,6 +177,14 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages, const 
   while (bx < kBoxKeys && ps % (2 * bx) == 0) bx *= 2;
   const Args a{q, k_pages, v_pages, tables, lengths, out, b, hq, hkv, d, n_pages, ps, np,
                cluster, kpb, bx, static_cast<cudaStream_t>(stream)};
+  if (instance == 1) {
+    if (dtype != 1 || d % 16 != 0 || bx < 8 ||
+        (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pages) |
+         reinterpret_cast<uintptr_t>(v_pages)) % 16 != 0)
+      return -4;
+    return d <= 128 ? launch_mma<128>(a) : launch_mma<256>(a);
+  }
+  if (instance != 0) return -4;
   if (dtype == 0) return launch_t<float>(a);
   if (dtype == 1) return launch_t<__nv_bfloat16>(a);
   return -3;

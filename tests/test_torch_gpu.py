@@ -63,15 +63,22 @@ def _paged(gen, b, hq, hkv, d, ps, np_, dtype, lengths):
 @pytest.mark.parametrize("shape", [(8, 32, 8, 128, 16, 32), (3, 4, 2, 64, 16, 5),
                                    (2, 8, 1, 32, 8, 3), (4, 64, 4, 256, 16, 6),
                                    (8, 8, 2, 128, 8, 16), (8, 8, 2, 128, 32, 8),
-                                   (4, 8, 2, 40, 12, 6), (4, 8, 2, 36, 5, 9)])
+                                   (4, 8, 2, 40, 12, 6), (4, 8, 2, 36, 5, 9),
+                                   (4, 16, 2, 64, 16, 8), (4, 32, 2, 64, 8, 16),
+                                   (8, 64, 8, 128, 16, 16), (8, 32, 2, 128, 16, 32),
+                                   (4, 24, 2, 80, 32, 4), (32, 32, 2, 128, 16, 512, 3072)])
 def test_paged_kernel_matches_plain(gen, dtype, shape):
     """The serving shape and two small ones, a group of 16 at D 256, pages
     of 8, 16 and 32 keys (boxes of 8 and 16 keys), pages of 12 keys at D
     40 (boxes of 4 keys: 640 bytes in float32, TMA; 320 in bf16, not a
     128-byte multiple, so the element-wise copy) and of 5 keys at D 36
-    (boxes of one row, 144 or 72 bytes: the element-wise copy)."""
-    b, hq, hkv, d, ps, np_ = shape
-    lengths = [0] + [int(x) for x in np.linspace(1, np_ * ps, b - 1)]
+    (boxes of one row, 144 or 72 bytes: the element-wise copy).  Groups of
+    8 and 16 at D 64 and 128, 12 at D 80 and 16 at D 256 (in bf16 the
+    tensor-core instance), and chatglm3-6b's tick in the long-document
+    cell: 32 lanes, 32/2, 512-page tables, lengths 3072 to 8192 (an
+    optional seventh entry is the shortest nonzero length)."""
+    b, hq, hkv, d, ps, np_, *lo = shape
+    lengths = [0] + [int(x) for x in np.linspace(lo[0] if lo else 1, np_ * ps, b - 1)]
     args = _paged(gen, b, hq, hkv, d, ps, np_, dtype, lengths)
     before = paged_decode_attention_cuda.launches
     out = paged_decode_attention_cuda(*args)
@@ -112,6 +119,56 @@ def test_paged_kernel_lengths_at_page_and_block_edges(gen, dtype, ps):
     tol = TOLS[dtype]
     torch.testing.assert_close(out.float(), paged_decode_ref(q, kp, vp, tabs, lens).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("g", [8, 16])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_tensor_cores_at_tile_and_block_edges(gen, g, ps):
+    """The tensor-core instance (bf16, 32 lanes, 2 kv heads, D 128, 8192
+    keys a table: clusters of 4 blocks of 2048 keys) at lengths 0, 1, the
+    edges of a page, of a warp's 16-key slice and of a 64-key tile (15/16/
+    17, 63/64/65), of every block (2047/2048/2049 and on) and the full
+    table; every table entry at or past ceil(length / ps) points at a
+    trash page of large values that would show if any of its rows were
+    attended; a repeated call gives the same bits."""
+    from repro_torch.kernels.paged_attention.ops import _cluster
+
+    b, hkv, d, np_ = 32, 2, 128, 8192 // ps
+    assert _cluster(b, hkv, np_, ps) == (4, 2048)
+    edges = [0, 1, 15, 16, 17, 63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097, 6143, 6144,
+             6145, 8191, 8192]
+    lengths = edges + [int(x) for x in np.linspace(3000, 8000, b - len(edges))]
+    q, kp, vp, tabs, lens = _paged(gen, b, g * hkv, hkv, d, ps, np_, torch.bfloat16, lengths)
+    kp, vp = (torch.cat([x, torch.full_like(x[:1], 1e3)]) for x in (kp, vp))
+    trash = kp.shape[0] - 1
+    pages = (lens.long() + ps - 1) // ps
+    tabs = torch.where(torch.arange(np_, device="cuda")[None, :] < pages[:, None], tabs,
+                       torch.full_like(tabs, trash))
+    before = paged_decode_attention_cuda.mma_launches
+    out = paged_decode_attention_cuda(q, kp, vp, tabs, lens)
+    again = paged_decode_attention_cuda(q, kp, vp, tabs, lens)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_cuda.mma_launches == before + 2
+    assert torch.equal(out, again)
+    assert bool(torch.isfinite(out).all()) and not out[0].any()
+    torch.testing.assert_close(out.float(), paged_decode_ref(q, kp, vp, tabs, lens).float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_paged_mma_launches_count_the_tensor_core_instance(gen):
+    """A group of 16 in bf16 takes the tensor-core instance and adds one to
+    ``mma_launches`` beside ``launches``; a group of 1 (deepseek-moe-16b's
+    heads) and a group of 16 in float32 add to ``launches`` only."""
+    cases = [(_paged(gen, 4, 32, 2, 128, 16, 4, torch.bfloat16, [0, 1, 40, 64]), 1),
+             (_paged(gen, 4, 16, 16, 128, 16, 4, torch.bfloat16, [0, 1, 40, 64]), 0),
+             (_paged(gen, 4, 32, 2, 128, 16, 4, torch.float32, [0, 1, 40, 64]), 0)]
+    for args, mma in cases:
+        launches, mma_launches = (paged_decode_attention_cuda.launches,
+                                  paged_decode_attention_cuda.mma_launches)
+        paged_decode_attention_cuda(*args)
+        torch.cuda.synchronize()
+        assert paged_decode_attention_cuda.launches == launches + 1
+        assert paged_decode_attention_cuda.mma_launches == mma_launches + mma
 
 
 def test_paged_kernel_refuses_operands_outside_supports(gen):
@@ -319,13 +376,18 @@ def test_decode_kernel_long_caches(gen, dtype, t):
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention",
-                                    "paged_decode_attention"])
+                                    "paged_decode_attention", "paged_decode_attention_g16"])
 def test_repeated_calls_are_bit_identical(gen, kernel):
     """Fixed summation orders (no atomics; the decode clusters combine
-    their blocks in rank order): two calls give the same bits."""
+    their blocks in rank order, the tensor-core instance its warps in warp
+    order first): two calls give the same bits."""
     if kernel == "paged_decode_attention":
         args = _paged(gen, 8, 32, 8, 128, 16, 32, torch.bfloat16,
                       [0, 1, 512, 300, 64, 65, 129, 511])
+        first, second = (paged_decode_attention_cuda(*args) for _ in range(2))
+    elif kernel == "paged_decode_attention_g16":
+        args = _paged(gen, 32, 32, 2, 128, 16, 512, torch.bfloat16,
+                      [0, 1, 8192] + [int(x) for x in np.linspace(3072, 8191, 29)])
         first, second = (paged_decode_attention_cuda(*args) for _ in range(2))
     elif kernel == "flash_attention":
         q, k, v = (torch.randn((4, 256, h, 128), generator=gen, device="cuda").bfloat16()

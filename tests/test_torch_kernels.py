@@ -256,6 +256,43 @@ def test_flash_instance_choice():
                                   .transpose(1, 2))
 
 
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype, g, d, ps, aligned, instance", [
+    (_BF, 1, 128, 16, True, "cores"),     # deepseek-moe-16b, olmo-1b: one query head a kv head
+    (_BF, 4, 128, 16, True, "cores"),     # llama3-8b and the examples
+    (_BF, 6, 128, 16, True, "cores"),     # qwen2-vl-2b
+    (_BF, 5, 64, 16, True, "cores"),      # hymba-1.5b
+    (_BF, 8, 128, 16, True, "tensor"),
+    (_BF, 16, 128, 16, True, "tensor"),   # chatglm3-6b's 32 over 2
+    (_BF, 8, 64, 8, True, "tensor"),
+    (_BF, 12, 80, 32, True, "tensor"),    # D a multiple of 16 below 128
+    (_BF, 16, 256, 16, True, "tensor"),
+    (_F32, 16, 128, 16, True, "cores"),   # TF32 would round float32 operands
+    (_F32, 8, 64, 16, True, "cores"),
+    (_BF, 16, 128, 16, False, "cores"),   # misaligned q or pages
+    (_BF, 16, 40, 16, True, "cores"),     # D not a multiple of 16
+    (_BF, 16, 128, 12, True, "cores"),    # boxes of 4 keys: below the swizzle's 8-row period
+    (_BF, 16, 128, 4, True, "cores"),
+])
+def test_paged_instance_choice(dtype, g, d, ps, aligned, instance):
+    """The paged kernel's instance: the tensor cores for bf16 at groups of
+    8 or more with D a multiple of 16, pages a multiple of 8 keys and
+    16-byte aligned operands; the CUDA cores for groups below 8, float32,
+    misaligned operands, other D and smaller page boxes."""
+    want = {"cores": paged_ops._CUDA_CORES, "tensor": paged_ops._TENSOR_CORES}[instance]
+    assert paged_ops._instance(dtype, g, d, ps, aligned) == want
+
+
+def test_paged_aligned_reads_the_operands_addresses():
+    """``_aligned`` holds every operand's address to 16 bytes: a view one
+    bf16 element into its storage is not."""
+    kp = torch.zeros(9, 16, 2, 128, dtype=torch.bfloat16)
+    assert paged_ops._aligned(kp, kp[1:])
+    assert not paged_ops._aligned(kp, kp.view(-1)[1:])
+
+
 def test_kernel_library_hash_covers_headers_and_flags(tmp_path, monkeypatch):
     """Editing a header that a source includes from csrc/, or a flag,
     changes the library's path; a header it does not include does not."""
