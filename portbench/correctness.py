@@ -72,13 +72,13 @@ def summary(g: np.ndarray) -> dict:
 def check(run, params, served: list, cast: Optional[Callable] = None) -> dict:
     """The cell's checks, each ``{"value", "limit"}``, correct when every
     value is at most its limit; with ``cast`` also the control's gap."""
-    from portbench.harness import HERE, load_module
+    from portbench.harness import load_module
     from portbench.reference import common
 
     spec = run.cell["correctness"]
     picked = sample(served, run.seed, spec["sample"])
     common.highest_precision()
-    ref = load_module(HERE / "reference" / f"{run.config['reference']}.py",
+    ref = load_module(run.root / "reference" / f"{run.config['reference']}.py",
                       f"portbench_reference_{run.config['reference']}")
     weights = common.Weights(params)
     control = common.Weights(params, cast) if cast is not None else None

@@ -3,10 +3,19 @@ plain reference, and the result line.
 
 Everything that belongs to one configuration, traffic kind, cell or metric
 is found by its name: ``configs/<config>.json``, ``cells/<cell>.json``,
-``traffic/<kind>.py``, ``metrics/<metric>.py`` (or, for a metric named
-``<base>.<cell>``, ``metrics/<base>.py``) and ``reference/<config>.py``
-(``-`` and ``.`` as ``_``).  ``BENCHMARK.json`` says which metrics a cell
-reports.
+``traffic/<kind>.py`` (the generator that a cell's ``traffic.kind`` names;
+the mix is the cell's ``traffic``, and ``BENCHMARK.json`` names it by
+``traffic.name``, or by its kind where it has no name, so that two cells of
+one configuration on one generator are two mixes), ``metrics/<metric>.py`` (or, for a metric named
+``<base>.<cell>``, ``metrics/<base>.py``), ``reference/<config>.py`` and,
+where a configuration brings its own weights or FLOP count,
+``layouts/<config>.py`` (``-`` and ``.`` as ``_``; ``layouts/__init__.py``).
+``BENCHMARK.json`` says which metrics a cell reports.
+
+A traced run switches the port's own tracer (``repro_torch.tracing``) on
+over the traced part of its window: its spans are ``Run.program_spans``,
+and all but the waits that start on one thread and end on another join
+the benchmark's own spans, which name the breakdown's kernels and gaps.
 
 The program under test is the port, ``repro_torch`` under ``src/``; nothing
 here imports JAX or the JAX package, and a run that finds either loaded
@@ -28,7 +37,13 @@ ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
-__all__ = ["Run", "forbidden_modules", "load_module", "metric_reader", "run_cell", "main"]
+__all__ = ["Run", "forbidden_modules", "load_module", "metric_reader", "port_tracer",
+           "run_cell", "main"]
+
+# The port's spans that are waits across threads (a query's time in its
+# runtime lane, a drive's wait for the bridge's lock, a prefill's for its
+# steps' hold): read from ``Run.program_spans``, kept out of the labels.
+UNLABELLED = ("runtime.queued", "bridge.lock_wait", "prefill.hold")
 
 
 def forbidden_modules(names=None) -> list[str]:
@@ -36,6 +51,15 @@ def forbidden_modules(names=None) -> list[str]:
     modules that are JAX or the JAX package."""
     names = sys.modules if names is None else names
     return sorted({n.split(".")[0] for n in names} & set(FORBIDDEN))
+
+
+def port_tracer():
+    """The port's ``repro_torch.tracing``, or ``None`` where the program
+    has no tracer."""
+    try:
+        return importlib.import_module("repro_torch.tracing")
+    except ImportError:
+        return None
 
 
 def load_json(path: Path) -> dict:
@@ -78,6 +102,11 @@ def process_start() -> float:
         return time.perf_counter()
 
 
+def traffic_name(cell: dict) -> str:
+    """The name of a cell's traffic mix, as ``BENCHMARK.json`` gives it."""
+    return cell["traffic"].get("name", cell["traffic"]["kind"])
+
+
 class Run:
     """Everything one run records; the metric readers read it."""
 
@@ -90,8 +119,8 @@ class Run:
         self.bench = bench
         self.name = cell_name
         self.cell = load_json(root / "cells" / f"{cell_name}.json")
-        if (self.cell["config"], self.cell["traffic"]["kind"]) != (entry["config"],
-                                                                    entry["traffic"]):
+        if (self.cell["config"], traffic_name(self.cell)) != (entry["config"],
+                                                              entry["traffic"]):
             raise ValueError(f"cells/{cell_name}.json disagrees with BENCHMARK.json")
         self.config = load_json(root / "configs" / f"{entry['config']}.json")
         self.model = dict(self.config["model"], **(model_override or {}))
@@ -109,6 +138,7 @@ class Run:
         self.t0 = self.t1 = None
         self.setup_s: Optional[float] = None
         self.device_trace = None
+        self.program_spans: Optional[list] = None   # the port's, on a traced run
         self.attempted = 0
         self.failed = 0
         self.driver = None
@@ -133,6 +163,17 @@ class Run:
             return tr.t0, tr.t1
         return self.t0, self.t1
 
+    def program_named(self, name: str) -> Optional[list]:
+        """The port's spans of ``name`` that start and end inside
+        :meth:`layer_window`, by start, as :meth:`Spans.named` takes the
+        benchmark's own (what runs on after the window is stretched by the
+        trace's reading and the wind-down); ``None`` where the port's
+        tracer was not on."""
+        if self.program_spans is None:
+            return None
+        lo, hi = self.layer_window()
+        return [s for s in self.program_spans if s.name == name and lo <= s.start and s.end <= hi]
+
 
 def run_cell(run: Run, t_process: float, cast=None) -> dict:
     """Set up, measure, check and read the metrics of one run → what the
@@ -141,13 +182,11 @@ def run_cell(run: Run, t_process: float, cast=None) -> dict:
     served tokens' against the reference.  ``cast`` (the control's
     rounding) also reads the control's gap into ``run.counters``."""
     import torch
-    from portbench import correctness
-    from portbench.weights import make_params
+    from portbench import correctness, layouts
 
     kind = run.cell["traffic"]["kind"]
     traffic = load_module(run.root / "traffic" / f"{kind}.py", f"portbench_traffic_{kind}")
-    params = make_params(run.model, run.seed, run.device,
-                         run.config.get("init", {}).get("qk_scale", 1.0))
+    params = layouts.make_params(run)
     run.driver = traffic.Driver(run, params)
     run.driver.warmup()
     from portbench.serving import synchronize
@@ -158,11 +197,20 @@ def run_cell(run: Run, t_process: float, cast=None) -> dict:
         print(f"portbench: after set-up {torch.cuda.memory_allocated(run.device)} bytes allocated, "
               f"{torch.cuda.memory_reserved(run.device)} reserved, peak "
               f"{torch.cuda.max_memory_allocated(run.device)}", file=sys.stderr)
+    tracer = port_tracer() if run.trace else None
     if run.trace:
         from portbench.trace import DeviceTrace
-        run.device_trace = DeviceTrace(run.device)
-    run.driver.window(run.seconds)
-    run.driver.quiesce()
+        run.device_trace = DeviceTrace(run.device, tracer)
+    try:
+        run.driver.window(run.seconds)
+        run.driver.quiesce()
+    finally:
+        if tracer is not None:
+            tracer.disable()
+    if tracer is not None:
+        run.program_spans = tracer.collect()
+        run.spans.items.extend((s.name, s.start, s.end, s.thread, s.data)
+                               for s in run.program_spans if s.name not in UNLABELLED)
     result = {"memory_peak_bytes": (torch.cuda.max_memory_allocated(run.device)
                                     if torch.device(run.device).type == "cuda" else 0)}
     found = forbidden_modules()

@@ -30,13 +30,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
     harness.prepare_env()
+    from portbench.layouts import make_params
     from portbench.serving import Tracker
-    from portbench.weights import make_params
     bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
     run = harness.Run(bench, args.workload, args.seed, args.seconds, False, "cuda:0")
     traffic = harness.load_module(harness.HERE / "traffic" / "open_loop.py", "sweep_open_loop")
-    driver = traffic.Driver(run, make_params(run.model, run.seed, run.device,
-                                             run.config.get("init", {}).get("qk_scale", 1.0)))
+    driver = traffic.Driver(run, make_params(run))
     driver.warmup()
     for rate in (float(r) for r in args.rates.split(",")):
         run.cell["traffic"]["rate"] = rate

@@ -8,7 +8,7 @@ from portbench import harness
 from portbench.control import read
 
 
-@pytest.mark.parametrize("cell", ["dsmoe-chat", "glm-longdoc"])
+@pytest.mark.parametrize("cell", ["dsmoe-chat", "glm-longdoc", "dsmoe-chat-over"])
 def test_control_reads_wider_than_the_program_on_the_cpu(tiny_run, cell):
     run = tiny_run(cell, seconds=3.0, seed=2**31 + 99)
     run.cell["correctness"]["sample"] = 10_000
@@ -20,7 +20,7 @@ def test_control_reads_wider_than_the_program_on_the_cpu(tiny_run, cell):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cell,seconds", [("dsmoe-apps", 20), ("dsmoe-chat", 45),
-                                          ("glm-longdoc", 45)])
+                                          ("glm-longdoc", 45), ("dsmoe-chat-over", 45)])
 def test_control_fails_and_the_program_passes_on_the_card(cell, seconds):
     import torch
     if not torch.cuda.is_available():

@@ -88,6 +88,27 @@ def test_every_metric_of_the_benchmark_has_a_reader():
         assert (harness.HERE / "reference" / f"{config['reference']}.py").exists()
 
 
+def test_every_cell_names_its_own_pair_of_configuration_and_traffic():
+    bench = harness.load_json(ROOT / "BENCHMARK.json")
+    pairs = [(w["config"], w["traffic"]) for w in bench["workloads"]]
+    assert len(set(pairs)) == len(pairs)
+    for w in bench["workloads"]:
+        cell = harness.load_json(harness.HERE / "cells" / f"{w['name']}.json")
+        assert (cell["config"], harness.traffic_name(cell)) == (w["config"], w["traffic"])
+    over = harness.load_json(harness.HERE / "cells" / "dsmoe-chat-over.json")
+    assert harness.traffic_name(over) == "open_loop_over"
+    assert over["traffic"]["kind"] == "open_loop"
+
+
+def test_a_cell_whose_traffic_disagrees_with_the_benchmark_is_refused():
+    bench = harness.load_json(ROOT / "BENCHMARK.json")
+    for w in bench["workloads"]:
+        if w["name"] == "dsmoe-chat-over":
+            w["traffic"] = "open_loop"
+    with pytest.raises(ValueError, match="disagrees"):
+        harness.Run(bench, "dsmoe-chat-over", 1, 1.0, False, "cpu")
+
+
 def test_a_new_configuration_traffic_kind_cell_and_metric_are_found_by_name(tmp_path):
     """Added as new files and new entries, nothing else edited."""
     root = tmp_path / "portbench"
@@ -119,7 +140,7 @@ def test_a_new_configuration_traffic_kind_cell_and_metric_are_found_by_name(tmp_
     assert set(result["metrics"]) == {"setup_s", "requests_served"}
 
 
-@pytest.mark.parametrize("cell", ["dsmoe-apps", "dsmoe-chat", "glm-longdoc"])
+@pytest.mark.parametrize("cell", ["dsmoe-apps", "dsmoe-chat", "glm-longdoc", "dsmoe-chat-over"])
 def test_a_sound_run_is_correct(tiny_run, cell):
     run = tiny_run(cell, seconds=3.0)
     result = harness.run_cell(run, time.perf_counter())
@@ -135,7 +156,9 @@ def test_a_sound_run_is_correct(tiny_run, cell):
     ("dsmoe-apps", "half_batch"), ("dsmoe-chat", "altered_token"),
     ("dsmoe-chat", "state_unchanged"), ("dsmoe-chat", "half_batch"),
     ("dsmoe-apps", "misdelivered"),
-    ("glm-longdoc", "altered_token"), ("glm-longdoc", "state_unchanged")])
+    ("glm-longdoc", "altered_token"), ("glm-longdoc", "state_unchanged"),
+    ("dsmoe-chat-over", "altered_token"), ("dsmoe-chat-over", "state_unchanged"),
+    ("dsmoe-chat-over", "half_batch")])
 def test_a_broken_timed_path_is_not_correct(tiny_run, monkeypatch, cell, fault):
     """Each fault the cell can have (``glm-longdoc`` prefills one prompt a
     dispatch, so it has no half batch; only ``dsmoe-apps`` hands answers to

@@ -71,33 +71,52 @@ class Labeler:
 class DeviceTrace:
     """Start and stop a CUDA-only profile; after :meth:`stop`, ``kernels``
     holds (name, start, end) on the host clock and ``t0``/``t1`` the traced
-    window."""
+    window.  ``tracer``, the port's ``repro_torch.tracing`` where given, is
+    switched on once the window has started; whoever made the trace
+    switches it off and collects its spans."""
 
-    def __init__(self, device):
+    def __init__(self, device, tracer=None):
         self.device = device
+        self.tracer = tracer
         self.kernels: list[tuple[str, float, float]] = []
         self.by_name: dict[str, float] = {}
         self.t0 = self.t1 = None
 
     def start(self) -> None:
+        self._begin()
+        self.t0 = time.perf_counter()
+        if self.tracer is not None:
+            self.tracer.enable()
+
+    def stop(self) -> None:
+        self._sync()
+        self.t1 = time.perf_counter()
+        self._read()
+
+    def _sync(self) -> None:
+        import torch
+        torch.cuda.synchronize(self.device)
+
+    def _begin(self) -> None:
+        """The profiler on, then the marker: the host's clock noted at the
+        launch of the trace's first device event."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        torch.cuda.synchronize(self.device)
+        self._sync()
         self._prof = profile(activities=[ProfilerActivity.CUDA])
         self._prof.start()
         marker = torch.empty(1 << 10, dtype=torch.float32, device=self.device)
-        torch.cuda.synchronize(self.device)
+        self._sync()
         self._t_marker = time.perf_counter()
         marker.fill_(1.0)
-        torch.cuda.synchronize(self.device)
-        self.t0 = time.perf_counter()
+        self._sync()
 
-    def stop(self) -> None:
+    def _read(self) -> None:
+        """The profiler off, and its device events in the window on the
+        host's clock."""
         import torch
 
-        torch.cuda.synchronize(self.device)
-        self.t1 = time.perf_counter()
         self._prof.stop()
         names: dict[str, str] = {}
         events = []
